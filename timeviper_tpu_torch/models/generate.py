@@ -1,0 +1,180 @@
+"""Generation: bucketed prefill, then a greedy or sampled decode loop
+(counterpart of timeviper_tpu/models/generate.py, its plain non-pdrop path).
+
+  1. host: plan the fusion (data/fusion.py), pick a length bucket, LEFT-pad
+     the fused row to it with segment id -1, so the Mamba state resets at the
+     real start and attention never reaches the pads (segment mismatch in
+     prefill, `valid_from` in decode);
+  2. device: encode the frames clip by clip, then one prefill that fills the
+     decode cache and gives the last row's f32 logits;
+  3. host loop: one `decode_step` per token until a terminator or
+     `max_new_tokens`.
+
+Left out for now: pdrop, sequence parallelism, speculative decoding,
+`prefill_prefix` and the serving engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from timeviper_tpu.data.fusion import FusionPlan, plan_fusion
+from timeviper_tpu_torch.models.vlm import (
+    TimeViperVLM,
+    VLMArch,
+    decode_step,
+    encode_visual,
+    vlm_forward,
+)
+from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
+
+DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
+def pad_text_to_bucket(ids_arr, gather_idx, bucket, pad_token_id):
+    """Pad the text ids to the bucket length; visual gather entries (>= the
+    text length) shift by the pad amount."""
+    Lt = ids_arr.shape[0]
+    if Lt >= bucket:
+        return ids_arr, gather_idx
+    ids_pad = np.concatenate([ids_arr, np.full((bucket - Lt,), pad_token_id, ids_arr.dtype)])
+    gidx = np.asarray(gather_idx)
+    gidx = np.where(gidx >= Lt, gidx + (bucket - Lt), gidx).astype(gidx.dtype)
+    return ids_pad, gidx
+
+
+def pick_bucket(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return n
+
+
+@dataclasses.dataclass
+class GenerationOutput:
+    token_ids: np.ndarray  # (num_generated,), includes the terminator if emitted
+    num_generated: int
+    first_logits: torch.Tensor  # (1, V) f32 logits of the prompt's last row
+    encode_s: float  # host seconds, each phase ended by a device synchronize
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Generator:
+    """Batch-1 generation over one model on one device."""
+
+    def __init__(
+        self,
+        model: TimeViperVLM,
+        arch: VLMArch,
+        *,
+        terminator_ids: Sequence[int],
+        pad_token_id: int = 0,
+        max_new_tokens: int = 128,
+        sampling: SamplingParams = SamplingParams(),
+        clip_size: int = 256,
+    ) -> None:
+        self.model = model
+        self.arch = arch
+        self.terminators = tuple(int(t) for t in terminator_ids)
+        self.pad_token_id = pad_token_id
+        self.max_new_tokens = max_new_tokens
+        self.sampling = sampling
+        self.clip_size = clip_size
+        self.device = model.llm_backbone.embeddings.weight.device
+
+    @torch.inference_mode()
+    def encode_frames(self, pixels) -> torch.Tensor:
+        """(F, H, W, 3) -> (F * tokens_per_frame, D), clip by clip."""
+        pixels = torch.as_tensor(pixels, device=self.device)
+        outs = [encode_visual(self.model, self.arch, pixels[s:s + self.clip_size])
+                for s in range(0, pixels.shape[0], self.clip_size)]
+        ve = torch.cat(outs, dim=0)
+        return ve.reshape(-1, ve.shape[-1])
+
+    def _plan_prompt(self, ids, image_token_id):
+        """Left-pad the fused layout to a bucket, mask <image> placeholders to
+        the pad token, pad the text ids. Returns (plan, bucket, pad, ids_arr,
+        gather_idx, seq_idx)."""
+        img = image_token_id if image_token_id is not None else -1
+        plan = plan_fusion(ids, img, self.arch.tokens_per_frame)
+        bucket = pick_bucket(plan.fused_len)
+        pad = bucket - plan.fused_len
+        gather_idx = np.concatenate([np.zeros((pad,), np.int32), plan.gather_idx])
+        seq = (plan.seq_idx if plan.seq_idx is not None
+               else np.zeros((plan.fused_len,), np.int32))
+        seq_idx = np.concatenate([np.full((pad,), -1, np.int32), seq])
+        ids_arr = np.asarray(ids, np.int32)
+        ids_arr = np.where(ids_arr == img, self.pad_token_id, ids_arr)
+        ids_arr, gather_idx = pad_text_to_bucket(ids_arr, gather_idx, bucket, self.pad_token_id)
+        return plan, bucket, pad, ids_arr, gather_idx, seq_idx
+
+    @torch.inference_mode()
+    def prefill(self, ids_arr, gather_idx, seq_idx, visual, pad, cache_len):
+        """Bucketed prefill -> (last-row f32 logits (1, V), decode cache)."""
+        bucket = len(seq_idx)
+        plan = FusionPlan(fused_len=bucket, text_len=len(ids_arr), num_visual=visual.shape[0],
+                          gather_idx=gather_idx, is_visual=None, seq_idx=seq_idx,
+                          position_ids=None, sample_layouts=())
+        out = vlm_forward(
+            self.model, self.arch,
+            input_ids=torch.as_tensor(ids_arr, dtype=torch.long, device=self.device),
+            plan=plan, visual_embeddings=visual, fill_cache=True, cache_max_len=cache_len,
+            valid_from=pad, logits_to_keep=1)
+        return out["logits"][:, -1], out["cache"]
+
+    @torch.inference_mode()
+    def decode(self, first_logits, cache, rng_seed: int = 0) -> np.ndarray:
+        """Sample the first token from the prefill logits, then step until a
+        terminator or max_new_tokens."""
+        gen = None
+        if self.sampling.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        tok = sample_token(first_logits, gen, self.sampling)
+        out = [int(tok[0])]
+        while len(out) < self.max_new_tokens and out[-1] not in self.terminators:
+            logits, cache = decode_step(self.model, self.arch, tok[:, None], cache)
+            tok = sample_token(logits, gen, self.sampling)
+            out.append(int(tok[0]))
+        return np.asarray(out, np.int32)
+
+    def generate(
+        self,
+        input_ids: Sequence[int],
+        pixels=None,
+        image_token_id: Optional[int] = None,
+        answer_prompt_ids: Optional[Sequence[int]] = None,
+        rng_seed: int = 0,
+    ) -> GenerationOutput:
+        """Generate a completion for one prompt (batch 1)."""
+        ids = list(input_ids) + list(answer_prompt_ids or [])
+        t0 = time.perf_counter()
+        visual = self.encode_frames(pixels) if pixels is not None else None
+        _sync(self.device)
+        t1 = time.perf_counter()
+        plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(ids, image_token_id)
+        nv = 0 if visual is None else visual.shape[0]
+        if plan.num_visual != nv:
+            raise ValueError(f"prompt has {plan.num_visual} visual slots, pixels give {nv}")
+        if visual is None:
+            emb = self.model.llm_backbone.embeddings.weight
+            visual = emb.new_zeros(0, self.arch.llm.hidden_size)
+        first_logits, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
+                                           bucket + self.max_new_tokens)
+        _sync(self.device)
+        t2 = time.perf_counter()
+        tokens = self.decode(first_logits, cache, rng_seed)
+        t3 = time.perf_counter()
+        return GenerationOutput(token_ids=tokens, num_generated=len(tokens),
+                                first_logits=first_logits, encode_s=t1 - t0,
+                                prefill_s=t2 - t1, decode_s=t3 - t2)

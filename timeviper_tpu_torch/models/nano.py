@@ -1,0 +1,358 @@
+"""Nemotron-H hybrid backbone: Mamba-2 / attention / MLP layers (counterpart of
+timeviper_tpu/models/nano.py).
+
+Modules hold the weights under the JAX package's names (params.py maps one
+onto the other); the forward passes are plain functions named as in the JAX
+package:
+
+* `nano_forward` (prefill): Mamba layers run the chunked SSD scan
+  (ops/ssd_kernel.py, kernel K1 on the card), attention layers causal packed
+  attention (ops/flash_attention.py, kernel K2 on the card); with
+  `fill_cache` it also returns the decode cache.
+* `nano_decode_step`: one token; Mamba layers take the O(1) state update,
+  attention layers write their KV buffer in place at `length` and attend
+  over the slots [valid_from, length].
+
+Attention has no RoPE; the MLP is up -> relu^2 -> down. Head h of a Mamba
+layer reads group h // (H/G). Linear weights are torch's (out, in).
+
+Left out for now: pdrop / TransV, remat and training, int8, LoRA and the
+fused in_proj leaf.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from timeviper_tpu.config import NanoConfig
+from timeviper_tpu_torch.ops.attention import attention
+from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
+from timeviper_tpu_torch.ops.flash_attention import flash_attention
+from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
+from timeviper_tpu_torch.ops.ssd import ssd_update_step
+from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    """Holds a float32 norm weight (the JAX `{"weight": ...}` leaf)."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
+
+
+class ConvWeights(nn.Module):
+    """Depthwise conv taps (channels, K) and bias (channels,), float32."""
+
+    def __init__(self, channels: int, K: int, bias: bool, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(channels, K, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
+                     if bias else None)
+
+
+class MambaMixer(nn.Module):
+    def __init__(self, cfg: NanoConfig, dtype, device):
+        super().__init__()
+        d, di, H = cfg.hidden_size, cfg.mamba_intermediate_size, cfg.mamba_num_heads
+        gn = cfg.mamba_n_groups * cfg.ssm_state_size
+        kw = dict(bias=cfg.use_bias, dtype=dtype, device=device)
+        # in_proj stays split by role, as in the JAX pytree
+        self.in_proj = nn.ModuleDict({
+            "gate": nn.Linear(d, di, **kw), "x": nn.Linear(d, di, **kw),
+            "B": nn.Linear(d, gn, **kw), "C": nn.Linear(d, gn, **kw),
+            "dt": nn.Linear(d, H, **kw),
+        })
+        K, cb = cfg.mamba_d_conv, cfg.use_conv_bias
+        self.conv1d = nn.ModuleDict({
+            "x": ConvWeights(di, K, cb, device), "B": ConvWeights(gn, K, cb, device),
+            "C": ConvWeights(gn, K, cb, device),
+        })
+        f32 = dict(dtype=torch.float32, device=device)
+        self.dt_bias = nn.Parameter(torch.zeros(H, **f32))
+        self.A_log = nn.Parameter(torch.zeros(H, **f32))
+        self.D = nn.Parameter(torch.ones(H, **f32))
+        self.norm = RMSNorm(di, device)
+        self.out_proj = nn.Linear(di, d, **kw)
+
+
+class AttentionMixer(nn.Module):
+    def __init__(self, cfg: NanoConfig, dtype, device):
+        super().__init__()
+        d, hd = cfg.hidden_size, cfg.head_dim
+        kw = dict(bias=cfg.attention_bias, dtype=dtype, device=device)
+        self.q_proj = nn.Linear(d, cfg.num_attention_heads * hd, **kw)
+        self.k_proj = nn.Linear(d, cfg.num_key_value_heads * hd, **kw)
+        self.v_proj = nn.Linear(d, cfg.num_key_value_heads * hd, **kw)
+        self.o_proj = nn.Linear(cfg.num_attention_heads * hd, d, **kw)
+
+
+class MLPMixer(nn.Module):
+    def __init__(self, cfg: NanoConfig, dtype, device):
+        super().__init__()
+        kw = dict(bias=cfg.mlp_bias, dtype=dtype, device=device)
+        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+
+_MIXERS = {"mamba": MambaMixer, "attention": AttentionMixer, "mlp": MLPMixer}
+
+
+class NanoBlock(nn.Module):
+    def __init__(self, cfg: NanoConfig, block_type: str, dtype, device):
+        super().__init__()
+        self.block_type = block_type
+        self.norm = RMSNorm(cfg.hidden_size, device)
+        self.mixer = _MIXERS[block_type](cfg, dtype, device)
+
+
+class NanoModel(nn.Module):
+    def __init__(self, cfg: NanoConfig, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        if cfg.tie_word_embeddings:
+            raise NotImplementedError("tied embeddings are not ported")
+        self.cfg = cfg
+        self.embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
+                                       device=device)
+        self.layers = nn.ModuleList(
+            NanoBlock(cfg, bt, dtype, device) for bt in cfg.layers_block_type)
+        self.norm_f = RMSNorm(cfg.hidden_size, device)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
+                                 device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random weights drawn as the JAX init draws them (nano.py:55-164)."""
+        cfg = self.cfg
+        dev = self.embeddings.weight.device
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, 0.02, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, RMSNorm):
+                mod.weight.fill_(1.0)
+            elif isinstance(mod, ConvWeights):
+                mod.weight.normal_(0.0, 0.1, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        self.embeddings.weight.normal_(0.0, 0.02, generator=generator)
+        H = cfg.mamba_num_heads
+        lo, hi = math.log(cfg.time_step_min), math.log(cfg.time_step_max)
+        for block in self.layers:
+            m = block.mixer
+            if not isinstance(m, MambaMixer):
+                continue
+            # dt_bias: inverse softplus of a log-uniform dt
+            u = torch.rand(H, generator=generator, device=dev)
+            dt = torch.exp(u * (hi - lo) + lo).clamp(min=cfg.time_step_floor)
+            m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+            m.A_log.copy_(torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=dev)))
+            m.D.fill_(1.0)
+            m.out_proj.weight.normal_(0.0, 0.02 / math.sqrt(cfg.num_hidden_layers),
+                                      generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Layer applies
+# ---------------------------------------------------------------------------
+
+
+def mamba_in_proj(m: MambaMixer, x: torch.Tensor):
+    """(gate, x, B, C, dt) raw streams of the Mamba in-projection."""
+    ip = m.in_proj
+    return ip["gate"](x), ip["x"](x), ip["B"](x), ip["C"](x), ip["dt"](x)
+
+
+def mamba_mixer_forward(
+    m: MambaMixer,
+    cfg: NanoConfig,
+    x: torch.Tensor,
+    seq_idx: Optional[torch.Tensor] = None,
+    fill_cache: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Full-sequence Mamba-2 mixer. x (B, L, D); seq_idx (B, L) int32."""
+    B, L, _ = x.shape
+    di = cfg.mamba_intermediate_size
+    G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
+    gate, xr, Br, Cr, dt = mamba_in_proj(m, x)
+    new_cache = None
+    if fill_cache:
+        K = cfg.mamba_d_conv
+        new_cache = {"conv_state": {"x": init_conv_state(xr, K), "B": init_conv_state(Br, K),
+                                    "C": init_conv_state(Cr, K)}}
+    cv, act = m.conv1d, cfg.mamba_hidden_act
+    xs = causal_conv1d(xr, cv["x"].weight, cv["x"].bias, act, seq_idx)
+    Bs = causal_conv1d(Br, cv["B"].weight, cv["B"].bias, act, seq_idx)
+    Cs = causal_conv1d(Cr, cv["C"].weight, cv["C"].bias, act, seq_idx)
+    y, final_state = ssd_scan(
+        xs.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, L, G, N),
+        Cs.reshape(B, L, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
+        dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
+    if fill_cache:
+        new_cache["ssm_state"] = final_state
+    y = gated_rms_norm(y.reshape(B, L, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
+                       group_size=di // G)
+    return m.out_proj(y), new_cache
+
+
+def mamba_mixer_decode(
+    m: MambaMixer, cfg: NanoConfig, x: torch.Tensor, cache_layer: Dict[str, Any]
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token. x (B, 1, D). Returns (out (B, 1, D), new cache entry)."""
+    B = x.shape[0]
+    di = cfg.mamba_intermediate_size
+    G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
+    gate, xr, Br, Cr, dt = mamba_in_proj(m, x[:, 0])
+    cv, cs, act = m.conv1d, cache_layer["conv_state"], cfg.mamba_hidden_act
+    xs, cs_x = causal_conv1d_update(xr, cs["x"], cv["x"].weight, cv["x"].bias, act)
+    Bs, cs_B = causal_conv1d_update(Br, cs["B"], cv["B"].weight, cv["B"].bias, act)
+    Cs, cs_C = causal_conv1d_update(Cr, cs["C"], cv["C"].weight, cv["C"].bias, act)
+    y, ssm_state = ssd_update_step(
+        cache_layer["ssm_state"], xs.reshape(B, H, P), dt, -torch.exp(m.A_log),
+        Bs.reshape(B, G, N), Cs.reshape(B, G, N), D=m.D, dt_bias=m.dt_bias,
+        dt_limit=cfg.time_step_limit)
+    y = gated_rms_norm(y.reshape(B, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
+                       group_size=di // G)
+    return m.out_proj(y)[:, None], {
+        "conv_state": {"x": cs_x, "B": cs_B, "C": cs_C}, "ssm_state": ssm_state}
+
+
+def attention_mixer_forward(
+    m: AttentionMixer,
+    cfg: NanoConfig,
+    x: torch.Tensor,
+    segment_ids: Optional[torch.Tensor] = None,
+    fill_cache: bool = False,
+    max_len: int = 0,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Prefill attention: causal, packed by segment ids (the flash path)."""
+    B, L, _ = x.shape
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q = m.q_proj(x).reshape(B, L, Hq, hd)
+    k = m.k_proj(x).reshape(B, L, Hkv, hd)
+    v = m.v_proj(x).reshape(B, L, Hkv, hd)
+    out = m.o_proj(flash_attention(q, k, v, segment_ids=segment_ids).reshape(B, L, Hq * hd))
+    new_cache = None
+    if fill_cache:
+        if max_len < L:
+            raise ValueError(f"cache capacity {max_len} < prefill length {L}")
+        kc = k.new_zeros(B, max_len, Hkv, hd)
+        vc = v.new_zeros(B, max_len, Hkv, hd)
+        kc[:, :L] = k
+        vc[:, :L] = v
+        new_cache = {"k": kc, "v": vc}
+    return out, new_cache
+
+
+def attention_mixer_decode(
+    m: AttentionMixer,
+    cfg: NanoConfig,
+    x: torch.Tensor,
+    cache_layer: Dict[str, Any],
+    length: int,
+    valid_from: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token against the fixed-capacity KV buffer. The new K/V row is
+    written IN PLACE at slot `length` (no copy of the buffer per token); the
+    token attends over slots [valid_from, length]."""
+    B = x.shape[0]
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    k, v = cache_layer["k"], cache_layer["v"]
+    if length >= k.shape[1]:
+        raise ValueError(f"KV cache of {k.shape[1]} slots is full")
+    q = m.q_proj(x).reshape(B, 1, Hq, hd)
+    k[:, length] = m.k_proj(x).reshape(B, Hkv, hd).to(k.dtype)
+    v[:, length] = m.v_proj(x).reshape(B, Hkv, hd).to(v.dtype)
+    out = attention(q, k[:, valid_from:length + 1], v[:, valid_from:length + 1])
+    return m.o_proj(out.reshape(B, 1, Hq * hd)), cache_layer
+
+
+def mlp_mixer_forward(m: MLPMixer, cfg: NanoConfig, x: torch.Tensor) -> torch.Tensor:
+    """up -> relu^2 -> down."""
+    return m.down_proj(F.relu(m.up_proj(x)).square())
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def nano_forward(
+    model: NanoModel,
+    cfg: NanoConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    seq_idx: Optional[torch.Tensor] = None,
+    fill_cache: bool = False,
+    cache_max_len: int = 0,
+    logits_to_keep: int = 0,
+    valid_from: int = 0,
+    training: bool = False,
+) -> Dict[str, Any]:
+    """Full-sequence forward (prefill). Returns {"hidden_states", "logits"}
+    and, with `fill_cache`, the decode `cache`. `logits_to_keep` > 0 computes
+    the f32 logits of the last rows only. `training` is explicit: the port is
+    inference-only so far, and the kernels have no backward."""
+    if training:
+        raise NotImplementedError("training is not ported: the kernels have no backward")
+    hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
+    L = hidden.shape[1]
+    eps = cfg.layer_norm_epsilon
+    new_layers = []
+    for block in model.layers:
+        normed = rms_norm(hidden, block.norm.weight, eps)
+        layer_cache: Optional[Dict[str, Any]] = None
+        if block.block_type == "mamba":
+            out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache)
+        elif block.block_type == "attention":
+            out, layer_cache = attention_mixer_forward(
+                block.mixer, cfg, normed, segment_ids=seq_idx, fill_cache=fill_cache,
+                max_len=cache_max_len)
+        else:
+            out = mlp_mixer_forward(block.mixer, cfg, normed)
+        hidden = hidden + out
+        new_layers.append(layer_cache or {})
+    hidden = rms_norm(hidden, model.norm_f.weight, eps)
+    logits = compute_logits(model, hidden[:, -logits_to_keep:] if logits_to_keep else hidden)
+    out = {"hidden_states": hidden, "logits": logits}
+    if fill_cache:
+        out["cache"] = {"layers": new_layers, "length": L, "valid_from": int(valid_from)}
+    return out
+
+
+def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
+    """lm_head in float32."""
+    return F.linear(hidden.float(), model.lm_head.weight.float())
+
+
+def nano_decode_step(
+    model: NanoModel, cfg: NanoConfig, input_ids: torch.Tensor, cache: Dict[str, Any]
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. input_ids (B, 1). Returns (logits (B, V) f32, cache)."""
+    hidden = model.embeddings(input_ids)
+    length, valid_from = cache["length"], cache["valid_from"]
+    eps = cfg.layer_norm_epsilon
+    new_layers = []
+    for block, lc in zip(model.layers, cache["layers"]):
+        normed = rms_norm(hidden, block.norm.weight, eps)
+        if block.block_type == "mamba":
+            out, lc = mamba_mixer_decode(block.mixer, cfg, normed, lc)
+        elif block.block_type == "attention":
+            out, lc = attention_mixer_decode(block.mixer, cfg, normed, lc, length, valid_from)
+        else:
+            out = mlp_mixer_forward(block.mixer, cfg, normed)
+        hidden = hidden + out
+        new_layers.append(lc)
+    hidden = rms_norm(hidden, model.norm_f.weight, eps)
+    logits = compute_logits(model, hidden[:, 0])
+    return logits, {"layers": new_layers, "length": length + 1, "valid_from": valid_from}

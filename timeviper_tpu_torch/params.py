@@ -1,0 +1,96 @@
+"""The weights bridge: a JAX parameter pytree (leaves as numpy arrays, or
+anything numpy can copy) -> the port's `state_dict`.
+
+Linear kernels are stored (in, out) in the JAX package and become
+`nn.Linear.weight` (out, in); the ViT patch kernel (p, p, 3, D) becomes the
+(D, p*p*3) weight of the patch matmul; conv taps are (channels, K) in both.
+Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
+read-only, and the port must own its memory. bfloat16 leaves keep their type.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def to_tensor(leaf) -> torch.Tensor:
+    arr = np.array(leaf)  # a copy, writable
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _linear(sd: Dict[str, torch.Tensor], prefix: str, p: Dict[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = to_tensor(p["kernel"]).T.contiguous()
+    if p.get("bias") is not None:
+        sd[f"{prefix}.bias"] = to_tensor(p["bias"])
+
+
+def vit_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """SigLIP tower. The last block feeds no output (penultimate features)
+    and is dropped."""
+    sd: Dict[str, torch.Tensor] = {}
+    pe = tree["patch_embed"]
+    k = to_tensor(pe["kernel"])
+    sd["patch_embed.weight"] = k.reshape(-1, k.shape[-1]).T.contiguous()
+    sd["patch_embed.bias"] = to_tensor(pe["bias"])
+    sd["pos_embed"] = to_tensor(tree["pos_embed"])
+    for i, layer in enumerate(tree["layers"][: cfg.num_hidden_layers - 1]):
+        pre = f"layers.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = to_tensor(layer[norm]["weight"])
+            sd[f"{pre}.{norm}.bias"] = to_tensor(layer[norm]["bias"])
+        _linear(sd, f"{pre}.attn.qkv", layer["attn"]["qkv"])
+        _linear(sd, f"{pre}.attn.proj", layer["attn"]["proj"])
+        _linear(sd, f"{pre}.mlp.fc1", layer["mlp"]["fc1"])
+        _linear(sd, f"{pre}.mlp.fc2", layer["mlp"]["fc2"])
+    return sd
+
+
+def projector_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "fc1", tree["fc1"])
+    _linear(sd, "fc2", tree["fc2"])
+    return sd
+
+
+def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {"embeddings.weight": to_tensor(tree["embeddings"])}
+    for i, (bt, layer) in enumerate(zip(cfg.layers_block_type, tree["layers"])):
+        pre, mx = f"layers.{i}", layer["mixer"]
+        sd[f"{pre}.norm.weight"] = to_tensor(layer["norm"]["weight"])
+        if bt == "mamba":
+            for role in ("gate", "x", "B", "C", "dt"):
+                _linear(sd, f"{pre}.mixer.in_proj.{role}", mx["in_proj"][role])
+            for role in ("x", "B", "C"):
+                cv = mx["conv1d"][role]
+                sd[f"{pre}.mixer.conv1d.{role}.weight"] = to_tensor(cv["weight"])
+                if cv.get("bias") is not None:
+                    sd[f"{pre}.mixer.conv1d.{role}.bias"] = to_tensor(cv["bias"])
+            for name in ("dt_bias", "A_log", "D"):
+                sd[f"{pre}.mixer.{name}"] = to_tensor(mx[name])
+            sd[f"{pre}.mixer.norm.weight"] = to_tensor(mx["norm"]["weight"])
+            _linear(sd, f"{pre}.mixer.out_proj", mx["out_proj"])
+        elif bt == "attention":
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                _linear(sd, f"{pre}.mixer.{name}", mx[name])
+        else:
+            _linear(sd, f"{pre}.mixer.up_proj", mx["up_proj"])
+            _linear(sd, f"{pre}.mixer.down_proj", mx["down_proj"])
+    sd["norm_f.weight"] = to_tensor(tree["norm_f"]["weight"])
+    _linear(sd, "lm_head", tree["lm_head"])
+    return sd
+
+
+def from_jax_numpy(tree: Dict[str, Any], arch) -> Dict[str, torch.Tensor]:
+    """The JAX VLM pytree (init_vlm_params's layout) -> TimeViperVLM state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    parts = (("vision_backbone", vit_state_dict(tree["vision_backbone"], arch.vision)),
+             ("projector", projector_state_dict(tree["projector"])),
+             ("llm_backbone", nano_state_dict(tree["llm_backbone"], arch.llm)))
+    for prefix, part in parts:
+        sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return sd
