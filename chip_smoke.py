@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of TimeViper once on one CUDA card.
+"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, then
+LoRA training.
 
     python3 chip_smoke.py
 
@@ -7,28 +8,47 @@ Phases, each of which raises on failure (there is no fallback anywhere):
 
 1. device: a CUDA card must be present; print its name and power limit;
    TF32 off for matmuls and convolutions.
-2. build: compile csrc/*.cu with nvcc into one library; print the seconds.
+2. build: compile csrc/*.cu (one nvcc per source, all started together) into
+   one library; print the seconds and each kernel's registers and spills.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
-   main path's shapes, in bf16; print max error and times.
-4. end to end: TimeViper-9B (SigLIP-SO400M-384 + ToMe-16 MLP + Nemotron-H 9B,
+   main paths' shapes, in bf16, with its max error, its time, the plain
+   version's, one PyTorch library call's where one computes the same function
+   (a yardstick the port never calls) and its bound on the card. The
+   backward kernels (K4, K2-bwd) also give bitwise-equal gradients on a
+   repeat.
+4. serving: TimeViper-9B (SigLIP-SO400M-384 + ToMe-16 MLP + Nemotron-H 9B,
    all 52 layers) with random bf16 weights from a seeded CUDA generator, three
    greedy requests through Generator.generate (text only, 64 frames, 256
-   frames) and a repeat of the second; the launch counters of the three
-   kernels must grow during them. The kernels are then held against their
-   plain versions on the inputs the 64-frame request really gave them, and the
-   64-frame request is run once more with the plain versions in place of the
-   kernels as a reference for its first-token logits.
+   frames) and a repeat of the second; the forward kernels' launch counters
+   must grow. The kernels are held against their plain versions on the
+   inputs the 64-frame request gave them, and the 64-frame request is run
+   once more with the plain versions as a reference for its first logits.
+5. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
+   unfrozen, through Trainer.train: four steps on one repeated row of 64
+   frames + 40 text tokens (labels on the last 32), then one step on a row of
+   256 frames (4,136 tokens). Every loss finite, the 4th below the 1st, every
+   kernel of the path launched (K1, K2, K3 forward, K4, K2-bwd). K4 and K2-bwd
+   are held against their plain versions on the inputs and output cotangents
+   the first step gave one Mamba and one attention layer, and the first step's
+   loss and LoRA gradient against a run with the plain versions swapped in.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
+
+    python3 chip_smoke.py --profile
+
+also profiles one more training step on the 256-frame row after the checks
+(torch.profiler; device time by kernel name and the device's busy share).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,7 +56,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from timeviper_tpu.config import VLMConfig  # noqa: E402
+from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
+from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
+from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
@@ -45,25 +67,42 @@ from timeviper_tpu_torch.models.vlm import init_vlm_params  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
     flash_attention_plain,
 )
 from timeviper_tpu_torch.ops.ssd import ssd_chunked  # noqa: E402
-from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan  # noqa: E402
+from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_plain,
+    ssd_scan_fwd,
+)
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
+    encoder_attention_qkv,
     vit_attention_qkv,
     vit_attention_qkv_plain,
 )
+from timeviper_tpu_torch.train.lora import add_lora  # noqa: E402
+from timeviper_tpu_torch.train.optim import OptimConfig  # noqa: E402
+from timeviper_tpu_torch.train.step import grad_step  # noqa: E402
+from timeviper_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 DEV = torch.device("cuda")
 SEED = 0
 IMAGE_TOKEN = 131000  # an id inside the 131072 vocabulary that no text id uses
 MAX_NEW = 16
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
 # Per kernel: its source, the TPU kernel it replaces (file:line) and its
-# tolerance, relative to the plain output's largest magnitude: both sides read
-# the same bf16 inputs, round their output to bf16 (2^-8 relative) and sum in
-# f32 in other orders; both attentions round their probabilities to bf16
-# before the PV product (the kernels feed them to bf16 tensor cores).
+# tolerance, relative to the plain result's largest magnitude. Forward: both
+# sides read the same bf16 inputs, round their output to bf16 (2^-8
+# relative) and sum in f32 in other orders; both attentions round their
+# probabilities to bf16 before the PV product. Backward: the kernels also
+# feed bf16-rounded decay, probability and dS tiles to the tensor cores where
+# the plain versions multiply in f32, and each gradient sums many of them.
 KERNELS = {
     "ssd_fwd": dict(source="timeviper_tpu_torch/csrc/ssd_fwd.cu",
                     replaces="timeviper_tpu/ops/ssd_pallas.py:52", rel_tol=1e-2),
@@ -71,9 +110,16 @@ KERNELS = {
                       replaces="timeviper_tpu/ops/flash_pallas.py:39", rel_tol=1e-2),
     "vit_attn_qkv": dict(source="timeviper_tpu_torch/csrc/vit_attn_qkv.cu",
                          replaces="timeviper_tpu/ops/vit_attention.py:197", rel_tol=1e-2),
+    "ssd_bwd": dict(source="timeviper_tpu_torch/csrc/ssd_bwd.cu",
+                    replaces="timeviper_tpu/ops/ssd_pallas.py:482", rel_tol=3e-2),
+    "flash_bwd": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
+                      replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+                      rel_tol=3e-2),
 }
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
-            "vit_attn_qkv": vit_attention_qkv}
+            "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
+            "flash_bwd": flash_attention_bwd}
+SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 
 
 def log(msg: str) -> None:
@@ -94,20 +140,39 @@ def timed_ms(fn, iters: int = 5) -> float:
 
 def compare(name: str, got, want) -> float:
     """Max abs error of the kernel output(s) against the plain one(s); raises
-    past the kernel's tolerance."""
+    past the kernel's tolerance (relative to the plain result's largest
+    magnitude, and for the forward kernels to at least 1)."""
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-    worst = 0.0
-    for g, w in pairs:
+    floor = 0.0 if name.endswith("_bwd") else 1.0
+    worst, parts = 0.0, []
+    for i, (g, w) in enumerate(pairs):
+        if g is None or w is None:  # an input with no gradient on one side
+            continue
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
+            raise AssertionError(f"{name}: non-finite kernel output {i}")
         err = (g - w).abs().max().item()
-        scale = max(w.abs().max().item(), 1.0)
+        scale = max(w.abs().max().item(), floor)
         if err > KERNELS[name]["rel_tol"] * scale:
-            raise AssertionError(f"{name}: max abs error {err:.3e} > "
+            raise AssertionError(f"{name}: output {i}: max abs error {err:.3e} > "
                                  f"{KERNELS[name]['rel_tol']} x {scale:.3e}")
         worst = max(worst, err)
+        parts.append(f"{err:.2e}/{scale:.2e}")
+    if len(parts) > 1:
+        log(f"[compare] {name}, max abs error / largest plain magnitude per output: "
+            + ", ".join(parts))
     return worst
+
+
+def bound(flops: float, moved: float):
+    """The least time (ms) the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def segments(L: int, pad: int, cut: int) -> torch.Tensor:
@@ -117,6 +182,46 @@ def segments(L: int, pad: int, cut: int) -> torch.Tensor:
     seq[:, :pad] = -1
     seq[:, cut:] = 1
     return seq
+
+
+def causal_pairs(seq: torch.Tensor) -> int:
+    """(query, key) pairs a causal, segment-equality mask keeps in one row of
+    contiguous segments: the work this run's data needs."""
+    _, counts = torch.unique_consecutive(seq[0], return_counts=True)
+    return sum(c * (c + 1) // 2 for c in counts.tolist())
+
+
+def ssd_flops(L, H, P, G, N, cs, backward=False) -> float:
+    """The chunked algorithm's products, the causal half of each chunk tile
+    counted once: C.B^T, (C.B^T * decay) x, chunk states, C . inbound state;
+    the backward recomputes C.B^T and adds dM, M^T dy, dCB B, dCB^T C and
+    five P x N products."""
+    nc = -(-L // cs)
+    if backward:
+        return nc * (G * cs * cs * N + H * cs * cs * (2 * P + 2 * N) + 10 * H * cs * P * N)
+    return nc * (G * cs * cs * N + H * cs * cs * P + 4 * H * cs * P * N)
+
+
+def sdpa(q, k, v, seq=None, causal=True):
+    """torch's scaled_dot_product_attention, the library yardstick (timed
+    here, called nowhere in the port), on (B, L, H, D) inputs: the KV heads
+    repeated for GQA and the layout changed once, outside the timed call; the
+    causal and segment mask given as a boolean mask. Returns (call, inputs)."""
+    rep = q.shape[2] // k.shape[2]
+    inputs = (q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+              v.repeat_interleave(rep, 2).transpose(1, 2))
+    mask = None
+    if causal:
+        L = q.shape[1]
+        mask = torch.ones(L, L, dtype=torch.bool, device=DEV).tril()
+        if seq is not None:
+            mask = mask & (seq[0][:, None] == seq[0][None, :])
+
+    def call(*qkv):
+        return torch.nn.functional.scaled_dot_product_attention(*(qkv or inputs),
+                                                                attn_mask=mask)
+
+    return call, inputs
 
 
 # ---------------------------------------------------------------------------
@@ -144,80 +249,148 @@ def phase_build() -> None:
     log(f"[build] {path.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds:.1f} s)")
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
 
 
 def kernel_cases(g: torch.Generator):
-    """Inputs at the main path's shapes: (name, kernel call, plain call)."""
+    """Inputs at the main paths' shapes: (name, kernel call, plain call,
+    library call or None, (operations, bytes)). The plain version of a
+    backward kernel, and its library call, run the forward too: they compute
+    the gradients from the inputs alone."""
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=DEV) * scale).to(torch.bfloat16)
 
-    # K1: one Mamba layer of the 9B at L = 4096 (16 chunks of 256)
-    L, H, P, G, N = 4096, 128, 64, 8, 128
+    # K1 / K4: one Mamba layer of the 9B at L = 4096 (16 chunks of 256), with
+    # a left pad and a packed boundary
+    L, H, P, G, N, cs = 4096, 128, 64, 8, 128, 256
     x, dt = randn(1, L, H, P), randn(1, L, H, scale=0.5)
     Bm, Cm = randn(1, L, G, N), randn(1, L, G, N)
     A = -torch.arange(1, H + 1, dtype=torch.float32, device=DEV)
     D = torch.ones(H, dtype=torch.float32, device=DEV)
     dtb = torch.log(torch.expm1(torch.full((H,), 0.01, device=DEV)))
     seq = segments(L, 300, 2500)
-    ssd_kw = dict(chunk_size=256, D=D, dt_bias=dtb, seq_idx=seq)
+    ssd_kw = dict(chunk_size=cs, D=D, dt_bias=dtb, seq_idx=seq)
+    y, final = ssd_scan(x, dt, A, Bm, Cm, **ssd_kw)
     yield ("ssd_fwd", lambda: ssd_scan(x, dt, A, Bm, Cm, **ssd_kw),
-           lambda: ssd_chunked(x, dt, A, Bm, Cm, **ssd_kw))
+           lambda: ssd_chunked(x, dt, A, Bm, Cm, **ssd_kw), None,
+           (ssd_flops(L, H, P, G, N, cs), nbytes(x, dt, Bm, Cm, seq, y, final)))
 
-    # K2: one attention layer of the 9B at L = 4096, same segments
-    q, k, v = randn(1, L, 32, 128), randn(1, L, 8, 128), randn(1, L, 8, 128)
+    dy = randn(1, L, H, P)
+    dfin = torch.randn(1, H, P, N, generator=g, device=DEV)
+    _, _, states = ssd_scan_fwd(x, dt, A, Bm, Cm, cs, D, dtb, (0.0, float("inf")), seq, None)
+    args = (x, dt, A, Bm, Cm, D, dtb, seq)
+    outs = ssd_scan_bwd(*args, states, dy, dfin, cs)
+    yield ("ssd_bwd", lambda: ssd_scan_bwd(*args, states, dy, dfin, cs),
+           lambda: ssd_scan_bwd_plain(*args, dy, dfin, cs), None,
+           (ssd_flops(L, H, P, G, N, cs, backward=True),
+            nbytes(x, dt, Bm, Cm, seq, states, dy, dfin, *outs)))
+    del states, outs
+
+    # K2 / K2-bwd: one attention layer of the 9B at L = 4096, same segments
+    Hq, Hkv, hd = 32, 8, 128
+    q, k, v = randn(1, L, Hq, hd), randn(1, L, Hkv, hd), randn(1, L, Hkv, hd)
+    pairs = causal_pairs(seq)
+    out, lse = flash_attention_fwd(q, k, v, seq, with_lse=True)
+    lib, lib_inputs = sdpa(q, k, v, seq)
     yield ("flash_fwd", lambda: flash_attention(q, k, v, segment_ids=seq),
-           lambda: flash_attention_plain(q, k, v, segment_ids=seq))
+           lambda: flash_attention_plain(q, k, v, segment_ids=seq), lib,
+           (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out)))
+    do = randn(1, L, Hq, hd)
+
+    def lib_fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in lib_inputs]
+        return torch.autograd.grad(lib(*leaves), leaves, do.transpose(1, 2))
+
+    yield ("flash_bwd", lambda: flash_attention_bwd(q, k, v, out, do, lse, seq),
+           lambda: flash_attention_bwd_plain(q, k, v, do, seq), lib_fwd_bwd,
+           (10 * Hq * hd * pairs, nbytes(q, k, v, out, do, lse, seq, q, k, v)))
+    del lib, lib_inputs
 
     # K3: one SigLIP-SO400M layer over 8 frames
-    qkv = randn(8, 729, 3 * 16 * 72)
-    yield ("vit_attn_qkv", lambda: vit_attention_qkv(qkv, 16, 72),
-           lambda: vit_attention_qkv_plain(qkv, 16, 72))
+    F_, T, nh, vhd = 8, 729, 16, 72
+    qkv = randn(F_, T, 3 * nh * vhd)
+    vq, vk, vv = qkv.reshape(F_, T, 3, nh, vhd).unbind(2)
+    yield ("vit_attn_qkv", lambda: vit_attention_qkv(qkv, nh, vhd),
+           lambda: vit_attention_qkv_plain(qkv, nh, vhd), sdpa(vq, vk, vv, causal=False)[0],
+           (4 * F_ * nh * T * T * vhd, nbytes(qkv) * 4 // 3))
 
 
 def phase_kernels(g: torch.Generator) -> dict:
     results = {}
-    for name, kern, plain in kernel_cases(g):
+    for name, kern, plain, library, (flops, moved) in kernel_cases(g):
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         err = compare(name, got, want)
+        if name.endswith("_bwd"):  # no atomics: a repeat gives the same bits
+            again = kern()
+            if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: a repeat gave other gradients")
+            del again
         del got, want
         ms = timed_ms(kern)
         plain_ms = timed_ms(plain, iters=2)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        log(f"[kernels] {name}: max abs err {err:.3e}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+        lib_ms = timed_ms(library, iters=3) if library is not None else None
+        bound_ms, bound_by = bound(flops, moved)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, launches=0)
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        log(f"[kernels] {name}: max abs err {err:.3e}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops:.3e} FLOP, {moved:.3e} B)")
         torch.cuda.empty_cache()
     return results
 
 
 class Capture:
-    """Records the first call's inputs of a wrapper while `armed`."""
+    """Records the first call's inputs of a wrapper while `armed`, and the
+    cotangent that reaches that call's (first) output in the backward."""
 
     def __init__(self, fn):
-        self.fn, self.armed, self.args, self.kwargs = fn, False, None, None
+        self.fn, self.armed, self.args, self.kwargs, self.grad = fn, False, None, None, None
 
     def __call__(self, *args, **kwargs):
-        if self.armed and self.args is None:
-            clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        first = self.armed and self.args is None
+        if first:
+            clone = lambda v: v.detach().clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
             self.args = tuple(clone(a) for a in args)
             self.kwargs = {k: clone(v) for k, v in kwargs.items()}
-        return self.fn(*args, **kwargs)
+        out = self.fn(*args, **kwargs)
+        head = out[0] if isinstance(out, tuple) else out
+        if first and head.requires_grad:
+            head.register_hook(lambda grad: setattr(self, "grad", grad.detach().clone()))
+        return out
 
 
-def phase_end_to_end(kernel_results: dict) -> None:
-    arch = build_arch(VLMConfig())  # siglip-vit-so400m-384px + tome_mlp-16 + nano-9b-v2
-    t0 = time.perf_counter()
-    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
-                            dtype=torch.bfloat16, device=DEV)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[e2e] TimeViper-9B: {n_params / 1e9:.2f} B params, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
+def route(ssd, flash, vit_attn) -> None:
+    """Point the model's calls at the given SSD, attention and ViT attention."""
+    nano_mod.ssd_scan, nano_mod.flash_attention = ssd, flash
+    vit_mod.encoder_attention_qkv = vit_attn
+
+
+def use_kernels() -> None:
+    route(ssd_scan, flash_attention, encoder_attention_qkv)
+
+
+def use_plain_versions() -> None:
+    route(ssd_chunked, flash_attention_plain, vit_attention_qkv_plain)
+
+
+def capture_all() -> dict:
+    caps = {"ssd_fwd": Capture(ssd_scan), "flash_fwd": Capture(flash_attention),
+            "vit_attn_qkv": Capture(encoder_attention_qkv)}
+    route(caps["ssd_fwd"], caps["flash_fwd"], caps["vit_attn_qkv"])
+    return caps
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def phase_serving(model, arch, kernel_results: dict) -> None:
     gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
-
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     size = arch.vision.image_size
 
@@ -229,15 +402,8 @@ def phase_end_to_end(kernel_results: dict) -> None:
         return ids, pixels
 
     requests = [("text", request(0)), ("64 frames", request(64)), ("256 frames", request(256))]
-    captures = {"ssd_fwd": Capture(nano_mod.ssd_scan),
-                "flash_fwd": Capture(nano_mod.flash_attention),
-                "vit_attn_qkv": Capture(vit_mod.encoder_attention_qkv)}
-    nano_mod.ssd_scan = captures["ssd_fwd"]
-    nano_mod.flash_attention = captures["flash_fwd"]
-    vit_mod.encoder_attention_qkv = captures["vit_attn_qkv"]
-
-    for w in WRAPPERS.values():
-        w.launches = 0
+    captures = capture_all()
+    reset_launches()
     outs = {}
     for label, (ids, pixels) in requests:
         for c in captures.values():
@@ -247,24 +413,21 @@ def phase_end_to_end(kernel_results: dict) -> None:
         if not torch.isfinite(out.first_logits).all():
             raise AssertionError(f"{label}: non-finite first-token logits")
         decode_tps = (out.num_generated - 1) / out.decode_s
-        log(f"[e2e] {label}: bucket {gen._plan_prompt(ids, IMAGE_TOKEN)[1]}, "
+        log(f"[serve] {label}: bucket {gen._plan_prompt(ids, IMAGE_TOKEN)[1]}, "
             f"encode {out.encode_s:.3f} s, prefill {out.prefill_s:.3f} s, "
             f"decode {decode_tps:.2f} tok/s, {out.num_generated} tokens "
             f"{out.token_ids.tolist()}")
     repeat = gen.generate(requests[1][1][0], pixels=requests[1][1][1],
                           image_token_id=IMAGE_TOKEN)
     launches = {name: w.launches for name, w in WRAPPERS.items()}
-    log(f"[e2e] launches during the requests: {launches}")
+    use_kernels()
+    log(f"[serve] launches during the requests: {launches}")
     if repeat.token_ids.tolist() != outs["64 frames"].token_ids.tolist():
         raise AssertionError("a repeat of the 64-frame request gave other ids")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-        kernel_results[name]["launches"] = count
-
-    nano_mod.ssd_scan = captures["ssd_fwd"].fn
-    nano_mod.flash_attention = captures["flash_fwd"].fn
-    vit_mod.encoder_attention_qkv = captures["vit_attn_qkv"].fn
+    for name in SERVING:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the serving path")
+        kernel_results[name]["launches"] = launches[name]
 
     # kernels against plain versions on the inputs the 64-frame request gave them
     c = captures["ssd_fwd"]
@@ -278,24 +441,20 @@ def phase_end_to_end(kernel_results: dict) -> None:
                                    vit_attention_qkv_plain(*c.args))
     for name, err in errs.items():
         shapes = [tuple(a.shape) for a in captures[name].args if isinstance(a, torch.Tensor)]
-        log(f"[e2e] {name} on the request's own inputs {shapes}: max abs err {err:.3e}")
+        log(f"[serve] {name} on the request's own inputs {shapes}: max abs err {err:.3e}")
         kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"], err)
     del captures, c
     torch.cuda.empty_cache()
 
     # reference: the 64-frame request with the plain versions in place of the kernels
-    nano_mod.ssd_scan = ssd_chunked
-    nano_mod.flash_attention = flash_attention_plain
-    vit_mod.encoder_attention_qkv = vit_attention_qkv_plain
+    use_plain_versions()
     ref = gen.generate(requests[1][1][0], pixels=requests[1][1][1], image_token_id=IMAGE_TOKEN)
-    nano_mod.ssd_scan = WRAPPERS["ssd_fwd"]
-    nano_mod.flash_attention = WRAPPERS["flash_fwd"]
-    vit_mod.encoder_attention_qkv = WRAPPERS["vit_attn_qkv"]
+    use_kernels()
     got, want = outs["64 frames"].first_logits.float(), ref.first_logits.float()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).item()
-    log(f"[e2e] 64 frames, kernels vs plain versions: first-token logits max abs diff "
+    log(f"[serve] 64 frames, kernels vs plain versions: first-token logits max abs diff "
         f"{err:.3e} (max |logit| {scale:.3e}, cosine {cos:.6f}); ids kernels "
         f"{outs['64 frames'].token_ids.tolist()} plain {ref.token_ids.tolist()}")
     # bf16 activations through 52 layers: the two paths round at other places
@@ -303,16 +462,165 @@ def phase_end_to_end(kernel_results: dict) -> None:
         raise AssertionError("first-token logits disagree with the plain-version run")
 
 
+def training_row(arch, n_frames: int, g: torch.Generator):
+    """One row, collated as a user's data would be: 8 text tokens, the frames,
+    32 text tokens, with labels on those last 32."""
+    text = torch.randint(10, 130000, (40,), generator=g, device=DEV).tolist()
+    ids = text[:8] + [IMAGE_TOKEN] * n_frames + text[8:]
+    labels = [IGNORE_INDEX] * (8 + n_frames) + text[8:]
+    size = arch.vision.image_size
+    pixels = torch.rand(n_frames, size, size, 3, generator=g, device=DEV) * 2 - 1
+    return collate([{"input_ids": torch.tensor(ids).numpy(),
+                     "labels": torch.tensor(labels).numpy(), "pixels": pixels.cpu().numpy()}],
+                   IMAGE_TOKEN, arch.tokens_per_frame)
+
+
+def profile_step(trainer, cb, top: int = 25) -> None:
+    """torch.profiler over one training step: device time by kernel name and
+    the share of the step's wall time the device was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(cb)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies): a CPU op's entry repeats the
+    # device time of the kernels it launched
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"[profile] one step at {cb.plan.fused_len} tokens: wall {wall_us / 1e3:.1f} ms, "
+        f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{sum(r[2] for r in rows)} device launches")
+    for key, us, count in rows[:top]:
+        log(f"[profile]   {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
+
+
+def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> None:
+    add_lora(model, rank=8, alpha=16.0,
+             generator=torch.Generator(device=DEV).manual_seed(SEED + 2))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    short, long_ = training_row(arch, 64, g), training_row(arch, 256, g)
+    opt_cfg = OptimConfig(learning_rate=1e-3, schedule="constant", max_grad_norm=1.0)
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = TrainerConfig(run_dir=run_dir, max_steps=5, log_every=1, save_every=10**9,
+                            lora=True, trainable_modules="projector", remat="full",
+                            resume=False)
+        trainer = Trainer(arch, model, opt_cfg, cfg, device=DEV)
+        n_lora = sum(p.numel() for n, p in trainer.opt.params.items() if ".lora_" in n)
+        n_train = sum(p.numel() for p in trainer.opt.params.values())
+        log(f"[train] LoRA rank 8 on {sum('.lora_a' in n for n in trainer.opt.params)} "
+            f"linears: {n_lora / 1e6:.2f} M factor parameters, {n_train / 1e6:.2f} M "
+            f"trainable with the projector")
+        start = {n: p.detach().clone() for n, p in trainer.opt.params.items()}
+
+        captures = capture_all()
+        for c in captures.values():
+            c.armed = True
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer.train([short] * 4)
+        for c in captures.values():
+            c.armed = False
+        trainer.train([long_])
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        use_kernels()
+    log(f"[train] launches during the five steps: {launches}")
+    for h, cb in zip(trainer.history, [short] * 4 + [long_]):
+        tokens = cb.plan.fused_len * cb.batch["input_ids"].shape[0]
+        log(f"[train] step {h['step']}: {tokens} tokens, loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['seconds']:.3f} s, {tokens / h['seconds']:.1f} "
+            f"trained tokens/s, peak memory {h.get('max_memory_gib', math.nan):.2f} GiB")
+    losses = [h["loss"] for h in trainer.history]
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses {losses}")
+    if not losses[3] < losses[0]:
+        raise AssertionError(f"the 4th loss {losses[3]} is not below the 1st {losses[0]}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the training path")
+    for name in ("ssd_bwd", "flash_bwd"):
+        kernel_results[name]["launches"] = launches[name]
+
+    # K4 and K2-bwd on the inputs and cotangents the first step gave them
+    c = captures["ssd_fwd"]
+    x, dt, A, Bm, Cm = c.args
+    kw = c.kwargs
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, kw["D"], kw["dt_bias"])]
+    y, _ = ssd_scan(*leaves[:5], chunk_size=kw["chunk_size"], D=leaves[5], dt_bias=leaves[6],
+                    dt_limit=kw["dt_limit"], seq_idx=kw["seq_idx"])
+    got = torch.autograd.grad(y, leaves, c.grad)
+    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, kw["D"], kw["dt_bias"], kw["seq_idx"], c.grad,
+                              None, kw["chunk_size"], kw["dt_limit"])
+    errs = {"ssd_bwd": compare("ssd_bwd", tuple(got), tuple(want[:7]))}
+    c = captures["flash_fwd"]
+    leaves = [t.clone().requires_grad_() for t in c.args[:3]]
+    seg = c.kwargs.get("segment_ids")
+    got = torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, c.grad)
+    errs["flash_bwd"] = compare("flash_bwd", tuple(got),
+                                tuple(flash_attention_bwd_plain(*c.args[:3], c.grad, seg)))
+    for name, cap in (("ssd_bwd", "ssd_fwd"), ("flash_bwd", "flash_fwd")):
+        shapes = [tuple(a.shape) for a in captures[cap].args]
+        log(f"[train] {name} on the first step's own inputs {shapes}: max abs err "
+            f"{errs[name]:.3e}")
+        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"],
+                                                  errs[name])
+    del captures, c, leaves, got, want
+    torch.cuda.empty_cache()
+
+    # the first step's gradient again from the same start, kernels vs plain versions
+    with torch.no_grad():
+        for n, p in trainer.opt.params.items():
+            p.copy_(start[n])
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in short.batch.items()}
+    m_k, g_k = grad_step(model, arch, trainer.opt.params, batch, short.plan)
+    use_plain_versions()
+    try:
+        m_p, g_p = grad_step(model, arch, trainer.opt.params, batch, short.plan)
+    finally:
+        use_kernels()
+    names = [n for n in g_k if ".lora_" in n]
+    vk = torch.cat([g_k[n].flatten() for n in names])
+    vp = torch.cat([g_p[n].flatten() for n in names])
+    cos = torch.nn.functional.cosine_similarity(vk, vp, dim=0).item()
+    lk, lp = float(m_k["loss"]), float(m_p["loss"])
+    log(f"[train] first step, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f} "
+        f"(logged {losses[0]:.6f}); LoRA gradient cosine {cos:.6f}, norms "
+        f"{vk.norm().item():.4e} vs {vp.norm().item():.4e}")
+    # bf16 activations and gradients through 52 layers round at other places
+    if not (abs(lk - lp) <= 1e-2 * abs(lp) and cos > 0.99):
+        raise AssertionError("the first training step disagrees with the plain-version run")
+    if profile:
+        profile_step(trainer, long_)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile one more training step after the checks")
+    args = parser.parse_args()
     smi = phase_device()
     phase_build()
-    g = torch.Generator(device=DEV).manual_seed(SEED)
-    results = phase_kernels(g)
-    phase_end_to_end(results)
+    results = phase_kernels(torch.Generator(device=DEV).manual_seed(SEED))
+    arch = build_arch(VLMConfig())  # siglip-vit-so400m-384px + tome_mlp-16 + nano-9b-v2
+    t0 = time.perf_counter()
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[model] TimeViper-9B: {n_params / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
+    phase_serving(model, arch, results)
+    phase_training(model, arch, results, profile=args.profile)
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],
-             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
         for name, r in results.items()]}
     print(smi)
     print(json.dumps(line))

@@ -28,7 +28,7 @@ def test_generate_matches_jax(n_frames):
     jarch = jax_vlm.VLMArch(vlm=vlm, vision=arch.vision, llm=arch.llm, llm_family="nano")
     params = jax.jit(jax_vlm.init_vlm_params, static_argnums=(1, 2))(
         jax.random.PRNGKey(0), jarch, jnp.float32)
-    model = TimeViperVLM(arch, torch.float32)
+    model = TimeViperVLM(arch, torch.float32, device="cpu")
     model.load_state_dict(from_jax_numpy(params, arch))
 
     ids = [5, 6] + [IMG] * n_frames + [9, 10, 11]
@@ -57,7 +57,7 @@ def test_generate_matches_jax(n_frames):
 def test_generate_stops_at_a_terminator():
     vlm = VLMConfig(arch_specifier="tome_mlp-2")
     arch = VLMArch(vlm=vlm, vision=tiny_vit_config(), llm=tiny_nano_config())
-    model = TimeViperVLM(arch, torch.float32)
+    model = TimeViperVLM(arch, torch.float32, device="cpu")
     model.llm_backbone.reset_parameters(torch.Generator().manual_seed(0))
     probe = Generator(model, arch, terminator_ids=[], max_new_tokens=4).generate([5, 6, 7])
     first = int(probe.token_ids[0])

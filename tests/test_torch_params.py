@@ -20,7 +20,7 @@ def test_from_jax_numpy_fills_every_weight():
     arch = VLMArch(vlm=VLM, vision=tiny_vit_config(), llm=tiny_nano_config())
     jarch = JaxArch(vlm=VLM, vision=arch.vision, llm=arch.llm, llm_family="nano")
     params = jax_init_vlm_params(jax.random.PRNGKey(0), jarch, jnp.bfloat16)
-    model = TimeViperVLM(arch, torch.bfloat16)
+    model = TimeViperVLM(arch, torch.bfloat16, device="cpu")
     sd = from_jax_numpy(params, arch)
     missing, unexpected = model.load_state_dict(sd, strict=True)
     assert not missing and not unexpected

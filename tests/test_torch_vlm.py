@@ -3,6 +3,7 @@ fill) and models/api.py:build_arch against the JAX package, f32, at tiny
 sizes (tiny ViT, ToMe to 2 tokens per frame, tiny Nemotron-H)."""
 
 import functools
+from dataclasses import asdict
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from timeviper_tpu.config import VLMConfig, tiny_nano_config, tiny_vit_config
 from timeviper_tpu.data.fusion import plan_fusion
 from timeviper_tpu.models import vlm as jax_vlm
 from timeviper_tpu.models.api import build_arch as jax_build_arch
+from timeviper_tpu_torch.config import VLMConfig as PortVLMConfig
 from timeviper_tpu_torch.models.api import build_arch
 from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch, encode_visual, vlm_forward
 from timeviper_tpu_torch.params import from_jax_numpy
@@ -28,7 +30,7 @@ def _models():
     jarch = jax_vlm.VLMArch(vlm=VLM, vision=arch.vision, llm=arch.llm, llm_family="nano")
     params = jax.jit(jax_vlm.init_vlm_params, static_argnums=(1, 2))(
         jax.random.PRNGKey(0), jarch, jnp.float32)
-    model = TimeViperVLM(arch, torch.float32)
+    model = TimeViperVLM(arch, torch.float32, device="cpu")
     model.load_state_dict(from_jax_numpy(params, arch))
     return arch, jarch, params, model
 
@@ -55,8 +57,9 @@ def test_encode_and_prefill_match_jax():
 
 def test_build_arch_matches_jax_for_the_9b():
     cfg = VLMConfig()  # siglip-vit-so400m-384px + tome_mlp-16 + nano-9b-v2
-    arch, jarch = build_arch(cfg), jax_build_arch(cfg)
-    assert (arch.vision, arch.llm, arch.tokens_per_frame) == (
-        jarch.vision, jarch.llm, jarch.tokens_per_frame)
+    arch, jarch = build_arch(PortVLMConfig()), jax_build_arch(cfg)
+    # the port's own config classes hold the same fields as the JAX package's
+    assert (asdict(arch.vision), asdict(arch.llm), arch.tokens_per_frame) == (
+        asdict(jarch.vision), asdict(jarch.llm), jarch.tokens_per_frame)
     with pytest.raises(NotImplementedError):
-        build_arch(VLMConfig(llm_backbone_id="qwen2-1.5b"))
+        build_arch(PortVLMConfig(llm_backbone_id="qwen2-1.5b"))

@@ -35,6 +35,7 @@ struct AttnArgs {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   const int* seg;  // (B, L) segment ids for self-attention, or null
+  float* lse = nullptr;  // (B, Hq, Lq) row log-sum-exp of the scaled logits, or null
   long long q_bs, k_bs, o_bs;
   int q_rs, q_hs, k_rs, k_hs, o_rs, o_hs;  // v shares k's strides
   int Lq, Lk, Hq, Hkv;
@@ -198,6 +199,11 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgs a) {
   for (int row = 0; row < 2; ++row) {
     if (qpos[row] >= a.Lq) continue;
     const float inv = l[row] > 0.f ? 1.f / l[row] : 0.f;
+    // the backward recomputes P = exp(s * scale - lse); a row that saw no
+    // key gets +inf, so its P is 0
+    if (a.lse != nullptr && (lane & 3) == 0)
+      a.lse[((long long)b * a.Hq + h) * a.Lq + qpos[row]] =
+          l[row] > 0.f ? m[row] + logf(l[row]) : INFINITY;
     __nv_bfloat16* ob = a.o + b * a.o_bs + (long long)qpos[row] * a.o_rs + (long long)h * a.o_hs;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {

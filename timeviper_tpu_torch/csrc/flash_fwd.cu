@@ -13,11 +13,13 @@
 // is loaded and then consumed, with no cp.async / TMA pipeline to overlap the
 // two, and the softmax's exp runs per element: that, not the tensor cores,
 // bounds it. It keeps the O(L) memory of the online softmax from the TPU
-// design and skips key tiles past the query tile's last row.
+// design and skips key tiles past the query tile's last row. Under autograd
+// it also writes each row's log-sum-exp (f32, (B, Hq, L)) for the backward
+// (flash_bwd.cu); the serving path passes NULL and skips it.
 #include "attn_tile.cuh"
 
 extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
-                            void* o, int B, int Lq, int Lk, int Hq, int Hkv, int D,
+                            void* o, void* lse, int B, int Lq, int Lk, int Hq, int Hkv, int D,
                             float scale, void* stream) {
   if (D != 128 || Hq % Hkv != 0 || (seg != nullptr && Lq != Lk)) return cudaErrorInvalidValue;
   tv::AttnArgs a;
@@ -26,6 +28,7 @@ extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const v
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.seg = static_cast<const int*>(seg);
+  a.lse = static_cast<float*>(lse);
   a.q_bs = (long long)Lq * Hq * D;
   a.q_rs = Hq * D;
   a.q_hs = D;

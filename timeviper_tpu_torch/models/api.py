@@ -8,7 +8,7 @@ tokenizer and config.json; until then the port is driven through
 
 from __future__ import annotations
 
-from timeviper_tpu.config import (
+from timeviper_tpu_torch.config import (
     VLMConfig,
     get_llm_backbone_config,
     get_vision_backbone_config,

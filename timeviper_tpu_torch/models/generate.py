@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from timeviper_tpu.data.fusion import FusionPlan, plan_fusion
+from timeviper_tpu_torch.data.fusion import FusionPlan, plan_fusion
 from timeviper_tpu_torch.models.vlm import (
     TimeViperVLM,
     VLMArch,

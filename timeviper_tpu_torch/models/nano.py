@@ -5,19 +5,22 @@ Modules hold the weights under the JAX package's names (params.py maps one
 onto the other); the forward passes are plain functions named as in the JAX
 package:
 
-* `nano_forward` (prefill): Mamba layers run the chunked SSD scan
-  (ops/ssd_kernel.py, kernel K1 on the card), attention layers causal packed
-  attention (ops/flash_attention.py, kernel K2 on the card); with
-  `fill_cache` it also returns the decode cache.
+* `nano_forward` (prefill and training): Mamba layers run the chunked SSD
+  scan (ops/ssd_kernel.py, kernels K1 / K4 on the card), attention layers
+  causal packed attention (ops/flash_attention.py, kernels K2 / K2-bwd on
+  the card); with `fill_cache` it also returns the decode cache, with
+  `remat` it recomputes each block in the backward (torch.utils.checkpoint,
+  the JAX package's `_remat_wrap` with policy "full").
 * `nano_decode_step`: one token; Mamba layers take the O(1) state update,
   attention layers write their KV buffer in place at `length` and attend
   over the slots [valid_from, length].
 
 Attention has no RoPE; the MLP is up -> relu^2 -> down. Head h of a Mamba
-layer reads group h // (H/G). Linear weights are torch's (out, in).
+layer reads group h // (H/G). Linear weights are torch's (out, in); a LoRA'd
+linear (train/lora.py) adds its delta in its own forward.
 
-Left out for now: pdrop / TransV, remat and training, int8, LoRA and the
-fused in_proj leaf.
+Left out for now: pdrop / TransV, the remat policies other than "full",
+int8 and the fused in_proj leaf.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from timeviper_tpu.config import NanoConfig
+from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
 from timeviper_tpu_torch.ops.flash_attention import flash_attention
@@ -287,6 +291,22 @@ def mlp_mixer_forward(m: MLPMixer, cfg: NanoConfig, x: torch.Tensor) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
+def _block_forward(block: NanoBlock, cfg: NanoConfig, hidden: torch.Tensor,
+                   seq_idx: Optional[torch.Tensor], fill_cache: bool, cache_max_len: int
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    normed = rms_norm(hidden, block.norm.weight, cfg.layer_norm_epsilon)
+    layer_cache: Optional[Dict[str, Any]] = None
+    if block.block_type == "mamba":
+        out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache)
+    elif block.block_type == "attention":
+        out, layer_cache = attention_mixer_forward(
+            block.mixer, cfg, normed, segment_ids=seq_idx, fill_cache=fill_cache,
+            max_len=cache_max_len)
+    else:
+        out = mlp_mixer_forward(block.mixer, cfg, normed)
+    return hidden + out, layer_cache
+
+
 def nano_forward(
     model: NanoModel,
     cfg: NanoConfig,
@@ -297,34 +317,36 @@ def nano_forward(
     cache_max_len: int = 0,
     logits_to_keep: int = 0,
     valid_from: int = 0,
-    training: bool = False,
+    labels: Optional[torch.Tensor] = None,
+    remat=False,
 ) -> Dict[str, Any]:
-    """Full-sequence forward (prefill). Returns {"hidden_states", "logits"}
-    and, with `fill_cache`, the decode `cache`. `logits_to_keep` > 0 computes
-    the f32 logits of the last rows only. `training` is explicit: the port is
-    inference-only so far, and the kernels have no backward."""
-    if training:
-        raise NotImplementedError("training is not ported: the kernels have no backward")
+    """Full-sequence forward (prefill or training). Returns {"hidden_states",
+    "logits", "labels"} (the labels passed through, as the JAX forward returns
+    them) and, with `fill_cache`, the decode `cache`. `logits_to_keep` > 0
+    computes the f32 logits of the last rows only. `remat` (True or "full")
+    keeps only each block's input for the backward and recomputes the block
+    there; the JAX package's other policies ("dots", "scan", "dots_scan")
+    are not ported."""
+    if remat not in (False, True, "full"):
+        raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
+    if cfg.use_pdrop:
+        raise NotImplementedError("pdrop is not ported")
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
     L = hidden.shape[1]
-    eps = cfg.layer_norm_epsilon
     new_layers = []
     for block in model.layers:
-        normed = rms_norm(hidden, block.norm.weight, eps)
-        layer_cache: Optional[Dict[str, Any]] = None
-        if block.block_type == "mamba":
-            out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache)
-        elif block.block_type == "attention":
-            out, layer_cache = attention_mixer_forward(
-                block.mixer, cfg, normed, segment_ids=seq_idx, fill_cache=fill_cache,
-                max_len=cache_max_len)
+        if remat and not fill_cache:
+            hidden = checkpoint(
+                lambda h, blk=block: _block_forward(blk, cfg, h, seq_idx, False, 0)[0],
+                hidden, use_reentrant=False)
+            layer_cache = None
         else:
-            out = mlp_mixer_forward(block.mixer, cfg, normed)
-        hidden = hidden + out
+            hidden, layer_cache = _block_forward(block, cfg, hidden, seq_idx, fill_cache,
+                                                 cache_max_len)
         new_layers.append(layer_cache or {})
-    hidden = rms_norm(hidden, model.norm_f.weight, eps)
+    hidden = rms_norm(hidden, model.norm_f.weight, cfg.layer_norm_epsilon)
     logits = compute_logits(model, hidden[:, -logits_to_keep:] if logits_to_keep else hidden)
-    out = {"hidden_states": hidden, "logits": logits}
+    out = {"hidden_states": hidden, "logits": logits, "labels": labels}
     if fill_cache:
         out["cache"] = {"layers": new_layers, "length": L, "valid_from": int(valid_from)}
     return out

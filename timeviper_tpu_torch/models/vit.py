@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from timeviper_tpu.config import ViTConfig
+from timeviper_tpu_torch.config import ViTConfig
 from timeviper_tpu_torch.ops.vit_attention import encoder_attention_qkv
 
 

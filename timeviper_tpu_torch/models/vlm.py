@@ -1,22 +1,30 @@
 """TimeViper VLM assembly: vision -> projector -> fuse -> LLM (counterpart of
 timeviper_tpu/models/vlm.py).
 
-The host builds the fusion plan with the JAX package's numpy-only
-`timeviper_tpu.data.fusion`, and the model applies it as one gather. Left out
-for now: multi-tower vision, InternVideo2, the qwen2 backbone and pdrop.
+The host builds the fusion plan (data/fusion.py) and the model applies it as
+one gather. `vlm_loss` is the training loss over a batch of rows that share
+one plan: the rows run as a written-out batch dimension where the JAX package
+vmaps its one-row loss. Left out for now: multi-tower vision, InternVideo2,
+the qwen2 backbone, pdrop and heterogeneous batches (per-row plans).
+
+The vision tower is trained only on the CPU: its attention kernel (K3) has no
+backward, so on the card the tower runs under no_grad and a trainable tower
+raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from timeviper_tpu.config import VLMConfig
-from timeviper_tpu.data.fusion import FusionPlan
+from timeviper_tpu_torch.config import VLMConfig
+from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan
+from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.cache import init_nano_cache
 from timeviper_tpu_torch.models.nano import NanoModel, nano_decode_step, nano_forward
 from timeviper_tpu_torch.models.projector import Projector, projector_forward
@@ -40,11 +48,14 @@ class VLMArch:
 
 
 class TimeViperVLM(nn.Module):
+    """The VLM's weights, on the card unless `device` names another device."""
+
     def __init__(self, arch: VLMArch, dtype=torch.bfloat16, device=None):
         super().__init__()
         if arch.llm_family != "nano" or arch.vision_family != "siglip":
             raise NotImplementedError(
                 f"{arch.vision_family} + {arch.llm_family} is not ported")
+        device = resolve_device(device)
         self.arch = arch
         self.vision_backbone = ViT(arch.vision, dtype, device)
         self.projector = Projector(arch.vision.hidden_size, arch.llm.hidden_size,
@@ -54,8 +65,8 @@ class TimeViperVLM(nn.Module):
 
 def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloat16,
                     device=None) -> TimeViperVLM:
-    """Build the model on `device` with random weights drawn from `generator`
-    (which must live on the same device)."""
+    """Build the model on `device` (the card by default) with random weights
+    drawn from `generator`, which must live on the same device."""
     model = TimeViperVLM(arch, dtype, device)
     model.vision_backbone.reset_parameters(generator)
     model.projector.reset_parameters(generator)
@@ -64,8 +75,15 @@ def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloa
 
 
 def encode_visual(model: TimeViperVLM, arch: VLMArch, pixels: torch.Tensor) -> torch.Tensor:
-    """pixels (frames, H, W, 3) -> (frames, tokens_per_frame, llm_dim)."""
-    feats = vit_forward(model.vision_backbone, arch.vision, pixels)
+    """pixels (frames, H, W, 3) -> (frames, tokens_per_frame, llm_dim). A
+    frozen tower runs under no_grad."""
+    tower_trains = torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.vision_backbone.parameters())
+    if tower_trains and pixels.device.type != "cpu":
+        raise NotImplementedError("the vision tower's attention kernel has no backward: "
+                                  "freeze the tower to train on the card")
+    with torch.set_grad_enabled(tower_trains):
+        feats = vit_forward(model.vision_backbone, arch.vision, pixels)
     n = arch.vlm.num_compressed_tokens
     return projector_forward(
         model.projector, feats, projector_type=arch.vlm.projector_type,
@@ -116,9 +134,54 @@ def vlm_forward(
                         valid_from=valid_from, logits_to_keep=logits_to_keep)
 
 
+def vlm_loss(
+    model: TimeViperVLM,
+    arch: VLMArch,
+    batch: Dict[str, torch.Tensor],
+    plan: FusionPlan,
+    remat: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Shifted cross-entropy over fused rows that share `plan`; the mean of the
+    rows' own token means, as the JAX package's vmapped `vlm_loss` gives.
+
+    batch: {"input_ids": (B, Lt), "labels": (B, fused_len) already fused,
+    "pixels": (B, F, H, W, 3) or "visual_embeddings": (B, Nv, D), optional}.
+    Returns (loss, {"n_tokens": labelled tokens summed over the rows})."""
+    if "gather_idx" in batch:
+        raise NotImplementedError("heterogeneous batches (per-row plans) are not ported")
+    ids = batch["input_ids"].long()
+    Bsz = ids.shape[0]
+    emb = model.llm_backbone.embeddings
+    ve = batch.get("visual_embeddings")
+    if ve is None and batch.get("pixels") is not None:
+        px = batch["pixels"]
+        enc = encode_visual(model, arch, px.reshape(-1, *px.shape[2:]))
+        ve = enc.reshape(Bsz, -1, enc.shape[-1])
+    if ve is None:
+        ve = emb.weight.new_zeros(Bsz, 0, arch.llm.hidden_size)
+    if ve.shape[1] != plan.num_visual:
+        raise ValueError(f"{ve.shape[1]} visual tokens for a plan of {plan.num_visual}")
+    text = emb(ids)
+    src = torch.cat([text, ve.to(text.dtype)], dim=1)
+    idx = torch.as_tensor(np.asarray(plan.gather_idx), dtype=torch.long, device=src.device)
+    seq_idx = None
+    if plan.seq_idx is not None:
+        seq_idx = torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
+                                  device=src.device).expand(Bsz, -1).contiguous()
+    out = nano_forward(model.llm_backbone, arch.llm, inputs_embeds=src[:, idx],
+                       seq_idx=seq_idx, labels=batch["labels"], remat=remat)
+    logits, labels = out["logits"][:, :-1], out["labels"][:, 1:].long()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                          ignore_index=IGNORE_INDEX, reduction="none").view(labels.shape)
+    n_valid = (labels != IGNORE_INDEX).sum(-1).clamp(min=1)
+    loss = (nll.sum(-1) / n_valid).mean()
+    return loss, {"n_tokens": n_valid.sum()}
+
+
 def init_cache(arch: VLMArch, batch_size: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    return init_nano_cache(arch.llm, batch_size, max_len, dtype, device)
+    """An empty decode cache, on the card unless `device` names another."""
+    return init_nano_cache(arch.llm, batch_size, max_len, dtype, resolve_device(device))
 
 
 def decode_step(model: TimeViperVLM, arch: VLMArch, token: torch.Tensor, cache):

@@ -1,15 +1,18 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled on first use with
+The sources are compiled on first use, one nvcc per source, all started
+together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libtimeviper_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c csrc/<name>.cu -o <name>.o
 
-into ``timeviper_tpu_torch/_build/<hash>/``, where the hash covers every
-source, header and flag, so an edit rebuilds and an unchanged tree reuses the
-library. The library has a plain C interface and is bound with ``ctypes``:
-every pointer and the stream are ``c_void_p``. Nothing is built or imported
-when this module is imported: the CPU tests import every module.
+and the objects linked with ``nvcc -shared`` into
+``timeviper_tpu_torch/_build/<hash>/libtimeviper_kernels.so``, where the hash
+covers every source, header and flag, so an edit rebuilds and an unchanged
+tree reuses the library. The library has a plain C interface and is bound
+with ``ctypes``: every pointer and the stream are ``c_void_p``. Nothing is
+built or imported when this module is imported: the CPU tests import every
+module.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libtimeviper_kernels.so"
 
 _P = ctypes.c_void_p
@@ -36,7 +39,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "tv_ssd_fwd": [_P] * 16 + [_I] * 8 + [_F, _F, _P],
-    "tv_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "tv_ssd_bwd": [_P] * 25 + [_I] * 8 + [_F, _F, _P],
+    "tv_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "tv_flash_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "tv_vit_attn_qkv": [_P, _P] + [_I] * 4 + [_F, _P],
 }
 
@@ -72,19 +77,36 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    # build into a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    # build into a private directory, then rename the library: concurrent
+    # builders never load a half-written one
+    tmp = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+            jobs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in jobs:
+            text, _ = proc.communicate()
+            logs.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        lib_tmp = tmp / LIB_NAME
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib_tmp),
+                               *(str(obj) for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(lib_tmp, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -1,10 +1,17 @@
-"""K2: causal flash-attention forward as a hand-written CUDA kernel.
+"""K2 and K2-bwd: causal flash attention, forward and backward, as hand-written
+CUDA kernels.
 
 Counterpart of timeviper_tpu/ops/flash_pallas.py:flash_attention, which runs
-the attention layers of the Nemotron-H prefill. The kernel lives in
-csrc/flash_fwd.cu; its plain version is ops/attention.py:attention under a
-causal, segment-equality mask. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+the attention layers of the Nemotron-H prefill and training step through
+JAX's bundled Pallas TPU kernel (whose VJP is two more kernels, dkv and dq).
+The forward lives in csrc/flash_fwd.cu and, under autograd, also writes the
+row log-sum-exp; the backward lives in csrc/flash_bwd.cu. The plain version
+is ops/attention.py:attention under a causal, segment-equality mask,
+differentiated by autograd.
+
+`flash_attention` is the entry point: a CPU tensor takes the plain version; a
+CUDA tensor launches the kernels or raises. Under autograd the CUDA path is
+`FlashAttnFn`, whose backward is `flash_attention_bwd` (K2-bwd's wrapper).
 """
 
 from __future__ import annotations
@@ -33,9 +40,72 @@ def flash_attention(
     segment_ids: Optional[torch.Tensor] = None,  # (B, L) int32
 ) -> torch.Tensor:
     """Causal (optionally packed) attention, scale 1/sqrt(D); returns
-    (B, Lq, Hq, D) in q.dtype."""
+    (B, Lq, Hq, D) in q.dtype. Differentiable in q, k and v."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, segment_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttnFn.apply(q, k, v, segment_ids)
+    return flash_attention_fwd(q, k, v, segment_ids, with_lse=False)[0]
+
+
+flash_attention.launches = 0
+
+
+class FlashAttnFn(torch.autograd.Function):
+    """K2 forward (keeping the row log-sum-exp), K2-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, seg)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, segment_ids=None):
+    """K2-bwd: (dq, dk, dv) of flash_attention given the output cotangent,
+    the forward's output and its row log-sum-exp (B, Hq, L) f32. A CPU tensor
+    takes the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, segment_ids)
+    B, L, Hq, D = q.shape
+    Hkv = k.shape[2]
+    _check(q, k, v, segment_ids)
+    dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        if not (t.dtype == torch.bfloat16 and t.shape == q.shape and t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd kernel: {name} must be contiguous bf16 "
+                             f"like q")
+    if not (lse.dtype == torch.float32 and lse.shape == (B, Hq, L) and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd kernel: lse must be contiguous f32 (B, Hq, L)")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, Hq, L, dtype=torch.float32, device=q.device)
+    p = _cuda.ptr
+    err = _cuda.lib().tv_flash_bwd(
+        p(q), p(k), p(v), p(out), p(dout), p(lse), p(segment_ids), p(delta), p(dq), p(dk),
+        p(dv), B, L, Hq, Hkv, D, 1.0 / math.sqrt(D), _cuda.stream_of(q))
+    _cuda.check(err, "tv_flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, dout, segment_ids=None):
+    """K2-bwd's plain version: autograd through flash_attention_plain."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, segment_ids)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _check(q, k, v, segment_ids):
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     dev = q.device
@@ -54,14 +124,23 @@ def flash_attention(
             and segment_ids.shape == (B, Lq) and segment_ids.is_contiguous()):
         raise ValueError("flash_attention kernel: segment_ids must be contiguous "
                          "int32 (B, L) with Lq == Lk")
+
+
+def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool):
+    """K2 on CUDA tensors -> (out, the row log-sum-exp (B, Hq, L) f32 that
+    K2-bwd takes, or None)."""
+    _check(q, k, v, segment_ids)
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if with_lse and Lq != Lk:
+        raise ValueError("flash_attention kernel: the backward takes Lq == Lk")
     out = torch.empty_like(q)
+    lse = (torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     p = _cuda.ptr
     err = _cuda.lib().tv_flash_fwd(
-        p(q), p(k), p(v), p(segment_ids), p(out), B, Lq, Lk, Hq, Hkv, D,
+        p(q), p(k), p(v), p(segment_ids), p(out), p(lse), B, Lq, Lk, Hq, Hkv, D,
         1.0 / math.sqrt(D), _cuda.stream_of(q))
     _cuda.check(err, "tv_flash_fwd")
     flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
+    return out, lse

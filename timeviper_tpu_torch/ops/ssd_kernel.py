@@ -1,9 +1,17 @@
-"""K1: the Mamba-2 SSD chunked-scan forward as a hand-written CUDA kernel.
+"""K1 and K4: the Mamba-2 SSD chunked scan, forward and backward, as
+hand-written CUDA kernels.
 
-Counterpart of timeviper_tpu/ops/ssd_pallas.py:ssd_auto (the Pallas kernel
-_ssd_kernel), which models/nano.py calls as `ssd_chunked`. The kernel lives in
-csrc/ssd_fwd.cu; its plain version is ops/ssd.py:ssd_chunked. A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+Counterpart of timeviper_tpu/ops/ssd_pallas.py:_ssd_core, the custom_vjp
+whose forward is the Pallas kernel _ssd_kernel (K1, csrc/ssd_fwd.cu here) and
+whose backward is _ssd_bwd_kernel (K4, csrc/ssd_bwd.cu here). The forward
+keeps the per-chunk inbound states for the backward, as the JAX forward does
+with `save_prev=True`.
+
+`ssd_scan` is the entry point: a CPU tensor takes the plain version
+(ops/ssd.py:ssd_chunked, differentiated by autograd); a CUDA tensor launches
+the kernels or raises. Under autograd the CUDA path is `SSDScanFn`, whose
+backward is K4. `ssd_scan_bwd` is K4's own wrapper and
+`ssd_scan_bwd_plain` its plain version (autograd through ssd_chunked).
 """
 
 from __future__ import annotations
@@ -15,6 +23,9 @@ import torch
 from timeviper_tpu_torch.ops import _cuda
 from timeviper_tpu_torch.ops.ssd import ssd_chunked
 
+Limit = Tuple[float, float]
+NO_LIMIT: Limit = (0.0, float("inf"))
+
 
 def ssd_scan(
     x: torch.Tensor,
@@ -25,22 +36,90 @@ def ssd_scan(
     chunk_size: int = 256,
     D: Optional[torch.Tensor] = None,
     dt_bias: Optional[torch.Tensor] = None,
-    dt_limit: Tuple[float, float] = (0.0, float("inf")),
+    dt_limit: Limit = NO_LIMIT,
     seq_idx: Optional[torch.Tensor] = None,
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD forward -> (y (B, L, H, P) in x.dtype, final state (B, H, P, N) f32).
 
-    Same arguments and result as ops/ssd.py:ssd_chunked."""
+    Same arguments and result as ops/ssd.py:ssd_chunked, and differentiable
+    in x, dt, A, B_, C, D, dt_bias and initial_state."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B_, C, chunk_size=chunk_size, D=D,
                            dt_bias=dt_bias, dt_limit=dt_limit, seq_idx=seq_idx,
                            initial_state=initial_state)
-    return _launch(x, dt, A, B_, C, chunk_size, D, dt_bias, dt_limit, seq_idx,
-                   initial_state)
+    diff = (x, dt, A, B_, C, D, dt_bias, initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in diff):
+        return SSDScanFn.apply(x, dt, A, B_, C, D, dt_bias, initial_state, seq_idx,
+                               chunk_size, dt_limit)
+    y, final, _ = ssd_scan_fwd(x, dt, A, B_, C, chunk_size, D, dt_bias, dt_limit, seq_idx,
+                               initial_state)
+    return y, final
 
 
 ssd_scan.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K1 forward (keeping the inbound state of every chunk), K4 backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, D, dt_bias, initial_state, seq_idx, chunk_size,
+                dt_limit):
+        y, final, states = ssd_scan_fwd(x, dt, A, B_, C, chunk_size, D, dt_bias, dt_limit,
+                                        seq_idx, initial_state)
+        ctx.save_for_backward(x, dt, A, B_, C, D, dt_bias, seq_idx, states)
+        ctx.chunk_size, ctx.dt_limit = chunk_size, dt_limit
+        ctx.has_init = initial_state is not None
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B_, C, D, dt_bias, seq_idx, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dA, dB, dC, dD, ddtb, dinit = ssd_scan_bwd(
+            x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, ctx.chunk_size,
+            ctx.dt_limit)
+        return (dx, ddt, dA, dB, dC, dD, ddtb, dinit if ctx.has_init else None,
+                None, None, None)
+
+
+def ssd_scan_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal,
+                 chunk_size: int = 256, dt_limit: Limit = NO_LIMIT):
+    """K4: gradients of ssd_scan's (y, final state) given their cotangents dy
+    and dfinal (None = zero) -> (dx, ddt, dA, dB, dC, dD, ddt_bias, d initial
+    state), None where the input was None. `states` (B, nc, H, P, N) f32 are
+    the inbound states K1 kept. A CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, B_, C, D, dt_bias, seq_idx, dy, dfinal,
+                                  chunk_size, dt_limit)
+    return _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal,
+                       chunk_size, dt_limit)
+
+
+ssd_scan_bwd.launches = 0
+
+
+def ssd_scan_bwd_plain(x, dt, A, B_, C, D, dt_bias, seq_idx, dy, dfinal,
+                       chunk_size: int = 256, dt_limit: Limit = NO_LIMIT,
+                       initial_state=None):
+    """K4's plain version: autograd through ops/ssd.py:ssd_chunked."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in (x, dt, A, B_, C, D, dt_bias, initial_state)]
+        y, st = ssd_chunked(*leaves[:5], chunk_size=chunk_size, D=leaves[5],
+                            dt_bias=leaves[6], dt_limit=dt_limit, seq_idx=seq_idx,
+                            initial_state=leaves[7])
+        outs, cots = [y], [dy]
+        if dfinal is not None:
+            outs.append(st)
+            cots.append(dfinal)
+        live = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(outs, live, cots, allow_unused=True))
+    out = [None if t is None else next(grads) for t in leaves]
+    return tuple(g if g is not None or t is None else torch.zeros_like(t)
+                 for g, t in zip(out, leaves))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -48,7 +127,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"ssd_scan kernel: {msg}")
 
 
-def _launch(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
+def _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx):
     Bsz, L, H, P = x.shape
     G, N = B_.shape[-2:]
     dev = x.device
@@ -70,13 +149,27 @@ def _launch(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
         _require(seq_idx.device == dev and seq_idx.dtype == torch.int32
                  and seq_idx.shape == (Bsz, L) and seq_idx.is_contiguous(),
                  "seq_idx must be contiguous int32 (B, L)")
-    if initial_state is not None:
-        _require(initial_state.device == dev and initial_state.dtype == torch.float32
-                 and initial_state.shape == (Bsz, H, P, N)
-                 and initial_state.is_contiguous(), "initial_state must be f32 (B, H, P, N)")
+    return Bsz, L, H, P, G, N
 
+
+def _f32_state(t, shape, name) -> None:
+    if t is not None:
+        _require(t.dtype == torch.float32 and tuple(t.shape) == shape and t.is_contiguous(),
+                 f"{name} must be contiguous f32 {shape}")
+
+
+def _clamp_args(dt_limit: Limit):
+    lo, hi = (float(v) for v in dt_limit)
+    return int(lo > 0.0 or hi != float("inf")), lo, hi
+
+
+def ssd_scan_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
+    """K1 on CUDA tensors -> (y, final state, the inbound state of every
+    chunk (B, nc, H, P, N) f32, which K4 takes)."""
+    Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)
+    _f32_state(initial_state, (Bsz, H, P, N), "initial_state")
     nc = -(-L // cs)
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     final = torch.empty(Bsz, H, P, N, **f32)
     dtp = torch.empty(Bsz, H, nc * cs, **f32)
@@ -84,8 +177,7 @@ def _launch(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
     carry = torch.empty(Bsz, H, nc, **f32)
     states = torch.empty(Bsz, nc, H, P, N, **f32)
     cb = torch.empty(Bsz, nc, G, cs, cs, **f32)
-    lo, hi = (float(v) for v in dt_limit)
-    clamp = int(lo > 0.0 or hi != float("inf"))
+    clamp, lo, hi = _clamp_args(dt_limit)
     p = _cuda.ptr
     err = _cuda.lib().tv_ssd_fwd(
         p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx),
@@ -93,4 +185,38 @@ def _launch(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
         Bsz, L, H, P, G, N, cs, clamp, lo, hi, _cuda.stream_of(x))
     _cuda.check(err, "tv_ssd_fwd")
     ssd_scan.launches += 1
-    return y, final
+    return y, final, states
+
+
+def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt_limit):
+    Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)
+    nc = -(-L // cs)
+    _f32_state(states, (Bsz, nc, H, P, N), "states")
+    _f32_state(dfinal, (Bsz, H, P, N), "dfinal")
+    dy = dy.contiguous()
+    _require(dy.dtype == torch.bfloat16 and dy.shape == x.shape, "dy must be bf16 like x")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Lp = nc * cs
+    dx = torch.empty_like(x)
+    ddt = torch.empty(Bsz, L, H, **f32)
+    dB = torch.empty(Bsz, L, G, N, **f32)
+    dC = torch.empty(Bsz, L, G, N, **f32)
+    dinit = torch.empty(Bsz, H, P, N, **f32)
+    part = torch.empty(3, Bsz, nc, H, **f32)  # per chunk: dA, d dt_bias, dD
+    dtp, acs, da, ubuf, ddt1 = (torch.empty(Bsz, H, Lp, **f32) for _ in range(5))
+    carry = torch.empty(Bsz, H, nc, **f32)
+    cb = torch.empty(Bsz, nc, G, cs, cs, **f32)
+    dstates = torch.empty(Bsz, nc, H, P, N, **f32)
+    clamp, lo, hi = _clamp_args(dt_limit)
+    p = _cuda.ptr
+    err = _cuda.lib().tv_ssd_bwd(
+        p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx), p(states), p(dy),
+        p(dfinal), p(dx), p(ddt), p(dB), p(dC), p(dinit), p(part), p(dtp), p(acs),
+        p(carry), p(cb), p(dstates), p(da), p(ubuf), p(ddt1),
+        Bsz, L, H, P, G, N, cs, clamp, lo, hi, _cuda.stream_of(x))
+    _cuda.check(err, "tv_ssd_bwd")
+    ssd_scan_bwd.launches += 1
+    sums = part.sum(dim=(1, 2))  # the tiny sum over batch and chunks
+    return (dx, ddt.to(dt.dtype), sums[0], dB.to(B_.dtype), dC.to(C.dtype),
+            None if D is None else sums[2], None if dt_bias is None else sums[1], dinit)

@@ -4,7 +4,9 @@ anything numpy can copy) -> the port's `state_dict`.
 Linear kernels are stored (in, out) in the JAX package and become
 `nn.Linear.weight` (out, in); the ViT patch kernel (p, p, 3, D) becomes the
 (D, p*p*3) weight of the patch matmul; conv taps are (channels, K) in both.
-Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
+LoRA factors planted by the JAX package's add_lora (lora_a, lora_b,
+lora_scale) come across unchanged; load them into a model that went through
+the port's add_lora. Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
 read-only, and the port must own its memory. bfloat16 leaves keep their type.
 """
 
@@ -27,6 +29,10 @@ def _linear(sd: Dict[str, torch.Tensor], prefix: str, p: Dict[str, Any]) -> None
     sd[f"{prefix}.weight"] = to_tensor(p["kernel"]).T.contiguous()
     if p.get("bias") is not None:
         sd[f"{prefix}.bias"] = to_tensor(p["bias"])
+    # LoRA factors keep the JAX layout (train/lora.py:LoRALinear)
+    for leaf in ("lora_a", "lora_b", "lora_scale"):
+        if leaf in p:
+            sd[f"{prefix}.{leaf}"] = to_tensor(p[leaf])
 
 
 def vit_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
