@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, then
-LoRA training.
+"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, LoRA
+training, then int8 serving with the fused kernels.
 
     python3 chip_smoke.py
 
@@ -13,9 +13,10 @@ Phases, each of which raises on failure (there is no fallback anywhere):
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
-   (a yardstick the port never calls) and its bound on the card. The
-   backward kernels (K4, K2-bwd) also give bitwise-equal gradients on a
-   repeat.
+   (a yardstick the port never calls) and its bound on the card; K7 and K8,
+   calls of microseconds, are timed by their profiler device time with the
+   L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
+   gradients on a repeat.
 4. serving: TimeViper-9B (SigLIP-SO400M-384 + ToMe-16 MLP + Nemotron-H 9B,
    all 52 layers) with random bf16 weights from a seeded CUDA generator, three
    greedy requests through Generator.generate (text only, 64 frames, 256
@@ -23,6 +24,7 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    must grow. The kernels are held against their plain versions on the
    inputs the 64-frame request gave them, and the 64-frame request is run
    once more with the plain versions as a reference for its first logits.
+   The fused kernels (K5, K7, K8) are switched off here, as by default.
 5. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
@@ -31,21 +33,38 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    are held against their plain versions on the inputs and output cotangents
    the first step gave one Mamba and one attention layer, and the first step's
    loss and LoRA gradient against a run with the plain versions swapped in.
+6. int8 serving: the training model is freed and the same seeded bf16
+   weights are made again; the ViT and the 9B are quantized to W8A8 as
+   bench.py does (train/quantize.py), calibrated on one 64-frame clip, and the
+   Mamba in_proj leaves fused. The three requests run with the fusions off
+   (TIMEVIPER_FUSED_CONV, TIMEVIPER_FUSED_DECODE, TIMEVIPER_VIT_FUSED_LN = 0)
+   and then on. With them on, every Mamba prefill goes through K5 (and none
+   through K1), every Mamba decode step through K7 and every LayerNorm of the
+   tower through K8: the counts must be exactly that. K5, K7 and K8 are held
+   against their plain versions on the inputs the 64-frame request gave them;
+   the fused run's first logits against the unfused int8 run's and against a
+   run with every kernel's plain version; the tower's features and visual
+   tokens of 16 frames are compared across fused, unfused, plain versions and
+   the bf16 model. Encode, prefill and decode times of both configurations
+   are printed, then the text and 256-frame requests run off, on, on, off.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
 
     python3 chip_smoke.py --profile
 
-also profiles one more training step on the 256-frame row after the checks
-(torch.profiler; device time by kernel name and the device's busy share).
+also profiles one more training step on the 256-frame row after the checks,
+and the int8 256-frame request with the fusions off and on (torch.profiler;
+device time by kernel name and the device's busy share).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -63,8 +82,13 @@ from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
 from timeviper_tpu_torch.models.generate import Generator  # noqa: E402
-from timeviper_tpu_torch.models.vlm import init_vlm_params  # noqa: E402
+from timeviper_tpu_torch.models.nano import nano_forward  # noqa: E402
+from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
+from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
+    fused_mamba_decode,
+    fused_mamba_decode_plain,
+)
 from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_bwd,
@@ -72,20 +96,28 @@ from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_fwd,
     flash_attention_plain,
 )
-from timeviper_tpu_torch.ops.ssd import ssd_chunked  # noqa: E402
+from timeviper_tpu_torch.ops.int8_linear import Int8Linear  # noqa: E402
+from timeviper_tpu_torch.ops.layernorm import fused_ln, fused_ln_plain  # noqa: E402
+from timeviper_tpu_torch.ops.ssd import _process_dt, ssd_chunked  # noqa: E402
 from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
+    ssd_conv_scan_fused,
+    ssd_conv_scan_fused_plain,
     ssd_scan,
     ssd_scan_bwd,
     ssd_scan_bwd_plain,
     ssd_scan_fwd,
 )
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
-    encoder_attention_qkv,
     vit_attention_qkv,
     vit_attention_qkv_plain,
 )
 from timeviper_tpu_torch.train.lora import add_lora  # noqa: E402
 from timeviper_tpu_torch.train.optim import OptimConfig  # noqa: E402
+from timeviper_tpu_torch.train.quantize import (  # noqa: E402
+    calibrate_act_scales,
+    fuse_decode_in_proj,
+    quantize_params_int8,
+)
 from timeviper_tpu_torch.train.step import grad_step  # noqa: E402
 from timeviper_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -94,7 +126,9 @@ SEED = 0
 IMAGE_TOKEN = 131000  # an id inside the 131072 vocabulary that no text id uses
 MAX_NEW = 16
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+FUSIONS = ("TIMEVIPER_FUSED_CONV", "TIMEVIPER_FUSED_DECODE", "TIMEVIPER_VIT_FUSED_LN")
 
 # Per kernel: its source, the TPU kernel it replaces (file:line) and its
 # tolerance, relative to the plain result's largest magnitude. Forward: both
@@ -115,11 +149,33 @@ KERNELS = {
     "flash_bwd": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
                       replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
                       rel_tol=3e-2),
+    # K5 reads the same bf16 raw streams as its plain version and rounds the
+    # convolved streams to bf16 as it does; from there the K1 argument holds
+    "ssd_conv_fwd": dict(source="timeviper_tpu_torch/csrc/ssd_fwd.cu",
+                         replaces="timeviper_tpu/ops/ssd_pallas.py:981", rel_tol=1e-2),
+    # K7 and K8: f32 arithmetic on both sides in other orders, bf16 outputs;
+    # K8's int8 codes may differ by 1 at ties (at most 0.1% of them)
+    "decode_fused": dict(source="timeviper_tpu_torch/csrc/decode_fused.cu",
+                         replaces="timeviper_tpu/ops/decode_fused.py:39", rel_tol=1e-2),
+    "layernorm": dict(source="timeviper_tpu_torch/csrc/layernorm.cu",
+                      replaces="timeviper_tpu/ops/layernorm.py:37", rel_tol=1e-2),
 }
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
-            "flash_bwd": flash_attention_bwd}
+            "flash_bwd": flash_attention_bwd, "ssd_conv_fwd": ssd_conv_scan_fused,
+            "decode_fused": fused_mamba_decode, "layernorm": fused_ln}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
+TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
+FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
+# where the model calls each forward kernel, and the kernel's plain version
+ROUTES = {"ssd_fwd": (nano_mod, "ssd_scan"), "flash_fwd": (nano_mod, "flash_attention"),
+          "vit_attn_qkv": (vit_mod, "encoder_attention_qkv"),
+          "ssd_conv_fwd": (nano_mod, "ssd_conv_scan_fused"),
+          "decode_fused": (nano_mod, "fused_mamba_decode"), "layernorm": (vit_mod, "fused_ln")}
+CALLS = {name: getattr(mod, attr) for name, (mod, attr) in ROUTES.items()}
+PLAIN = {"ssd_fwd": ssd_chunked, "flash_fwd": flash_attention_plain,
+         "vit_attn_qkv": vit_attention_qkv_plain, "ssd_conv_fwd": ssd_conv_scan_fused_plain,
+         "decode_fused": fused_mamba_decode_plain, "layernorm": fused_ln_plain}
 
 
 def log(msg: str) -> None:
@@ -138,15 +194,48 @@ def timed_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time (ms) of one call, summed over the kernels it launches
+    (torch.profiler), with the 50 MB L2 flushed before each call as the main
+    path leaves it: for calls of a few microseconds, where CUDA events around
+    a loop would time the host's launches instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=DEV)
+
+    def total_us(body) -> float:
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                body()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    return (total_us(fn) - total_us(lambda: None)) / iters / 1e3
+
+
 def compare(name: str, got, want) -> float:
     """Max abs error of the kernel output(s) against the plain one(s); raises
     past the kernel's tolerance (relative to the plain result's largest
-    magnitude, and for the forward kernels to at least 1)."""
+    magnitude, and for the forward kernels to at least 1). int8 codes may
+    differ by 1 at no more than 0.1% of elements."""
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     floor = 0.0 if name.endswith("_bwd") else 1.0
     worst, parts = 0.0, []
     for i, (g, w) in enumerate(pairs):
         if g is None or w is None:  # an input with no gradient on one side
+            continue
+        if g.dtype == torch.int8:
+            d = (g.int() - w.int()).abs()
+            share = (d != 0).float().mean().item()
+            if d.max().item() > 1 or share > 1e-3:
+                raise AssertionError(f"{name}: output {i}: int8 codes off by up to "
+                                     f"{d.max().item()} at {share:.2e} of elements")
+            parts.append(f"int8 codes off by <= {d.max().item()} at {share:.2e}")
             continue
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
@@ -158,16 +247,17 @@ def compare(name: str, got, want) -> float:
                                  f"{KERNELS[name]['rel_tol']} x {scale:.3e}")
         worst = max(worst, err)
         parts.append(f"{err:.2e}/{scale:.2e}")
-    if len(parts) > 1:
+    if len(parts) > 1 or any("int8" in part for part in parts):
         log(f"[compare] {name}, max abs error / largest plain magnitude per output: "
             + ", ".join(parts))
     return worst
 
 
-def bound(flops: float, moved: float):
+def bound(flops: float, moved: float, peak: float = PEAK_BF16_FLOPS):
     """The least time (ms) the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    over the peak rate for their type (the bf16 tensor cores by default) and
+    the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -255,11 +345,18 @@ def phase_build() -> None:
 
 def kernel_cases(g: torch.Generator):
     """Inputs at the main paths' shapes: (name, kernel call, plain call,
-    library call or None, (operations, bytes)). The plain version of a
-    backward kernel, and its library call, run the forward too: they compute
-    the gradients from the inputs alone."""
+    library call or None, (operations, bytes)[, options]). The plain version
+    of a backward kernel, and its library call, run the forward too: they
+    compute the gradients from the inputs alone. Options: `variant` names one
+    of several cases of a kernel, `main` marks the one its line in the
+    kernels record gives, `peak` the operations' peak rate, `device` times
+    the calls by their device time with a cold L2 (ms-scale calls are timed
+    by CUDA events around a loop)."""
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=DEV) * scale).to(torch.bfloat16)
+
+    def f32(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
 
     # K1 / K4: one Mamba layer of the 9B at L = 4096 (16 chunks of 256), with
     # a left pad and a packed boundary
@@ -314,32 +411,103 @@ def kernel_cases(g: torch.Generator):
     yield ("vit_attn_qkv", lambda: vit_attention_qkv(qkv, nh, vhd),
            lambda: vit_attention_qkv_plain(qkv, nh, vhd), sdpa(vq, vk, vv, causal=False)[0],
            (4 * F_ * nh * T * T * vhd, nbytes(qkv) * 4 // 3))
+    del qkv, vq, vk, vv
+
+    # K5: K1's layer with the conv fused in, on raw streams that are column
+    # slices of one in-projection output (the fused in_proj leaf's layout)
+    di, gn = H * P, G * N
+    proj = randn(1, L, 2 * di + 2 * gn + H)
+    xr = proj[..., di:2 * di].reshape(1, L, H, P)
+    Br = proj[..., 2 * di:2 * di + gn].reshape(1, L, G, N)
+    Cr = proj[..., 2 * di + gn:2 * di + 2 * gn].reshape(1, L, G, N)
+    dtr = proj[..., 2 * di + 2 * gn:]
+    conv = {"wx": f32(di, 4, scale=0.3), "bx": f32(di, scale=0.1), "wB": f32(gn, 4, scale=0.3),
+            "bB": f32(gn, scale=0.1), "wC": f32(gn, 4, scale=0.3), "bC": f32(gn, scale=0.1)}
+    y, final = ssd_conv_scan_fused(xr, dtr, A, Br, Cr, conv, **ssd_kw)
+    yield ("ssd_conv_fwd", lambda: ssd_conv_scan_fused(xr, dtr, A, Br, Cr, conv, **ssd_kw),
+           lambda: ssd_conv_scan_fused_plain(xr, dtr, A, Br, Cr, conv, **ssd_kw), None,
+           (ssd_flops(L, H, P, G, N, cs),
+            nbytes(xr, dtr, Br, Cr, seq, y, final, *conv.values())))
+    del proj, xr, Br, Cr, dtr, y, final
+
+    # K7: one decode step of a 9B Mamba layer at batch 1 and 8; xr and the
+    # gate are column slices of the fused in_proj row
+    K, Hd = 4, 128
+    for bsz in (1, 8):
+        row = randn(bsz, 2 * di + 2 * gn + Hd)
+        dtf = _process_dt(randn(bsz, Hd), dtb, (0.0, float("inf")))
+        dec = (row[:, di:2 * di], randn(bsz, gn), randn(bsz, gn), dtf, row[:, :di],
+               randn(bsz, di, K), f32(bsz, Hd, P, N, scale=0.3), f32(di, K, scale=0.3),
+               f32(di, scale=0.1), torch.log(torch.arange(1, Hd + 1, device=DEV).float()),
+               D, 1 + f32(di, scale=0.1))
+        dkw = dict(n_groups=G, head_dim=P, eps=1e-5)
+        out = fused_mamba_decode(*dec, **dkw)
+        yield ("decode_fused", lambda dec=dec: fused_mamba_decode(*dec, **dkw),
+               lambda dec=dec: fused_mamba_decode_plain(*dec, **dkw), None,
+               (6 * bsz * di * N, nbytes(*dec, *out)),
+               dict(variant=f"B {bsz}", main=bsz == 1, peak=PEAK_F32_FLOPS, device=True))
+        del out
+
+    # K8: the tower's norm over 8 frames x 729 rows x 1152, all four variants;
+    # the library yardstick (the bf16 variants) is x + out, then F.layer_norm
+    Dv = 1152
+    xn, resn = randn(8, 729, Dv), randn(8, 729, Dv)
+    wn, bn = 1 + f32(Dv, scale=0.1), f32(Dv, scale=0.1)
+    inv = torch.tensor(127.0 / 4.0, device=DEV)
+    wb, bb = wn.to(torch.bfloat16), bn.to(torch.bfloat16)
+    for residual in (False, True):
+        for quant in (False, True):
+            kw = dict(residual=resn if residual else None, act_inv=inv if quant else None)
+            lib = None
+            if not quant and residual:
+                lib = lambda: torch.nn.functional.layer_norm(resn + xn, (Dv,), wb, bb, 1e-6)  # noqa: E731
+            elif not quant:
+                lib = lambda: torch.nn.functional.layer_norm(xn, (Dv,), wb, bb, 1e-6)  # noqa: E731
+            # x (and the residual) read, x_new (with a residual) and y written
+            moved = nbytes(xn, wn, bn) + (2 * nbytes(xn) if residual else 0) + (
+                xn.numel() if quant else nbytes(xn))
+            yield ("layernorm", lambda kw=kw: fused_ln(xn, wn, bn, **kw),
+                   lambda kw=kw: fused_ln_plain(xn, wn, bn, **kw), lib,
+                   (8 * xn.numel(), moved),
+                   dict(variant=("residual + " if residual else "") + ("int8" if quant else "bf16"),
+                        main=residual and not quant, peak=PEAK_F32_FLOPS, device=True))
 
 
 def phase_kernels(g: torch.Generator) -> dict:
-    results = {}
-    for name, kern, plain, library, (flops, moved) in kernel_cases(g):
+    results, worst = {}, {}
+    for name, kern, plain, library, (flops, moved), *opts in kernel_cases(g):
+        opt = opts[0] if opts else {}
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         err = compare(name, got, want)
+        worst[name] = max(worst.get(name, 0.0), err)
         if name.endswith("_bwd"):  # no atomics: a repeat gives the same bits
             again = kern()
             if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: a repeat gave other gradients")
             del again
         del got, want
-        ms = timed_ms(kern)
-        plain_ms = timed_ms(plain, iters=2)
-        lib_ms = timed_ms(library, iters=3) if library is not None else None
-        bound_ms, bound_by = bound(flops, moved)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, launches=0)
-        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-        log(f"[kernels] {name}: max abs err {err:.3e}; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib}, bound {bound_ms:.4f} ms ({bound_by}: "
+        if opt.get("device"):
+            ms, plain_ms = device_ms(kern), device_ms(plain, iters=3)
+            lib_ms = device_ms(library) if library is not None else None
+        else:
+            ms = timed_ms(kern)
+            plain_ms = timed_ms(plain, iters=2)
+            lib_ms = timed_ms(library, iters=3) if library is not None else None
+        bound_ms, bound_by = bound(flops, moved, opt.get("peak", PEAK_BF16_FLOPS))
+        if opt.get("main", True):
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by, launches=0)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        label = f"{name} [{opt['variant']}]" if "variant" in opt else name
+        how = "device time, cold L2" if opt.get("device") else "CUDA events"
+        log(f"[kernels] {label}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib} ({how}), bound {bound_ms:.4f} ms ({bound_by}: "
             f"{flops:.3e} FLOP, {moved:.3e} B)")
         torch.cuda.empty_cache()
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
     return results
 
 
@@ -363,24 +531,23 @@ class Capture:
         return out
 
 
-def route(ssd, flash, vit_attn) -> None:
-    """Point the model's calls at the given SSD, attention and ViT attention."""
-    nano_mod.ssd_scan, nano_mod.flash_attention = ssd, flash
-    vit_mod.encoder_attention_qkv = vit_attn
+def route(calls: dict) -> None:
+    """Point the model's calls of each forward kernel at calls[name]."""
+    for name, (mod, attr) in ROUTES.items():
+        setattr(mod, attr, calls[name])
 
 
 def use_kernels() -> None:
-    route(ssd_scan, flash_attention, encoder_attention_qkv)
+    route(CALLS)
 
 
 def use_plain_versions() -> None:
-    route(ssd_chunked, flash_attention_plain, vit_attention_qkv_plain)
+    route(PLAIN)
 
 
 def capture_all() -> dict:
-    caps = {"ssd_fwd": Capture(ssd_scan), "flash_fwd": Capture(flash_attention),
-            "vit_attn_qkv": Capture(encoder_attention_qkv)}
-    route(caps["ssd_fwd"], caps["flash_fwd"], caps["vit_attn_qkv"])
+    caps = {name: Capture(fn) for name, fn in CALLS.items()}
+    route(caps)
     return caps
 
 
@@ -389,8 +556,9 @@ def reset_launches() -> None:
         w.launches = 0
 
 
-def phase_serving(model, arch, kernel_results: dict) -> None:
-    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+def make_requests(arch):
+    """The three requests, the same prompts and pixels in every phase: text
+    only, 64 frames, 256 frames; 40 text tokens each."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     size = arch.vision.image_size
 
@@ -401,22 +569,58 @@ def phase_serving(model, arch, kernel_results: dict) -> None:
                   if n_frames else None)
         return ids, pixels
 
-    requests = [("text", request(0)), ("64 frames", request(64)), ("256 frames", request(256))]
-    captures = capture_all()
-    reset_launches()
+    return [("text", request(0)), ("64 frames", request(64)), ("256 frames", request(256))]
+
+
+def serve(gen, requests, tag: str, captures=None) -> dict:
+    """Each request through Generator.generate; captures armed for the
+    64-frame one. Returns {label: GenerationOutput}."""
     outs = {}
     for label, (ids, pixels) in requests:
-        for c in captures.values():
+        for c in (captures or {}).values():
             c.armed = label == "64 frames"
         out = gen.generate(ids, pixels=pixels, image_token_id=IMAGE_TOKEN)
         outs[label] = out
         if not torch.isfinite(out.first_logits).all():
-            raise AssertionError(f"{label}: non-finite first-token logits")
+            raise AssertionError(f"{tag} {label}: non-finite first-token logits")
         decode_tps = (out.num_generated - 1) / out.decode_s
-        log(f"[serve] {label}: bucket {gen._plan_prompt(ids, IMAGE_TOKEN)[1]}, "
+        log(f"[{tag}] {label}: bucket {gen._plan_prompt(ids, IMAGE_TOKEN)[1]}, "
             f"encode {out.encode_s:.3f} s, prefill {out.prefill_s:.3f} s, "
             f"decode {decode_tps:.2f} tok/s, {out.num_generated} tokens "
             f"{out.token_ids.tolist()}")
+    return outs
+
+
+def cosine(a, b) -> float:
+    return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                                 dim=0).item()
+
+
+def logits_agree(tag: str, got, want, min_cos: float = 0.99) -> None:
+    """bf16 activations through 52 layers: two paths that round at other
+    places agree to a cosine of 0.99. With int8 activations a difference
+    that moves a value across a rounding boundary moves its int8 code by one
+    step of 1/127 of the layer's calibrated range, and the model's random
+    weights carry such steps on: the int8 comparisons allow 0.98."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    cos = cosine(got, want)
+    log(f"[{tag}] first-token logits max abs diff {err:.3e} (max |logit| "
+        f"{want.abs().max().item():.3e}), cosine {cos:.6f}")
+    if not (math.isfinite(err) and cos > min_cos):
+        raise AssertionError(f"{tag}: first-token logits disagree")
+
+
+def phase_serving(model, arch, kernel_results: dict) -> dict:
+    """Returns the bf16 model's first-token logits of the requests and
+    `tower` of 16 of the 64 frames, the int8 phase's references."""
+    for var in FUSIONS:  # the fused kernels off, as by default
+        os.environ[var] = "0"
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    requests = make_requests(arch)
+    captures = capture_all()
+    reset_launches()
+    outs = serve(gen, requests, "serve", captures)
     repeat = gen.generate(requests[1][1][0], pixels=requests[1][1][1],
                           image_token_id=IMAGE_TOKEN)
     launches = {name: w.launches for name, w in WRAPPERS.items()}
@@ -429,37 +633,38 @@ def phase_serving(model, arch, kernel_results: dict) -> None:
             raise AssertionError(f"{name} was never launched on the serving path")
         kernel_results[name]["launches"] = launches[name]
 
-    # kernels against plain versions on the inputs the 64-frame request gave them
-    c = captures["ssd_fwd"]
-    errs = {"ssd_fwd": compare("ssd_fwd", ssd_scan(*c.args, **c.kwargs),
-                               ssd_chunked(*c.args, **c.kwargs))}
-    c = captures["flash_fwd"]
-    errs["flash_fwd"] = compare("flash_fwd", flash_attention(*c.args, **c.kwargs),
-                                flash_attention_plain(*c.args, **c.kwargs))
-    c = captures["vit_attn_qkv"]
-    errs["vit_attn_qkv"] = compare("vit_attn_qkv", vit_attention_qkv(*c.args),
-                                   vit_attention_qkv_plain(*c.args))
-    for name, err in errs.items():
-        shapes = [tuple(a.shape) for a in captures[name].args if isinstance(a, torch.Tensor)]
-        log(f"[serve] {name} on the request's own inputs {shapes}: max abs err {err:.3e}")
-        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"], err)
-    del captures, c
+    compare_captured(captures, SERVING, "serve", kernel_results)
+    del captures
     torch.cuda.empty_cache()
+    check_against_plain_run(gen, requests, outs, "serve")
+    return {"logits": {label: o.first_logits for label, o in outs.items()},
+            "tower": tower(model, arch, requests[1][1][1][:16])}
 
-    # reference: the 64-frame request with the plain versions in place of the kernels
+
+@torch.no_grad()
+def compare_captured(captures: dict, names, tag: str, kernel_results: dict) -> None:
+    """Each kernel against its plain version on the inputs the armed request
+    gave its first call."""
+    for name in names:
+        c = captures[name]
+        err = compare(name, CALLS[name](*c.args, **c.kwargs), PLAIN[name](*c.args, **c.kwargs))
+        shapes = [tuple(a.shape) for a in c.args if isinstance(a, torch.Tensor)]
+        log(f"[{tag}] {name} on the request's own inputs {shapes}: max abs err {err:.3e}")
+        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"], err)
+
+
+def check_against_plain_run(gen, requests, outs: dict, tag: str, min_cos: float = 0.99) -> None:
+    """The 64-frame request again with every kernel's plain version in its
+    place, as a reference for the first logits."""
     use_plain_versions()
-    ref = gen.generate(requests[1][1][0], pixels=requests[1][1][1], image_token_id=IMAGE_TOKEN)
-    use_kernels()
-    got, want = outs["64 frames"].first_logits.float(), ref.first_logits.float()
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).item()
-    log(f"[serve] 64 frames, kernels vs plain versions: first-token logits max abs diff "
-        f"{err:.3e} (max |logit| {scale:.3e}, cosine {cos:.6f}); ids kernels "
+    try:
+        ref = gen.generate(requests[1][1][0], pixels=requests[1][1][1],
+                           image_token_id=IMAGE_TOKEN)
+    finally:
+        use_kernels()
+    log(f"[{tag}] 64 frames, kernels vs plain versions: ids kernels "
         f"{outs['64 frames'].token_ids.tolist()} plain {ref.token_ids.tolist()}")
-    # bf16 activations through 52 layers: the two paths round at other places
-    if not (math.isfinite(err) and cos > 0.99):
-        raise AssertionError("first-token logits disagree with the plain-version run")
+    logits_agree(f"{tag}", outs["64 frames"].first_logits, ref.first_logits, min_cos)
 
 
 def training_row(arch, n_frames: int, g: torch.Generator):
@@ -475,16 +680,16 @@ def training_row(arch, n_frames: int, g: torch.Generator):
                    IMAGE_TOKEN, arch.tokens_per_frame)
 
 
-def profile_step(trainer, cb, top: int = 25) -> None:
-    """torch.profiler over one training step: device time by kernel name and
-    the share of the step's wall time the device was busy."""
+def profile_call(label: str, fn, top: int = 25) -> None:
+    """torch.profiler over one call: device time by kernel name and the share
+    of the call's wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(cb)
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): a CPU op's entry repeats the
@@ -493,9 +698,8 @@ def profile_step(trainer, cb, top: int = 25) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"[profile] one step at {cb.plan.fused_len} tokens: wall {wall_us / 1e3:.1f} ms, "
-        f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), "
-        f"{sum(r[2] for r in rows)} device launches")
+    log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+        f"({100 * busy / wall_us:.1f}%), {sum(r[2] for r in rows)} device launches")
     for key, us, count in rows[:top]:
         log(f"[profile]   {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
 
@@ -540,8 +744,8 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
         raise AssertionError(f"training losses {losses}")
     if not losses[3] < losses[0]:
         raise AssertionError(f"the 4th loss {losses[3]} is not below the 1st {losses[0]}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in TRAINING:
+        if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the training path")
     for name in ("ssd_bwd", "flash_bwd"):
         kernel_results[name]["launches"] = launches[name]
@@ -595,13 +799,136 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
     if not (abs(lk - lp) <= 1e-2 * abs(lp) and cos > 0.99):
         raise AssertionError("the first training step disagrees with the plain-version run")
     if profile:
-        profile_step(trainer, long_)
+        profile_call(f"one training step at {long_.plan.fused_len} tokens",
+                     lambda: trainer.train_step(long_))
+
+
+def set_fusions(on: bool) -> None:
+    for var in FUSIONS:
+        os.environ[var] = "1" if on else "0"
+
+
+def phase_int8_serving(arch, kernel_results: dict, bf16: dict, profile: bool = False) -> None:
+    t0 = time.perf_counter()
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    # W8A8 as bench.py serves it: the ViT and the backbone (its lm_head by an
+    # f32 dequant), the projector in bf16
+    quantize_params_int8(model.vision_backbone)
+    quantize_params_int8(model.llm_backbone)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    size = arch.vision.image_size
+    clip = torch.rand(64, size, size, 3, generator=g, device=DEV) * 2 - 1
+    calibrate_act_scales(lambda m, px: vit_mod.vit_forward(m, arch.vision, px),
+                         model.vision_backbone, [clip])
+    with torch.no_grad():
+        emb = encode_visual(model, arch, clip)
+    calibrate_act_scales(
+        lambda m, e: nano_forward(m, arch.llm, inputs_embeds=e, logits_to_keep=1),
+        model.llm_backbone, [emb.reshape(1, -1, emb.shape[-1])])
+    fuse_decode_in_proj(model.llm_backbone)
+    del clip, emb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    int8 = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    log(f"[int8] quantized {len(int8)} linears ({sum(m.act_inv is not None for m in int8)} "
+        f"calibrated on one 64-frame clip), in_proj fused; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, {time.perf_counter() - t0:.1f} s")
+
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    requests = make_requests(arch)
+    set_fusions(False)
+    off = serve(gen, requests, "int8")
+    set_fusions(True)
+    try:
+        captures = capture_all()
+        reset_launches()
+        on = serve(gen, requests, "int8 fused", captures)
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        use_kernels()
+        log(f"[int8 fused] launches during the requests: {launches}")
+        n_mamba = arch.llm.layers_block_type.count("mamba")
+        steps = sum(o.num_generated - 1 for o in on.values())
+        clips = sum(-(-(0 if px is None else px.shape[0]) // gen.clip_size)
+                    for _, (_, px) in requests)
+        want = {"ssd_conv_fwd": n_mamba * len(requests), "decode_fused": n_mamba * steps,
+                "layernorm": 2 * len(model.vision_backbone.layers) * clips, "ssd_fwd": 0}
+        for name, count in want.items():
+            if launches[name] != count:
+                raise AssertionError(f"{name}: {launches[name]} launches, the fused path "
+                                     f"makes {count}")
+        for name in FUSED:
+            kernel_results[name]["launches"] = launches[name]
+        compare_captured(captures, FUSED, "int8 fused", kernel_results)
+        del captures
+        torch.cuda.empty_cache()
+        for label, _ in requests:
+            logits_agree(f"int8 {label}, fused vs unfused", on[label].first_logits,
+                         off[label].first_logits, 0.98)
+        check_against_plain_run(gen, requests, on, "int8 fused", 0.98)
+        # where the runs part: the tower's features (before ToMe, whose merge
+        # choices are discrete) and the visual tokens, on 16 of the 64 frames
+        px = requests[1][1][1][:16]
+        feats = {"fused": tower(model, arch, px)}
+        use_plain_versions()
+        try:
+            feats["plain versions"] = tower(model, arch, px)
+        finally:
+            use_kernels()
+        set_fusions(False)
+        feats["unfused"] = tower(model, arch, px)
+        for (fa, ta), (fb, tb), what in (
+                (feats["fused"], feats["unfused"], "fused vs unfused"),
+                (feats["fused"], feats["plain versions"], "fused kernels vs plain versions"),
+                (feats["unfused"], bf16["tower"], "int8 unfused vs the bf16 model")):
+            log(f"[int8] 16 frames, {what}: tower features cosine {cosine(fa, fb):.6f}, "
+                f"visual tokens cosine {cosine(ta, tb):.6f}")
+        del feats
+    finally:
+        set_fusions(False)
+    for label, _ in requests:
+        log(f"[int8] {label}: first-token logits, int8 unfused vs the bf16 model: cosine "
+            f"{cosine(off[label].first_logits, bf16['logits'][label]):.6f}")
+    ab_rounds(gen, requests)
+    if profile:
+        ids, px = requests[2][1]
+        for on in (False, True):
+            set_fusions(on)
+            try:
+                profile_call(f"int8 256-frame request, fusions {'on' if on else 'off'}",
+                             lambda: gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN))
+            finally:
+                set_fusions(False)
+
+
+@torch.no_grad()
+def tower(model, arch, px):
+    """(the ViT's penultimate features, the visual tokens after ToMe and the
+    projector) of some frames."""
+    return vit_mod.vit_forward(model.vision_backbone, arch.vision, px), \
+        encode_visual(model, arch, px)
+
+
+def ab_rounds(gen, requests) -> None:
+    """The fusions off and on in turns (off, on, on, off) on the text and the
+    256-frame requests, within this one call on this one card."""
+    for idx in (0, 2):
+        label, (ids, px) = requests[idx]
+        for on in (False, True, True, False):
+            set_fusions(on)
+            try:
+                o = gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+            finally:
+                set_fusions(False)
+            log(f"[int8 A/B] {label}, fusions {'on ' if on else 'off'}: encode "
+                f"{o.encode_s:.3f} s, prefill {o.prefill_s:.3f} s, decode "
+                f"{(o.num_generated - 1) / o.decode_s:.2f} tok/s")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more training step after the checks")
+                        help="profile a training step and an int8 request after the checks")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -614,8 +941,12 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[model] TimeViper-9B: {n_params / 1e9:.2f} B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
-    phase_serving(model, arch, results)
+    bf16 = phase_serving(model, arch, results)
     phase_training(model, arch, results, profile=args.profile)
+    del model  # the int8 phase makes the weights again from the seed
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_int8_serving(arch, results, bf16, profile=args.profile)
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

@@ -24,6 +24,8 @@ MODULES = [
     "timeviper_tpu_torch.data.loader", "timeviper_tpu_torch.train.lora",
     "timeviper_tpu_torch.train.optim", "timeviper_tpu_torch.train.step",
     "timeviper_tpu_torch.train.checkpoint", "timeviper_tpu_torch.train.trainer",
+    "timeviper_tpu_torch.ops.int8_linear", "timeviper_tpu_torch.ops.layernorm",
+    "timeviper_tpu_torch.ops.decode_fused", "timeviper_tpu_torch.train.quantize",
     "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent

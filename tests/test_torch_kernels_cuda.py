@@ -17,6 +17,11 @@ BWD_TOL of its largest magnitude: the kernels feed bf16 operands (among them
 the rounded decay and probability tiles) to the tensor cores where the plain
 versions multiply in f32, and a gradient sums many such products. Both must
 give bitwise-equal gradients on a repeat (no atomics).
+
+K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
+csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
+like the other forward kernels; K8's int8 codes may differ by 1 at no more
+than 0.1% of elements (ties of y * act_inv, whose sums differ in order).
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import pytest
 import torch
 from torch_parity import packed_seq, require_cuda, rng, t
 
+from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_plain
 from timeviper_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -31,7 +37,15 @@ from timeviper_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from timeviper_tpu_torch.ops.ssd import ssd_chunked
-from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain
+from timeviper_tpu_torch.ops.int8_linear import Int8Linear, apply_linear_w8a8
+from timeviper_tpu_torch.ops.layernorm import fused_ln, fused_ln_plain
+from timeviper_tpu_torch.ops.ssd_kernel import (
+    ssd_conv_scan_fused,
+    ssd_conv_scan_fused_plain,
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_plain,
+)
 from timeviper_tpu_torch.ops.vit_attention import vit_attention_qkv, vit_attention_qkv_plain
 
 pytestmark = pytest.mark.cuda
@@ -172,3 +186,97 @@ def test_flash_backward_kernel_matches_plain(L, packed, Hq, Hkv):
     for a, b in zip(got, want):
         _close(a, b, BWD_TOL, floor=0.0)
     assert all(torch.equal(a, b) for a, b in zip(got, kernel_grads()))
+
+
+def _int8_close(got, want):
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff != 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("D", [1152, 128])
+@pytest.mark.parametrize("residual,quant", [(False, False), (True, False), (False, True),
+                                            (True, True)])
+def test_layernorm_kernel_matches_plain(D, residual, quant):
+    dev = require_cuda()
+    r = rng(7)
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    x, res = bf(3, 61, D), bf(3, 61, D) if residual else None
+    w = t(1 + 0.2 * r.standard_normal(D).astype(np.float32)).to(dev)
+    b = t(0.1 * r.standard_normal(D).astype(np.float32)).to(dev)
+    inv = torch.tensor(127.0 / 4.0, device=dev) if quant else None
+    before = fused_ln.launches
+    got = fused_ln(x, w, b, residual=res, act_inv=inv)
+    assert fused_ln.launches == before + 1
+    want = fused_ln_plain(x, w, b, residual=res, act_inv=inv)
+    if residual:
+        assert torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
+    if quant:
+        _int8_close(got, want)
+    else:
+        _close(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("B,G,H,P", [(2, 2, 16, 16), (1, 8, 128, 64), (8, 8, 128, 64)])
+def test_decode_fused_kernel_matches_plain(B, G, H, P):
+    """A group of 128 channels (a cluster of 1) and the 9B's 1024 (8)."""
+    dev = require_cuda()
+    r = rng(8)
+    N, K, di = 128, 4, H * P
+    bf = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev, torch.bfloat16)  # noqa: E731
+    f32 = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev)  # noqa: E731
+    wide = bf(B, 2 * di + 64)  # xr and gate as column slices, as the fused in_proj gives them
+    args = (wide[:, di:2 * di], bf(B, G * N), bf(B, G * N), f32(B, H, k=0.1).abs(),
+            wide[:, :di], bf(B, di, K), f32(B, H, P, N, k=0.3), f32(di, K, k=0.3),
+            f32(di, k=0.1), f32(H, k=0.5), f32(H), 1 + f32(di, k=0.1))
+    kw = dict(n_groups=G, head_dim=P, eps=1e-5)
+    before = fused_mamba_decode.launches
+    got = fused_mamba_decode(*args, **kw)
+    assert fused_mamba_decode.launches == before + 1
+    want = fused_mamba_decode_plain(*args, **kw)
+    _close(got[0], want[0], 1e-2)
+    assert torch.equal(got[1], want[1])
+    _close(got[2], want[2], 1e-5)
+
+
+@pytest.mark.parametrize("packed", [None, (37, 170)])
+def test_conv_scan_kernel_matches_plain(packed):
+    """K5 on raw streams that are column slices of one in-projection output
+    (strided rows), a ragged tail, a -1 pad and a boundary inside a chunk."""
+    dev = require_cuda()
+    r = rng(9)
+    B, L, H, P, G, N, cs = 1, 300, 16, 64, 4, 128, 128
+    di, gn = H * P, G * N
+    proj = t(r.standard_normal((B, L, 2 * di + 2 * gn + H), np.float32)).to(dev, torch.bfloat16)
+    x = proj[..., di:2 * di].reshape(B, L, H, P)
+    Bm = proj[..., 2 * di:2 * di + gn].reshape(B, L, G, N)
+    Cm = proj[..., 2 * di + gn:2 * di + 2 * gn].reshape(B, L, G, N)
+    dt = proj[..., 2 * di + 2 * gn:]
+    f32 = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev)  # noqa: E731
+    conv = {"wx": f32(di, 4, k=0.3), "bx": f32(di, k=0.1), "wB": f32(gn, 4, k=0.3),
+            "bB": f32(gn, k=0.1), "wC": f32(gn, 4, k=0.3), "bC": None}
+    A = -torch.exp(f32(H))
+    seq = t(packed_seq(B, L, *packed)).to(dev) if packed else None
+    kw = dict(chunk_size=cs, D=f32(H), dt_bias=f32(H, k=0.1), seq_idx=seq)
+    before = ssd_conv_scan_fused.launches
+    y, st = ssd_conv_scan_fused(x, dt, A, Bm, Cm, conv, **kw)
+    assert ssd_conv_scan_fused.launches == before + 1
+    yp, sp = ssd_conv_scan_fused_plain(x, dt, A, Bm, Cm, conv, **kw)
+    _close(y, yp, 1e-2)
+    _close(st, sp, 1e-2)
+
+
+@pytest.mark.parametrize("M", [1, 16, 33])
+def test_int8_product_on_the_card_is_the_cpu_one(M):
+    """torch._int_mm takes more than 16 rows on the card; fewer are padded.
+    The W8A8 apply gives the CPU's result bit for bit."""
+    dev = require_cuda()
+    r = rng(10)
+    mod = Int8Linear(t(r.integers(-127, 128, (256, 128)).astype(np.int8)),
+                     t((r.random(256) * 0.01).astype(np.float32)), None,
+                     torch.tensor(127.0 / 3.0))
+    x = t(r.standard_normal((M, 128), np.float32)).to(torch.bfloat16)
+    want = apply_linear_w8a8(mod, x)
+    got = apply_linear_w8a8(mod.to(dev), x.to(dev))
+    assert torch.equal(got.cpu(), want)

@@ -21,10 +21,28 @@
 // tensor cores (mma.sync m16n8k16, ldmatrix), with bf16 operands and f32 sums
 // as in the TPU kernel; the decay weights, the cumsum and the carried state
 // are f32. What bounds it then is the scalar work around the products
-// (building the masked decay matrix and the x*dt tiles element by element),
-// not the products and not the ~0.5 GB of f32 scratch traffic a layer. Head h
-// reads group h / (H/G). seq_idx resets the state inside a chunk and at chunk
-// boundaries, exactly as the TPU kernel does.
+// (building the masked decay matrix element by element; the x*dt tiles are
+// built eight channels at a time from 16-byte loads), not the products and
+// not the ~0.5 GB of f32 scratch traffic a layer. Head h reads group
+// h / (H/G). seq_idx resets the state inside a chunk and at chunk boundaries,
+// exactly as the TPU kernel does. x, dt, B and C may be column slices of one
+// wider in-projection output: their rows are `sx`, `sdt`, `sbc` apart.
+//
+// K5 is the same five passes with the Mamba layer's depthwise causal conv
+// fused in. It replaces the `fuse_conv` mode of the same TPU kernel
+// (timeviper_tpu/ops/ssd_pallas.py:_ssd_kernel via ssd_conv_scan_fused :981),
+// which carries a halo of 3 raw rows across its in-order chunk walk. Here no
+// pass walks chunks in order, so every loader that reads x, B or C (chunk_cb,
+// chunk_state and chunk_scan) convolves the raw stream itself, eight
+// channels at a time: it reads the 3 raw rows before each row straight from
+// device memory (they are L1/L2 hits: the neighbouring rows are read by the
+// same block), applies taps, bias and SiLU in f32 and rounds to bf16, as the
+// TPU kernel does (ssd_pallas.py:155-183). A tap before row 0 or in another
+// segment than the row's reads zero (_tap_mask, :137-147). chunk_scan keeps
+// its own rows' x for the D*x term. The convolved streams never reach device
+// memory: that round trip (2 x 18,560 bf16 per token of the 9B) is what the
+// fusion saves; the price is 4 raw reads per convolved element, and the conv
+// of B and C redone for every head of a group.
 #include "common.cuh"
 
 namespace {
@@ -49,6 +67,15 @@ struct SsdArgs {
   const __nv_bfloat16* Cm;  // (B, L, G, N)
   const int* seq;           // (B, L) or null
   const float* init;        // (B, H, P, N) or null
+  // K5: conv taps (channels, 4) and biases (channels,) f32 of x (channel
+  // h*P + p), B and C (channel g*N + n); a null tap array = no conv (K1),
+  // a null bias = zero bias
+  const float* wx;
+  const float* bx;
+  const float* wB;
+  const float* bB;
+  const float* wC;
+  const float* bC;
   __nv_bfloat16* y;         // (B, L, H, P)
   float* final_state;       // (B, H, P, N)
   float* dtp;               // (B, H, Lp) processed dt
@@ -57,6 +84,9 @@ struct SsdArgs {
   float* states;            // (B, nc, H, P, N) chunk states, then inbound states
   float* cb;                // (B, nc, G, cs, cs)
   int B, L, H, G, cs, nc, Lp;
+  // row strides (elements) of x, dt and B/C between positions: the streams
+  // may be column slices of one in-projection output (its fused leaf)
+  int sx, sdt, sbc;
   int clamp;
   float dt_lo, dt_hi;
 };
@@ -73,13 +103,92 @@ __device__ __forceinline__ int seg_prev(const SsdArgs& a, int b, int c) {
   return c == 0 ? seg_at(a, b, 0) : seg_at(a, b, c * a.cs - 1);
 }
 
+__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
+
+// v[i] * scale rounded to bf16, eight of them in one 16-byte word.
+__device__ __forceinline__ uint4 pack8(const float (&v)[8], float scale) {
+  return make_uint4(tv::pack_bf16(v[0] * scale, v[1] * scale),
+                    tv::pack_bf16(v[2] * scale, v[3] * scale),
+                    tv::pack_bf16(v[4] * scale, v[5] * scale),
+                    tv::pack_bf16(v[6] * scale, v[7] * scale));
+}
+
+// K5's conv of eight channels ch0..ch0+7 at row pos < L: `col` points at row
+// 0 of channel ch0, rows `ld` apart, 16-byte aligned. Tap j reads row pos - j
+// with weight w[3 - j], in the order of the TPU kernel's sum; then bias and
+// SiLU in f32. The caller rounds the result to bf16, as the TPU kernel does.
+__device__ __forceinline__ void conv8(const SsdArgs& a, int b, int pos,
+                                      const __nv_bfloat16* col, size_t ld, const float* w,
+                                      const float* bias, int ch0, float (&out)[8]) {
+  const int s = seg_at(a, b, pos);
+  const float4* w4 = reinterpret_cast<const float4*>(w) + ch0;
+  {
+    const uint4 raw = *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = bf(v[i]) * w4[i].w;
+  }
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    const int r = pos - j;
+    const bool on = r >= 0 && seg_at(a, b, r) == s;
+    const uint4 raw = on ? *reinterpret_cast<const uint4*>(col + (size_t)r * ld)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float wt = j == 1 ? w4[i].z : (j == 2 ? w4[i].y : w4[i].x);
+      out[i] += bf(v[i]) * wt;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = silu(out[i] + (bias ? bias[ch0 + i] : 0.f));
+}
+
+// Eight channels p0..p0+7 of x at row pos of head h as the scan reads them,
+// raw (K1) or convolved and rounded to bf16 (K5); zero past the end.
+__device__ __forceinline__ void x_row8(const SsdArgs& a, int b, int pos, int h, int p0,
+                                       float (&v)[8]) {
+  if (pos >= a.L) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = 0.f;
+    return;
+  }
+  const size_t ld = a.sx;
+  const __nv_bfloat16* col = a.x + (size_t)b * a.L * ld + (size_t)h * kP + p0;
+  if (a.wx == nullptr) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
+    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = bf(r[i]);
+    return;
+  }
+  conv8(a, b, pos, col, ld, a.wx, a.bx, h * kP + p0, v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = bf(to_bf(v[i]));
+}
+
+// Eight channels n..n+7 of B or C (`m`, taps `w`, bias `bias`) at row pos of
+// group g, raw (w null) or convolved; zero past the end.
+__device__ __forceinline__ uint4 bc_row8(const SsdArgs& a, const __nv_bfloat16* m,
+                                         const float* w, const float* bias, int b, int pos,
+                                         int g, int n) {
+  const size_t ld = a.sbc;
+  const __nv_bfloat16* col = m + (size_t)b * a.L * ld + (size_t)g * kN + n;
+  if (pos >= a.L) return make_uint4(0u, 0u, 0u, 0u);
+  if (w == nullptr) return *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
+  float v[8];
+  conv8(a, b, pos, col, ld, w, bias, g * kN + n, v);
+  return pack8(v, 1.f);
+}
+
 // Pass 1. grid (nc, H, B), block cs threads.
 __global__ void dt_cumsum_kernel(SsdArgs a) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
   const int pos = c * a.cs + t;
   float d = 0.f;
   if (pos < a.L) {
-    d = bf(a.dt[((size_t)b * a.L + pos) * a.H + h]);
+    d = bf(a.dt[((size_t)b * a.L + pos) * a.sdt + h]);
     if (a.dt_bias) d += a.dt_bias[h];
     d = d > 20.f ? d : log1pf(expf(d));  // softplus
     if (a.clamp) d = fminf(fmaxf(d, a.dt_lo), a.dt_hi);
@@ -112,10 +221,8 @@ __global__ void __launch_bounds__(kThreads) chunk_cb_kernel(SsdArgs a) {
   for (int e = tid; e < kTile * kN / 8; e += kThreads) {
     const int r = e / (kN / 8), n = (e % (kN / 8)) * 8;
     const int pi = i0 + r, pj = j0 + r;
-    *reinterpret_cast<uint4*>(&Cs[r][n]) =
-        tv::ld_row8(a.Cm + (((size_t)b * a.L + pi) * a.G + g) * kN + n, pi < a.L);
-    *reinterpret_cast<uint4*>(&Bs[r][n]) =
-        tv::ld_row8(a.Bm + (((size_t)b * a.L + pj) * a.G + g) * kN + n, pj < a.L);
+    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, a.wC, a.bC, b, pi, g, n);
+    *reinterpret_cast<uint4*>(&Bs[r][n]) = bc_row8(a, a.Bm, a.wB, a.bB, b, pj, g, n);
   }
   __syncthreads();
   const int r0 = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
@@ -165,16 +272,15 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(SsdArgs a) {
   float acc[kN / 8][4] = {};
   for (int j0 = 0; j0 < a.cs; j0 += kTile) {
     __syncthreads();  // w is written / the previous tiles are no longer read
-    for (int e = tid; e < kTile * kP; e += kThreads) {
-      const int j = e / kP, p = e % kP, pos = c * a.cs + j0 + j;
-      Xs[j][p] = tv::to_bf(pos < a.L ? bf(a.x[(((size_t)b * a.L + pos) * a.H + h) * kP + p]) *
-                                           w[j0 + j]
-                                     : 0.f);
+    for (int e = tid; e < kTile * kP / 8; e += kThreads) {
+      const int j = e / (kP / 8), p0 = (e % (kP / 8)) * 8;
+      float xv[8];
+      x_row8(a, b, c * a.cs + j0 + j, h, p0, xv);
+      *reinterpret_cast<uint4*>(&Xs[j][p0]) = pack8(xv, w[j0 + j]);
     }
     for (int e = tid; e < kTile * kN / 8; e += kThreads) {
       const int j = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = c * a.cs + j0 + j;
-      *reinterpret_cast<uint4*>(&Bs[j][n]) =
-          tv::ld_row8(a.Bm + (((size_t)b * a.L + pos) * a.G + g) * kN + n, pos < a.L);
+      *reinterpret_cast<uint4*>(&Bs[j][n]) = bc_row8(a, a.Bm, a.wB, a.bB, b, pos, g, n);
     }
     __syncthreads();
 #pragma unroll
@@ -262,8 +368,7 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
   const float* sin = a.states + (((size_t)b * a.nc + c) * a.H + h) * kP * kN;
   for (int e = tid; e < kTile * kN / 8; e += kThreads) {
     const int r = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = c * a.cs + i0 + r;
-    *reinterpret_cast<uint4*>(&Cs[r][n]) =
-        tv::ld_row8(a.Cm + (((size_t)b * a.L + pos) * a.G + g) * kN + n, pos < a.L);
+    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, a.wC, a.bC, b, pos, g, n);
   }
   for (int e = tid; e < kP * kN / 4; e += kThreads) {
     const int p = e / (kN / 4), n = (e % (kN / 4)) * 4;
@@ -298,11 +403,14 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
   const float* cb_rows[2] = {cbm + (size_t)(i0 + rl) * a.cs, cbm + (size_t)(i0 + rl + 8) * a.cs};
   for (int j0 = 0; j0 < i0 + kTile; j0 += kTile) {
     __syncthreads();  // the previous Xs / acs_j / seg_j are no longer read
-    for (int e = tid; e < kTile * kP; e += kThreads) {
-      const int j = e / kP, p = e % kP, pos = c * a.cs + j0 + j;
-      Xs[j][p] = tv::to_bf(pos < a.L ? bf(a.x[(((size_t)b * a.L + pos) * a.H + h) * kP + p]) *
-                                           a.dtp[hrow + j0 + j]
-                                     : 0.f);
+    for (int e = tid; e < kTile * kP / 8; e += kThreads) {
+      const int j = e / (kP / 8), p0 = (e % (kP / 8)) * 8;
+      float xv[8];
+      x_row8(a, b, c * a.cs + j0 + j, h, p0, xv);
+      *reinterpret_cast<uint4*>(&Xs[j][p0]) = pack8(xv, a.dtp[hrow + j0 + j]);
+      // the last tile is the block's own rows: keep their x for the D x term
+      // in Cs, whose C rows the inbound-state product no longer reads
+      if (j0 == i0) *reinterpret_cast<uint4*>(&Cs[j][p0]) = pack8(xv, 1.f);
     }
     if (tid < kTile) {
       acs_j[tid] = a.acs[hrow + j0 + tid];
@@ -346,8 +454,9 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
     for (int nt = 0; nt < kP / 8; ++nt) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const size_t o = (((size_t)b * a.L + pos) * a.H + h) * kP + nt * 8 + cq + u;
-        a.y[o] = to_bf(acc[nt][2 * half + u] + Dh * bf(a.x[o]));
+        const int p = nt * 8 + cq + u;
+        const size_t o = (((size_t)b * a.L + pos) * a.H + h) * kP + p;
+        a.y[o] = to_bf(acc[nt][2 * half + u] + Dh * bf(Cs[rl + 8 * half][p]));
       }
     }
   }
@@ -357,12 +466,16 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
 
 extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const void* dt_bias,
                           const void* D, const void* Bm, const void* Cm, const void* seq,
-                          const void* init, void* y, void* final_state, void* dtp, void* acs,
+                          const void* init, const void* wx, const void* bx, const void* wB,
+                          const void* bB, const void* wC, const void* bC, void* y,
+                          void* final_state, void* dtp, void* acs,
                           void* carry, void* states, void* cb, int B, int L, int H, int P,
-                          int G, int N, int cs, int clamp, float dt_lo, float dt_hi,
-                          void* stream) {
+                          int G, int N, int cs, int sx, int sdt, int sbc, int clamp,
+                          float dt_lo, float dt_hi, void* stream) {
   if (P != kP || N != kN || cs % kTile != 0 || cs > 1024 || H % G != 0)
     return cudaErrorInvalidValue;
+  if ((wx == nullptr) != (wB == nullptr) || (wx == nullptr) != (wC == nullptr))
+    return cudaErrorInvalidValue;  // K5 convolves all three streams or none
   SsdArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.dt = static_cast<const __nv_bfloat16*>(dt);
@@ -373,6 +486,12 @@ extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const vo
   a.Cm = static_cast<const __nv_bfloat16*>(Cm);
   a.seq = static_cast<const int*>(seq);
   a.init = static_cast<const float*>(init);
+  a.wx = static_cast<const float*>(wx);
+  a.bx = static_cast<const float*>(bx);
+  a.wB = static_cast<const float*>(wB);
+  a.bB = static_cast<const float*>(bB);
+  a.wC = static_cast<const float*>(wC);
+  a.bC = static_cast<const float*>(bC);
   a.y = static_cast<__nv_bfloat16*>(y);
   a.final_state = static_cast<float*>(final_state);
   a.dtp = static_cast<float*>(dtp);
@@ -381,6 +500,7 @@ extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const vo
   a.states = static_cast<float*>(states);
   a.cb = static_cast<float*>(cb);
   a.B = B; a.L = L; a.H = H; a.G = G; a.cs = cs;
+  a.sx = sx; a.sdt = sdt; a.sbc = sbc;
   a.nc = (L + cs - 1) / cs;
   a.Lp = a.nc * cs;
   a.clamp = clamp; a.dt_lo = dt_lo; a.dt_hi = dt_hi;

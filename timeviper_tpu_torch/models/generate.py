@@ -17,6 +17,7 @@ Left out for now: pdrop, sequence parallelism, speculative decoding,
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence
 
@@ -34,6 +35,12 @@ from timeviper_tpu_torch.models.vlm import (
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
+def _fused_conv_default() -> bool:
+    """TIMEVIPER_FUSED_CONV=1 routes the prefill's Mamba layers through the
+    fused conv + scan (timeviper_tpu/models/generate.py:41); off by default."""
+    return os.environ.get("TIMEVIPER_FUSED_CONV", "0") == "1"
 
 
 def pad_text_to_bucket(ids_arr, gather_idx, bucket, pad_token_id):
@@ -130,7 +137,7 @@ class Generator:
             self.model, self.arch,
             input_ids=torch.as_tensor(ids_arr, dtype=torch.long, device=self.device),
             plan=plan, visual_embeddings=visual, fill_cache=True, cache_max_len=cache_len,
-            valid_from=pad, logits_to_keep=1)
+            valid_from=pad, logits_to_keep=1, fused_conv=_fused_conv_default())
         return out["logits"][:, -1], out["cache"]
 
     @torch.inference_mode()

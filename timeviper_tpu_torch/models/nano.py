@@ -17,15 +17,28 @@ package:
 
 Attention has no RoPE; the MLP is up -> relu^2 -> down. Head h of a Mamba
 layer reads group h // (H/G). Linear weights are torch's (out, in); a LoRA'd
-linear (train/lora.py) adds its delta in its own forward.
+linear (train/lora.py) adds its delta in its own forward, an int8 one
+(ops/int8_linear.py:Int8Linear, train/quantize.py) its W8A8 or weight-only
+product.
 
-Left out for now: pdrop / TransV, the remat policies other than "full",
-int8 and the fused in_proj leaf.
+Two switches of the JAX package choose fused kernels, read as it reads them
+(timeviper_tpu/models/nano.py:257-262, :342-344):
+* `fused_conv` (the Generator passes TIMEVIPER_FUSED_CONV): a Mamba prefill
+  with d_conv 4 and a chunk size that is a multiple of 128 runs the conv,
+  SiLU and scan as one call, ops/ssd_kernel.py:ssd_conv_scan_fused (K5);
+* TIMEVIPER_FUSED_DECODE=1: a decode step whose shapes pass
+  fused_mamba_decode_supported and whose x conv has a bias runs the x conv,
+  the state update and the gated norm as one call, ops/decode_fused.py (K7).
+Where the JAX package also asks for the TPU, the port asks nothing more: a
+CPU tensor takes the fused call's plain version, a CUDA tensor its kernel.
+
+Left out for now: pdrop / TransV, the remat policies other than "full".
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -36,10 +49,12 @@ from torch.utils.checkpoint import checkpoint
 from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
+from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_supported
 from timeviper_tpu_torch.ops.flash_attention import flash_attention
+from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, Int8Linear
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
-from timeviper_tpu_torch.ops.ssd import ssd_update_step
-from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan
+from timeviper_tpu_torch.ops.ssd import _process_dt, ssd_update_step
+from timeviper_tpu_torch.ops.ssd_kernel import ssd_conv_scan_fused, ssd_scan
 
 # ---------------------------------------------------------------------------
 # Modules
@@ -120,6 +135,8 @@ class NanoBlock(nn.Module):
 
 
 class NanoModel(nn.Module):
+    INT8_SWITCH = LLM_SWITCH  # the int8 path's switch (ops/int8_linear.py)
+
     def __init__(self, cfg: NanoConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         if cfg.tie_word_embeddings:
@@ -171,9 +188,14 @@ class NanoModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def mamba_in_proj(m: MambaMixer, x: torch.Tensor):
-    """(gate, x, B, C, dt) raw streams of the Mamba in-projection."""
+def mamba_in_proj(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor):
+    """(gate, x, B, C, dt) raw streams of the Mamba in-projection: five split
+    linears, or the one `fused` linear of train/quantize.py:fuse_decode_in_proj
+    (timeviper_tpu/models/nano.py:198)."""
     ip = m.in_proj
+    if "fused" in ip:
+        di, gn = cfg.mamba_intermediate_size, cfg.mamba_n_groups * cfg.ssm_state_size
+        return ip["fused"](x).split([di, di, gn, gn, cfg.mamba_num_heads], dim=-1)
     return ip["gate"](x), ip["x"](x), ip["B"](x), ip["C"](x), ip["dt"](x)
 
 
@@ -183,25 +205,37 @@ def mamba_mixer_forward(
     x: torch.Tensor,
     seq_idx: Optional[torch.Tensor] = None,
     fill_cache: bool = False,
+    fused_conv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Full-sequence Mamba-2 mixer. x (B, L, D); seq_idx (B, L) int32."""
+    """Full-sequence Mamba-2 mixer. x (B, L, D); seq_idx (B, L) int32.
+    `fused_conv` (inference only) runs conv + SiLU + scan as one call when the
+    shapes allow it."""
     B, L, _ = x.shape
     di = cfg.mamba_intermediate_size
     G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
-    gate, xr, Br, Cr, dt = mamba_in_proj(m, x)
+    gate, xr, Br, Cr, dt = mamba_in_proj(m, cfg, x)
     new_cache = None
     if fill_cache:
         K = cfg.mamba_d_conv
         new_cache = {"conv_state": {"x": init_conv_state(xr, K), "B": init_conv_state(Br, K),
                                     "C": init_conv_state(Cr, K)}}
     cv, act = m.conv1d, cfg.mamba_hidden_act
-    xs = causal_conv1d(xr, cv["x"].weight, cv["x"].bias, act, seq_idx)
-    Bs = causal_conv1d(Br, cv["B"].weight, cv["B"].bias, act, seq_idx)
-    Cs = causal_conv1d(Cr, cv["C"].weight, cv["C"].bias, act, seq_idx)
-    y, final_state = ssd_scan(
-        xs.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, L, G, N),
-        Cs.reshape(B, L, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
-        dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
+    if fused_conv and cfg.mamba_d_conv == 4 and cfg.chunk_size % 128 == 0:
+        y, final_state = ssd_conv_scan_fused(
+            xr.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Br.reshape(B, L, G, N),
+            Cr.reshape(B, L, G, N),
+            {"wx": cv["x"].weight, "bx": cv["x"].bias, "wB": cv["B"].weight,
+             "bB": cv["B"].bias, "wC": cv["C"].weight, "bC": cv["C"].bias},
+            chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
+            dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
+    else:
+        xs = causal_conv1d(xr, cv["x"].weight, cv["x"].bias, act, seq_idx)
+        Bs = causal_conv1d(Br, cv["B"].weight, cv["B"].bias, act, seq_idx)
+        Cs = causal_conv1d(Cr, cv["C"].weight, cv["C"].bias, act, seq_idx)
+        y, final_state = ssd_scan(
+            xs.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, L, G, N),
+            Cs.reshape(B, L, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
+            dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
     if fill_cache:
         new_cache["ssm_state"] = final_state
     y = gated_rms_norm(y.reshape(B, L, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
@@ -216,8 +250,20 @@ def mamba_mixer_decode(
     B = x.shape[0]
     di = cfg.mamba_intermediate_size
     G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
-    gate, xr, Br, Cr, dt = mamba_in_proj(m, x[:, 0])
+    gate, xr, Br, Cr, dt = mamba_in_proj(m, cfg, x[:, 0])
     cv, cs, act = m.conv1d, cache_layer["conv_state"], cfg.mamba_hidden_act
+    if (os.environ.get("TIMEVIPER_FUSED_DECODE", "0") == "1"
+            and fused_mamba_decode_supported(cfg) and cv["x"].bias is not None):
+        # the B and C convs and the dt processing stay outside the fused call
+        Bs, cs_B = causal_conv1d_update(Br, cs["B"], cv["B"].weight, cv["B"].bias, act)
+        Cs, cs_C = causal_conv1d_update(Cr, cs["C"], cv["C"].weight, cv["C"].bias, act)
+        dtf = _process_dt(dt, m.dt_bias, cfg.time_step_limit)
+        y, cs_x, ssm_state = fused_mamba_decode(
+            xr, Bs, Cs, dtf, gate, cs["x"], cache_layer["ssm_state"], cv["x"].weight,
+            cv["x"].bias, m.A_log, m.D, m.norm.weight, n_groups=G, head_dim=P,
+            eps=cfg.layer_norm_epsilon)
+        return m.out_proj(y)[:, None], {
+            "conv_state": {"x": cs_x, "B": cs_B, "C": cs_C}, "ssm_state": ssm_state}
     xs, cs_x = causal_conv1d_update(xr, cs["x"], cv["x"].weight, cv["x"].bias, act)
     Bs, cs_B = causal_conv1d_update(Br, cs["B"], cv["B"].weight, cv["B"].bias, act)
     Cs, cs_C = causal_conv1d_update(Cr, cs["C"], cv["C"].weight, cv["C"].bias, act)
@@ -292,12 +338,14 @@ def mlp_mixer_forward(m: MLPMixer, cfg: NanoConfig, x: torch.Tensor) -> torch.Te
 
 
 def _block_forward(block: NanoBlock, cfg: NanoConfig, hidden: torch.Tensor,
-                   seq_idx: Optional[torch.Tensor], fill_cache: bool, cache_max_len: int
+                   seq_idx: Optional[torch.Tensor], fill_cache: bool, cache_max_len: int,
+                   fused_conv: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     normed = rms_norm(hidden, block.norm.weight, cfg.layer_norm_epsilon)
     layer_cache: Optional[Dict[str, Any]] = None
     if block.block_type == "mamba":
-        out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache)
+        out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache,
+                                               fused_conv)
     elif block.block_type == "attention":
         out, layer_cache = attention_mixer_forward(
             block.mixer, cfg, normed, segment_ids=seq_idx, fill_cache=fill_cache,
@@ -319,6 +367,7 @@ def nano_forward(
     valid_from: int = 0,
     labels: Optional[torch.Tensor] = None,
     remat=False,
+    fused_conv: bool = False,
 ) -> Dict[str, Any]:
     """Full-sequence forward (prefill or training). Returns {"hidden_states",
     "logits", "labels"} (the labels passed through, as the JAX forward returns
@@ -326,7 +375,8 @@ def nano_forward(
     computes the f32 logits of the last rows only. `remat` (True or "full")
     keeps only each block's input for the backward and recomputes the block
     there; the JAX package's other policies ("dots", "scan", "dots_scan")
-    are not ported."""
+    are not ported. `fused_conv` (inference only) fuses each Mamba layer's
+    conv into its scan (ops/ssd_kernel.py:ssd_conv_scan_fused)."""
     if remat not in (False, True, "full"):
         raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
     if cfg.use_pdrop:
@@ -342,7 +392,7 @@ def nano_forward(
             layer_cache = None
         else:
             hidden, layer_cache = _block_forward(block, cfg, hidden, seq_idx, fill_cache,
-                                                 cache_max_len)
+                                                 cache_max_len, fused_conv)
         new_layers.append(layer_cache or {})
     hidden = rms_norm(hidden, model.norm_f.weight, cfg.layer_norm_epsilon)
     logits = compute_logits(model, hidden[:, -logits_to_keep:] if logits_to_keep else hidden)
@@ -353,8 +403,11 @@ def nano_forward(
 
 
 def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
-    """lm_head in float32."""
-    return F.linear(hidden.float(), model.lm_head.weight.float())
+    """lm_head in float32; an int8 lm_head by its f32 dequant, formed once
+    (timeviper_tpu/models/nano.py:684)."""
+    lm = model.lm_head
+    w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
+    return F.linear(hidden.float(), w)
 
 
 def nano_decode_step(

@@ -113,9 +113,12 @@ def vlm_forward(
     cache_max_len: int = 0,
     valid_from: int = 0,
     logits_to_keep: int = 0,
+    fused_conv: bool = False,
 ) -> Dict[str, Any]:
     """Prefill over one fused row: encode pixels unless visual embeddings are
-    given, fuse them into the text by the plan, run the backbone."""
+    given, fuse them into the text by the plan, run the backbone. `fused_conv`
+    (inference only) fuses each Mamba layer's conv into its scan
+    (timeviper_tpu/models/vlm.py:227)."""
     emb = model.llm_backbone.embeddings.weight
     if visual_embeddings is None and pixels is not None:
         ve = encode_visual(model, arch, pixels)
@@ -131,7 +134,8 @@ def vlm_forward(
                if plan.seq_idx is not None else None)
     return nano_forward(model.llm_backbone, arch.llm, inputs_embeds=fused, seq_idx=seq_idx,
                         fill_cache=fill_cache, cache_max_len=cache_max_len,
-                        valid_from=valid_from, logits_to_keep=logits_to_keep)
+                        valid_from=valid_from, logits_to_keep=logits_to_keep,
+                        fused_conv=fused_conv)
 
 
 def vlm_loss(

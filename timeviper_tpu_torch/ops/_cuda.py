@@ -37,12 +37,15 @@ LIB_NAME = "libtimeviper_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "tv_ssd_fwd": [_P] * 16 + [_I] * 8 + [_F, _F, _P],
+    "tv_ssd_fwd": [_P] * 22 + [_I] * 11 + [_F, _F, _P],
     "tv_ssd_bwd": [_P] * 25 + [_I] * 8 + [_F, _F, _P],
     "tv_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "tv_flash_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "tv_vit_attn_qkv": [_P, _P] + [_I] * 4 + [_F, _P],
+    "tv_layernorm": [_P] * 7 + [_I] * 2 + [_F, _P],
+    "tv_decode_fused": [_P] * 15 + [_I] * 6 + [_L, _L, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
-"""K1 and K4: the Mamba-2 SSD chunked scan, forward and backward, as
-hand-written CUDA kernels.
+"""K1, K4 and K5: the Mamba-2 SSD chunked scan, forward and backward, and
+the forward with the causal conv fused in, as hand-written CUDA kernels.
 
 Counterpart of timeviper_tpu/ops/ssd_pallas.py:_ssd_core, the custom_vjp
 whose forward is the Pallas kernel _ssd_kernel (K1, csrc/ssd_fwd.cu here) and
@@ -12,6 +12,13 @@ with `save_prev=True`.
 the kernels or raises. Under autograd the CUDA path is `SSDScanFn`, whose
 backward is K4. `ssd_scan_bwd` is K4's own wrapper and
 `ssd_scan_bwd_plain` its plain version (autograd through ssd_chunked).
+
+`ssd_conv_scan_fused` is K5, the counterpart of
+timeviper_tpu/ops/ssd_pallas.py:ssd_conv_scan_fused (:981, the `fuse_conv`
+mode of _ssd_kernel): it takes the RAW in-projection streams x, B and C and
+applies the depthwise causal conv (K = 4) + bias + SiLU inside K1's tile
+loaders (csrc/ssd_fwd.cu). Its plain version, `ssd_conv_scan_fused_plain`,
+is ops/conv.py:causal_conv1d three times, then ssd_chunked. Inference only.
 """
 
 from __future__ import annotations
@@ -127,14 +134,78 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"ssd_scan kernel: {msg}")
 
 
-def _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx):
+def ssd_conv_scan_fused_plain(x_raw, dt, A, B_raw, C_raw, conv_params: dict,
+                              chunk_size: int = 256, D=None, dt_bias=None,
+                              dt_limit: Limit = NO_LIMIT, seq_idx=None):
+    """K5's plain version: conv + bias + SiLU on each raw stream (a missing
+    bias is zero), then the chunked scan."""
+    from timeviper_tpu_torch.ops.conv import causal_conv1d
+
+    B, L, H, P = x_raw.shape
+    G, N = B_raw.shape[-2:]
+    cp = conv_params
+    xs = causal_conv1d(x_raw.reshape(B, L, H * P), cp["wx"], cp.get("bx"), "silu", seq_idx)
+    Bs = causal_conv1d(B_raw.reshape(B, L, G * N), cp["wB"], cp.get("bB"), "silu", seq_idx)
+    Cs = causal_conv1d(C_raw.reshape(B, L, G * N), cp["wC"], cp.get("bC"), "silu", seq_idx)
+    return ssd_chunked(xs.reshape(B, L, H, P), dt, A, Bs.reshape(B, L, G, N),
+                       Cs.reshape(B, L, G, N), chunk_size=chunk_size, D=D, dt_bias=dt_bias,
+                       dt_limit=dt_limit, seq_idx=seq_idx)
+
+
+def ssd_conv_scan_fused(x_raw, dt, A, B_raw, C_raw, conv_params: dict,
+                        chunk_size: int = 256, D=None, dt_bias=None,
+                        dt_limit: Limit = NO_LIMIT, seq_idx=None):
+    """Depthwise causal conv (K = 4) + bias + SiLU on the raw x (B, L, H, P),
+    B and C (B, L, G, N), then the SSD scan -> (y, final state), as
+    ops/ssd.py:ssd_chunked gives them for the convolved streams. conv_params:
+    {"wx": (H*P, 4), "bx", "wB": (G*N, 4), "bB", "wC", "bC"}, a bias None
+    for none; a tap that reaches across a segment of seq_idx reads zero.
+    Inference only: raises under autograd. A CPU tensor takes the plain
+    version, a CUDA tensor the kernel."""
+    live = [t for t in (x_raw, dt, A, B_raw, C_raw, D, dt_bias, *conv_params.values())
+            if isinstance(t, torch.Tensor)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in live):
+        raise RuntimeError("ssd_conv_scan_fused is inference only: it has no backward")
+    if x_raw.device.type == "cpu":
+        return ssd_conv_scan_fused_plain(x_raw, dt, A, B_raw, C_raw, conv_params, chunk_size,
+                                         D, dt_bias, dt_limit, seq_idx)
+    y, final, _ = _launch_fwd(x_raw, dt, A, B_raw, C_raw, chunk_size, D, dt_bias, dt_limit,
+                              seq_idx, None, conv_params)
+    ssd_conv_scan_fused.launches += 1
+    return y, final
+
+
+ssd_conv_scan_fused.launches = 0
+
+
+def _row_stride(t, name: str, strided: bool) -> int:
+    """The stride between positions of a (B, L, ...) stream whose inner
+    dims are contiguous; with `strided` the positions may lie further apart
+    (a column slice of a wider in-projection output)."""
+    B, L = t.shape[:2]
+    inner = t[0, 0].numel()
+    ok = t[0, 0].is_contiguous() if t.dim() > 2 else True
+    ok = ok and (t.stride(1) == inner if not strided else t.stride(1) >= inner)
+    ok = ok and (B == 1 or t.stride(0) == L * t.stride(1))
+    _require(ok, f"{name} must have contiguous rows evenly spaced"
+             + ("" if strided else " and be contiguous"))
+    return t.stride(1)
+
+
+def _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx, strided=False):
     Bsz, L, H, P = x.shape
     G, N = B_.shape[-2:]
     dev = x.device
     _require(x.is_cuda, "x must be a CUDA tensor")
+    strides = []
     for name, t in (("x", x), ("dt", dt), ("B", B_), ("C", C)):
-        _require(t.device == dev and t.dtype == torch.bfloat16 and t.is_contiguous(),
-                 f"{name} must be a contiguous bf16 tensor on {dev}")
+        _require(t.device == dev and t.dtype == torch.bfloat16,
+                 f"{name} must be a bf16 tensor on {dev}")
+        strides.append(_row_stride(t, name, strided))
+    _require(strides[2] == strides[3] and strides[2] % 8 == 0
+             and B_.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0,
+             "B and C must share a row stride with 16-byte aligned rows")
+    _require(strides[0] % 8 == 0 and x.data_ptr() % 16 == 0, "x rows must be 16-byte aligned")
     _require(dt.shape == (Bsz, L, H), f"dt shape {tuple(dt.shape)}")
     _require(B_.shape == (Bsz, L, G, N) and C.shape == B_.shape, "B/C shape")
     _require(P == 64 and N == 128, f"takes head dim 64 and state 128, got {P}, {N}")
@@ -149,7 +220,7 @@ def _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx):
         _require(seq_idx.device == dev and seq_idx.dtype == torch.int32
                  and seq_idx.shape == (Bsz, L) and seq_idx.is_contiguous(),
                  "seq_idx must be contiguous int32 (B, L)")
-    return Bsz, L, H, P, G, N
+    return Bsz, L, H, P, G, N, strides[0], strides[1], strides[2]
 
 
 def _f32_state(t, shape, name) -> None:
@@ -166,11 +237,36 @@ def _clamp_args(dt_limit: Limit):
 def ssd_scan_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
     """K1 on CUDA tensors -> (y, final state, the inbound state of every
     chunk (B, nc, H, P, N) f32, which K4 takes)."""
-    Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)
+    out = _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state)
+    ssd_scan.launches += 1
+    return out
+
+
+def _conv_args(conv_params, H, P, G, N, dev):
+    """The conv taps and biases for K5: f32, contiguous, (channels, 4) taps."""
+    out = []
+    for w, b, ch in (("wx", "bx", H * P), ("wB", "bB", G * N), ("wC", "bC", G * N)):
+        wt, bt = conv_params[w], conv_params.get(b)
+        _require(wt.device == dev and wt.dtype == torch.float32 and wt.shape == (ch, 4)
+                 and wt.is_contiguous(), f"{w} must be contiguous f32 ({ch}, 4)")
+        _require(bt is None or (bt.device == dev and bt.dtype == torch.float32
+                                and bt.shape == (ch,) and bt.is_contiguous()),
+                 f"{b} must be contiguous f32 ({ch},)")
+        out += [wt, bt]
+    return out
+
+
+def _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state,
+                conv_params=None):
+    """K1, or K5 with `conv_params`: one call of tv_ssd_fwd."""
+    Bsz, L, H, P, G, N, sx, sdt, sbc = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx,
+                                                      strided=True)
     _f32_state(initial_state, (Bsz, H, P, N), "initial_state")
+    conv = ([None] * 6 if conv_params is None
+            else _conv_args(conv_params, H, P, G, N, x.device))
     nc = -(-L // cs)
     f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     final = torch.empty(Bsz, H, P, N, **f32)
     dtp = torch.empty(Bsz, H, nc * cs, **f32)
     acs = torch.empty(Bsz, H, nc * cs, **f32)
@@ -181,15 +277,15 @@ def ssd_scan_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_sta
     p = _cuda.ptr
     err = _cuda.lib().tv_ssd_fwd(
         p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx),
-        p(initial_state), p(y), p(final), p(dtp), p(acs), p(carry), p(states), p(cb),
-        Bsz, L, H, P, G, N, cs, clamp, lo, hi, _cuda.stream_of(x))
+        p(initial_state), *(p(c) for c in conv), p(y), p(final), p(dtp), p(acs), p(carry),
+        p(states), p(cb), Bsz, L, H, P, G, N, cs, sx, sdt, sbc, clamp, lo, hi,
+        _cuda.stream_of(x))
     _cuda.check(err, "tv_ssd_fwd")
-    ssd_scan.launches += 1
     return y, final, states
 
 
 def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt_limit):
-    Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)
+    Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)[:6]
     nc = -(-L // cs)
     _f32_state(states, (Bsz, nc, H, P, N), "states")
     _f32_state(dfinal, (Bsz, H, P, N), "dfinal")

@@ -6,7 +6,11 @@ Linear kernels are stored (in, out) in the JAX package and become
 (D, p*p*3) weight of the patch matmul; conv taps are (channels, K) in both.
 LoRA factors planted by the JAX package's add_lora (lora_a, lora_b,
 lora_scale) come across unchanged; load them into a model that went through
-the port's add_lora. Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
+the port's add_lora. An int8 leaf of the JAX package's quantize
+(kernel_q (in, out), kernel_scale, optional act_inv) becomes an Int8Linear's
+buffers, kernel_q transposed to (out, in), and a Mamba in_proj fused by
+fuse_decode_in_proj becomes `in_proj.fused`; load those into a model that went
+through the port's quantize_params_int8 (and fuse_decode_in_proj). Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
 read-only, and the port must own its memory. bfloat16 leaves keep their type.
 """
 
@@ -26,7 +30,13 @@ def to_tensor(leaf) -> torch.Tensor:
 
 
 def _linear(sd: Dict[str, torch.Tensor], prefix: str, p: Dict[str, Any]) -> None:
-    sd[f"{prefix}.weight"] = to_tensor(p["kernel"]).T.contiguous()
+    if "kernel_q" in p:  # train/quantize.py's int8 leaf
+        sd[f"{prefix}.kernel_q"] = to_tensor(p["kernel_q"]).T.contiguous()
+        sd[f"{prefix}.kernel_scale"] = to_tensor(p["kernel_scale"])
+        if "act_inv" in p:
+            sd[f"{prefix}.act_inv"] = to_tensor(p["act_inv"])
+    else:
+        sd[f"{prefix}.weight"] = to_tensor(p["kernel"]).T.contiguous()
     if p.get("bias") is not None:
         sd[f"{prefix}.bias"] = to_tensor(p["bias"])
     # LoRA factors keep the JAX layout (train/lora.py:LoRALinear)
@@ -69,7 +79,7 @@ def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
         pre, mx = f"layers.{i}", layer["mixer"]
         sd[f"{pre}.norm.weight"] = to_tensor(layer["norm"]["weight"])
         if bt == "mamba":
-            for role in ("gate", "x", "B", "C", "dt"):
+            for role in mx["in_proj"]:  # gate/x/B/C/dt, or the one fused leaf
                 _linear(sd, f"{pre}.mixer.in_proj.{role}", mx["in_proj"][role])
             for role in ("x", "B", "C"):
                 cv = mx["conv1d"][role]
