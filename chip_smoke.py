@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of TimeViper once on one CUDA card: serving, LoRA
-training, then int8 serving with the fused kernels.
+training, int8 serving with the fused kernels, then serving with the
+InternVideo2 tower and with the two-tower DINOv2 + SigLIP encoder.
 
     python3 chip_smoke.py
 
@@ -47,6 +48,17 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    tokens of 16 frames are compared across fused, unfused, plain versions and
    the bf16 model. Encode, prefill and decode times of both configurations
    are printed, then the text and 256-frame requests run off, on, on, off.
+7. InternVideo2 serving: the int8 model is freed; internvideo2-1b-16-224px +
+   tome_mlp-16 + nano-9b-v2 (39 blocks of width 1408, clips of 4 frames merged
+   jointly to 64 tokens) with random bf16 weights from the seed, the three
+   requests at 224 px. Every encode chunk launches K6 once per block (39) and
+   K3 never; K6 is held against its plain version on the q, k and (strided) v
+   of the 64-frame request's first layer, and that request's first logits
+   against a run with every plain version.
+8. DINOv2 + SigLIP serving: dinosiglip-vit-so-384px + nano-9b-v2, each tower
+   with its own ToMe-16 projector, 32 tokens a frame; the text and 64-frame
+   requests. Every encode chunk launches K3 23 + 26 times; the first logits
+   are held against the plain versions as above.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -78,6 +90,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
+from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
@@ -108,6 +121,8 @@ from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
     ssd_scan_fwd,
 )
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
+    vit_attention,
+    vit_attention_plain,
     vit_attention_qkv,
     vit_attention_qkv_plain,
 )
@@ -144,6 +159,8 @@ KERNELS = {
                       replaces="timeviper_tpu/ops/flash_pallas.py:39", rel_tol=1e-2),
     "vit_attn_qkv": dict(source="timeviper_tpu_torch/csrc/vit_attn_qkv.cu",
                          replaces="timeviper_tpu/ops/vit_attention.py:197", rel_tol=1e-2),
+    "vit_attn": dict(source="timeviper_tpu_torch/csrc/vit_attn.cu",
+                     replaces="timeviper_tpu/ops/vit_attention.py:76", rel_tol=1e-2),
     "ssd_bwd": dict(source="timeviper_tpu_torch/csrc/ssd_bwd.cu",
                     replaces="timeviper_tpu/ops/ssd_pallas.py:482", rel_tol=3e-2),
     "flash_bwd": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
@@ -163,7 +180,8 @@ KERNELS = {
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
             "flash_bwd": flash_attention_bwd, "ssd_conv_fwd": ssd_conv_scan_fused,
-            "decode_fused": fused_mamba_decode, "layernorm": fused_ln}
+            "decode_fused": fused_mamba_decode, "layernorm": fused_ln,
+            "vit_attn": vit_attention}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
 FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
@@ -171,11 +189,13 @@ FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
 ROUTES = {"ssd_fwd": (nano_mod, "ssd_scan"), "flash_fwd": (nano_mod, "flash_attention"),
           "vit_attn_qkv": (vit_mod, "encoder_attention_qkv"),
           "ssd_conv_fwd": (nano_mod, "ssd_conv_scan_fused"),
-          "decode_fused": (nano_mod, "fused_mamba_decode"), "layernorm": (vit_mod, "fused_ln")}
+          "decode_fused": (nano_mod, "fused_mamba_decode"), "layernorm": (vit_mod, "fused_ln"),
+          "vit_attn": (iv2_mod, "encoder_attention")}
 CALLS = {name: getattr(mod, attr) for name, (mod, attr) in ROUTES.items()}
 PLAIN = {"ssd_fwd": ssd_chunked, "flash_fwd": flash_attention_plain,
          "vit_attn_qkv": vit_attention_qkv_plain, "ssd_conv_fwd": ssd_conv_scan_fused_plain,
-         "decode_fused": fused_mamba_decode_plain, "layernorm": fused_ln_plain}
+         "decode_fused": fused_mamba_decode_plain, "layernorm": fused_ln_plain,
+         "vit_attn": vit_attention_plain}
 
 
 def log(msg: str) -> None:
@@ -413,6 +433,18 @@ def kernel_cases(g: torch.Generator):
            (4 * F_ * nh * T * T * vhd, nbytes(qkv) * 4 // 3))
     del qkv, vq, vk, vv
 
+    # K6: one InternVideo2 layer over 16 clips (64 frames); q and k as the
+    # q/k norms give them, v a column slice of the fused qkv projection
+    B6, T6, H6, hd6 = 16, 1025, 16, 88
+    qkv = randn(B6, T6, 3 * H6 * hd6)
+    cq, ck = randn(B6, T6, H6, hd6), randn(B6, T6, H6, hd6)
+    cv = qkv[..., 2 * H6 * hd6:].view(B6, T6, H6, hd6)
+    out = vit_attention(cq, ck, cv)
+    yield ("vit_attn", lambda: vit_attention(cq, ck, cv), lambda: vit_attention_plain(cq, ck, cv),
+           sdpa(cq, ck, cv, causal=False)[0],
+           (4 * B6 * H6 * T6 * T6 * hd6, nbytes(cq, ck, out) + cv.numel() * cv.element_size()))
+    del qkv, cq, ck, cv, out
+
     # K5: K1's layer with the conv fused in, on raw streams that are column
     # slices of one in-projection output (the fused in_proj leaf's layout)
     di, gn = H * P, G * N
@@ -521,7 +553,14 @@ class Capture:
     def __call__(self, *args, **kwargs):
         first = self.armed and self.args is None
         if first:
-            clone = lambda v: v.detach().clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+            def clone(v):  # a copy with the same strides (K6's v is a strided slice)
+                if not isinstance(v, torch.Tensor):
+                    return v
+                if v.is_contiguous() or 0 in v.stride():
+                    return v.detach().clone()
+                return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                           device=v.device).copy_(v.detach())
+
             self.args = tuple(clone(a) for a in args)
             self.kwargs = {k: clone(v) for k, v in kwargs.items()}
         out = self.fn(*args, **kwargs)
@@ -925,6 +964,52 @@ def ab_rounds(gen, requests) -> None:
                 f"{(o.num_generated - 1) / o.decode_s:.2f} tok/s")
 
 
+def phase_tower_serving(vision_id: str, n_requests: int, tag: str,
+                        kernel_results: dict) -> dict:
+    """Serve `n_requests` of the three requests with another vision tower and
+    nano-9b-v2 at full width and depth (random bf16 weights from the seed):
+    every encode chunk must launch the tower's attention kernel once per
+    block (K6 for InternVideo2, K3 for the ViTs) and the other one never. The
+    kernel is held against its plain version on the armed 64-frame request's
+    first call, and that request's first logits against the plain versions'.
+    Returns the launch counts."""
+    arch = build_arch(VLMConfig(vision_backbone_id=vision_id))
+    t0 = time.perf_counter()
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    blocks = {"vit_attn": 0, "vit_attn_qkv": 0}
+    for key, fam, _ in arch.towers():
+        blocks["vit_attn" if fam == "internvideo2" else "vit_attn_qkv"] += len(
+            model.tower(key)[0].layers)
+    n_vis = sum(p.numel() for p in model.vision_backbone.parameters())
+    log(f"[{tag}] {vision_id} + nano-9b-v2: {n_vis / 1e9:.3f} B tower params, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B in all, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s; "
+        f"{arch.tokens_per_frame} tokens a frame; attention blocks per chunk {blocks}")
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    requests = make_requests(arch)[:n_requests]
+    captures = capture_all()
+    reset_launches()
+    outs = serve(gen, requests, tag, captures)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    use_kernels()
+    log(f"[{tag}] launches during the requests: {launches}")
+    chunks = sum(-(-px.shape[0] // gen.clip_size) for _, (_, px) in requests if px is not None)
+    for name, per_chunk in blocks.items():
+        if launches[name] != per_chunk * chunks:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
+                                 f"{chunks} encode chunks make {per_chunk * chunks}")
+    for name in ("ssd_fwd", "flash_fwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"{tag}: {name} was never launched")
+    compare_captured(captures, [name for name, k in blocks.items() if k], tag, kernel_results)
+    del captures
+    torch.cuda.empty_cache()
+    check_against_plain_run(gen, requests, outs, tag)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -947,6 +1032,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_int8_serving(arch, results, bf16, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    iv2 = phase_tower_serving("internvideo2-1b-16-224px", 3, "iv2", results)
+    results["vit_attn"]["launches"] = iv2["vit_attn"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tower_serving("dinosiglip-vit-so-384px", 2, "dinosiglip", results)
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

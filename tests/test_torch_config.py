@@ -79,3 +79,23 @@ def test_plan_fusion_and_fuse_labels_match(ids, tpf, lens):
     np.testing.assert_array_equal(tfusion.fuse_labels(got, labels),
                                   jfusion.fuse_labels(want, labels))
     assert tfusion.IGNORE_INDEX == jfusion.IGNORE_INDEX
+
+
+@pytest.mark.parametrize("vid", ["dinov2-vit-l", "internvideo2-1b-16-224px",
+                                 "dinosiglip-vit-so-384px"])
+def test_other_vision_registry_entries_match(vid):
+    """The DINOv2 and InternVideo2 configs field for field, their derived
+    sizes, and the two-tower entry's backbone ids."""
+    got, want = tcfg.get_vision_backbone_config(vid), jcfg.get_vision_backbone_config(vid)
+    assert got["family"] == want["family"]
+    assert got.get("backbones") == want.get("backbones")
+    if "config" in want:
+        g, w = got["config"], want["config"]
+        assert type(g).__name__ == type(w).__name__
+        assert asdict(g) == asdict(w)
+        props = ("grid_size", "hidden_act") + (
+            ("effective_depth",) if vid.startswith("internvideo2") else
+            ("num_patches", "num_prefix_tokens"))
+        assert [getattr(g, p) for p in props] == [getattr(w, p) for p in props]
+    for lid in ("qwen2-7b", "qwen2.5-3b-instruct"):
+        assert tcfg.get_llm_backbone_config(lid)["config"] is None

@@ -18,6 +18,9 @@ the rounded decay and probability tiles) to the tensor cores where the plain
 versions multiply in f32, and a gradient sums many such products. Both must
 give bitwise-equal gradients on a repeat (no atomics).
 
+K6 (csrc/vit_attn.cu) is held to the same 1e-2 as K3, with v read as a
+strided column slice of a fused qkv buffer.
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
@@ -46,7 +49,12 @@ from timeviper_tpu_torch.ops.ssd_kernel import (
     ssd_scan_bwd,
     ssd_scan_bwd_plain,
 )
-from timeviper_tpu_torch.ops.vit_attention import vit_attention_qkv, vit_attention_qkv_plain
+from timeviper_tpu_torch.ops.vit_attention import (
+    vit_attention,
+    vit_attention_plain,
+    vit_attention_qkv,
+    vit_attention_qkv_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +111,24 @@ def test_vit_kernel_matches_plain(T, hd):
     _close(vit_attention_qkv(qkv, H, hd), vit_attention_qkv_plain(qkv, H, hd), 1e-2)
 
 
+@pytest.mark.parametrize("T", [1025, 300])
+def test_whole_clip_kernel_matches_plain(T):
+    """K6 on InternVideo2's heads (16 x 88): q and k contiguous, v a column
+    slice of a fused qkv buffer (row stride 3 * 1408), as the tower gives
+    them; T 1025 (a ragged last tile of 1) and 300."""
+    dev = require_cuda()
+    B, H, hd = 3, 16, 88
+    r = rng(9)
+    qkv = t(r.standard_normal((B, T, 3 * H * hd), np.float32)).to(dev, torch.bfloat16)
+    q, k = (t(r.standard_normal((B, T, H, hd), np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    v = qkv[..., 2 * H * hd:].view(B, T, H, hd)
+    assert not v.is_contiguous()
+    before = vit_attention.launches
+    _close(vit_attention(q, k, v), vit_attention_plain(q, k, v), 1e-2)
+    assert vit_attention.launches == before + 1
+
+
 def test_kernels_raise_on_what_they_do_not_take():
     dev = require_cuda()
     q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=dev)  # head dim 64
@@ -110,6 +136,15 @@ def test_kernels_raise_on_what_they_do_not_take():
         flash_attention(q, q, q)
     with pytest.raises(ValueError):
         vit_attention_qkv(torch.zeros(1, 8, 3 * 4 * 40, device=dev), 4, 40)  # f32
+    x = torch.zeros(1, 8, 2, 88, dtype=torch.bfloat16, device=dev)
+    for bad in (x.float(), x.cpu(), torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16,
+                                                device=dev)[..., 8:],  # head offset 96
+                torch.zeros(1, 8, 2 * 88 + 4, dtype=torch.bfloat16,
+                            device=dev)[..., 4:].view(1, 8, 2, 88)):  # misaligned base
+        with pytest.raises(ValueError):
+            vit_attention(x, x, bad)
+    with pytest.raises(ValueError):
+        vit_attention(q, q, q)  # head dim 64
 
 
 def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):

@@ -1,13 +1,14 @@
 """Configuration dataclasses and registries of the port (its own copy of what
-it uses from timeviper_tpu/config.py: NanoConfig, ViTConfig, VLMConfig, the
-tiny test configs and the registry entries of the ported families).
+it uses from timeviper_tpu/config.py: NanoConfig, ViTConfig,
+InternVideo2Config, VLMConfig, the tiny test configs and the registry entries
+of the ported families).
 
 The port imports nothing of the JAX package, not even its JAX-free modules,
 so these definitions are kept here; tests/test_torch_config.py holds every
 registry entry the port builds equal, field for field, to the original.
-Backbones of families the port does not build (dinov2, internvideo2, qwen2,
-multi-tower) keep their registry ids with the family only, so that asking
-for one raises NotImplementedError in models/api.py:build_arch.
+Backbones of the family the port does not build (qwen2) keep their registry
+ids with the family only, so that asking for one raises NotImplementedError
+in models/api.py:build_arch.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ def tiny_nano_config(**overrides) -> NanoConfig:
 
 @dataclass(frozen=True)
 class ViTConfig:
-    """ViT config (SigLIP here). Features come from the penultimate block."""
+    """ViT config (SigLIP and DINOv2). Features come from the penultimate block."""
 
     image_size: int = 384
     patch_size: int = 14
@@ -157,6 +158,11 @@ SIGLIP_B16_384 = ViTConfig(
 )
 SIGLIP_B16_256 = dataclasses.replace(SIGLIP_B16_384, image_size=256)
 SIGLIP_B16_224 = dataclasses.replace(SIGLIP_B16_384, image_size=224)
+DINOV2_L_384 = ViTConfig(
+    image_size=384, patch_size=14, hidden_size=1024, intermediate_size=4096,
+    num_hidden_layers=24, num_attention_heads=16, use_class_token=True,
+    num_register_tokens=4, hidden_act="gelu", use_layer_scale=True,
+)
 
 
 def tiny_vit_config(**overrides) -> ViTConfig:
@@ -164,6 +170,43 @@ def tiny_vit_config(**overrides) -> ViTConfig:
                 num_hidden_layers=3, num_attention_heads=2)
     base.update(overrides)
     return ViTConfig(**base)
+
+
+@dataclass(frozen=True)
+class InternVideo2Config:
+    """InternVideo2-1B video-native ViT-g: clips of `num_frames` frames, a
+    tubelet patch embedding, a CLS token and 3-D sin-cos positions; features
+    from block `effective_depth` - 1 (39 of 40 for x_vis_return_idx -2)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    tubelet_size: int = 1
+    num_frames: int = 4
+    hidden_size: int = 1408
+    intermediate_size: int = 6144  # mlp_ratio 48/11 * 1408
+    num_hidden_layers: int = 40
+    num_attention_heads: int = 16
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = False
+    x_vis_return_idx: int = -2
+    use_checkpoint: bool = False
+    # the CLIP-aligned attention-pooling head of full checkpoints (not ported)
+    clip_embed_dim: int = 768
+    attn_pool_num_heads: int = 16
+    # checkpoints are pretrained at 8 temporal positions
+    pretrain_t_size: int = 8
+
+    @property
+    def effective_depth(self) -> int:
+        return self.num_hidden_layers + self.x_vis_return_idx + 1
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def hidden_act(self) -> str:
+        return "gelu"
 
 
 # ---------------------------------------------------------------------------
@@ -176,11 +219,11 @@ VISION_MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {
     "siglip-vit-b16-384px": {"family": "siglip", "config": SIGLIP_B16_384},
     "siglip-vit-so400m": {"family": "siglip", "config": SIGLIP_SO400M_224},
     "siglip-vit-so400m-384px": {"family": "siglip", "config": SIGLIP_SO400M_384},
+    "dinov2-vit-l": {"family": "dinov2", "config": DINOV2_L_384},
+    "internvideo2-1b-16-224px": {"family": "internvideo2", "config": InternVideo2Config()},
+    "dinosiglip-vit-so-384px": {"family": "multi",
+                                "backbones": ["dinov2-vit-l", "siglip-vit-so400m-384px"]},
     "debug-vit-tiny": {"family": "siglip", "config": tiny_vit_config()},
-    # not built by the port
-    "dinov2-vit-l": {"family": "dinov2", "config": None},
-    "internvideo2-1b-16-224px": {"family": "internvideo2", "config": None},
-    "dinosiglip-vit-so-384px": {"family": "multi", "config": None},
 }
 
 LLM_MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {

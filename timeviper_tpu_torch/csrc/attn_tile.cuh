@@ -1,6 +1,7 @@
 // Tiled online-softmax attention forward on bf16 tensor cores, shared by
-// flash_fwd.cu (causal GQA prefill) and vit_attn_qkv.cu (non-causal
-// whole-frame ViT attention).
+// flash_fwd.cu (causal GQA prefill), vit_attn_qkv.cu (non-causal whole-frame
+// ViT attention from the fused qkv buffer) and vit_attn.cu (non-causal
+// whole-clip attention from separate q, k and v).
 //
 // One block of 4 warps owns BQ = 64 query rows of one (batch, head); each
 // warp owns 16 of them and streams the keys in tiles of BKV = 64. Both
@@ -11,15 +12,23 @@
 // read transposed out of shared memory by ldmatrix. Tiles move from device
 // memory in 16-byte vectors. Row max and sum are f32 and shared by the four
 // lanes of a row through shuffles. A head dim that is no multiple of 16
-// (SigLIP's 72) is zero-padded to the next one (80) for Q K^T only.
+// (SigLIP's 72, InternVideo2's 88) is zero-padded to the next one (80, 96)
+// for Q K^T only.
 //
 // Every row stride and head offset must be a multiple of 8 elements and the
 // base pointers 16-byte aligned (the wrappers check).
 //
 // Element (b, t, h, d) of q sits at q + b*q_bs + t*q_rs + h*q_hs + d, and the
 // same for k, v and o: the caller's strides let one kernel read heads
-// straight out of a fused projection buffer.
+// straight out of a fused projection buffer. v shares k's strides, unless the
+// kernel is instantiated with OWN_V and takes AttnArgsV (vit_attn.cu: v is a
+// column slice of the qkv buffer while q and k come from the q/k norms).
+// AttnArgs itself stays as it is: on the H100, 16 more bytes in it changed
+// the instruction schedule of K2 and K3 and slowed both (see PERF.md), so
+// the shared-stride instantiations keep their smaller argument struct.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -42,6 +51,14 @@ struct AttnArgs {
   float scale;
 };
 
+struct AttnArgsV : AttnArgs {
+  long long v_bs;
+  int v_rs, v_hs;
+};
+
+template <bool OWN_V>
+using AttnArgsOf = std::conditional_t<OWN_V, AttnArgsV, AttnArgs>;
+
 template <int HD>
 struct AttnShape {
   static constexpr int HDP = (HD + 15) / 16 * 16;  // Q K^T depth, padded
@@ -55,8 +72,8 @@ struct AttnShape {
 };
 
 // grid (ceil(Lq / 64), Hq, B), 128 threads, AttnShape<HD>::smem of dynamic smem.
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgs a) {
+template <int HD, bool CAUSAL, bool OWN_V = false>
+__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V> a) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   using S = AttnShape<HD>;
   constexpr int KS = S::HDP / 16, NO = HD / 8, NT = kAttnBKV / 8, LD = S::LD, VPR = S::VPR;
@@ -72,6 +89,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgs a) {
   const __nv_bfloat16* qb = a.q + b * a.q_bs + (long long)h * a.q_hs;
   const __nv_bfloat16* kb = a.k + b * a.k_bs + (long long)hk * a.k_hs;
   const __nv_bfloat16* vb = a.v + b * a.k_bs + (long long)hk * a.k_hs;
+  if constexpr (OWN_V) vb = a.v + b * a.v_bs + (long long)hk * a.v_hs;
 
   for (int e = tid; e < kAttnBQ * VPR; e += kAttnThreads) {
     const int r = e / VPR, d = (e % VPR) * 8, t = q0 + r;
@@ -111,7 +129,10 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgs a) {
       const int j = e / VPR, d = (e % VPR) * 8, t = kv0 + j;
       const bool in = t < a.Lk && d < HD;
       *reinterpret_cast<uint4*>(Ks + j * LD + d) = ld_row8(kb + (long long)t * a.k_rs + d, in);
-      *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.k_rs + d, in);
+      if constexpr (OWN_V)
+        *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.v_rs + d, in);
+      else
+        *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.k_rs + d, in);
     }
     if (tid < kAttnBKV) {
       const int t = kv0 + tid;
@@ -213,14 +234,14 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgs a) {
   }
 }
 
-template <int HD, bool CAUSAL>
-int launch_attn(const AttnArgs& a, int B, cudaStream_t stream) {
+template <int HD, bool CAUSAL, bool OWN_V = false>
+int launch_attn(const AttnArgsOf<OWN_V>& a, int B, cudaStream_t stream) {
   constexpr size_t smem = AttnShape<HD>::smem;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<HD, CAUSAL>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<HD, CAUSAL, OWN_V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kAttnBQ - 1) / kAttnBQ, a.Hq, B);
-  attn_fwd_kernel<HD, CAUSAL><<<grid, kAttnThreads, smem, stream>>>(a);
+  attn_fwd_kernel<HD, CAUSAL, OWN_V><<<grid, kAttnThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

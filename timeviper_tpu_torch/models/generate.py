@@ -102,7 +102,10 @@ class Generator:
 
     @torch.inference_mode()
     def encode_frames(self, pixels) -> torch.Tensor:
-        """(F, H, W, 3) -> (F * tokens_per_frame, D), clip by clip."""
+        """(F, H, W, 3) -> (F * tokens_per_frame, D), `clip_size` frames at a
+        time. An InternVideo2 tower takes chunks of whole clips (a multiple of
+        its num_frames) and raises ValueError on any other
+        (models/internvideo2.py:encode_frames_iv2)."""
         pixels = torch.as_tensor(pixels, device=self.device)
         outs = [encode_visual(self.model, self.arch, pixels[s:s + self.clip_size])
                 for s in range(0, pixels.shape[0], self.clip_size)]

@@ -1,9 +1,11 @@
 """Vision -> LLM projector (counterpart of timeviper_tpu/models/projector.py).
 
 `tome_mlp-16`: each frame's patch tokens are ToMe-merged to 16 tokens, then a
-2-layer exact-GELU MLP maps the vision width to the LLM width. Left out for
-now: the 3-layer `fused_tome_mlp`, clip-joint merging over several frames
-(InternVideo2) and multi-tower projectors.
+2-layer exact-GELU MLP maps the vision width to the LLM width. With
+`local_num_frames` > 1 (InternVideo2's clips of 4) a group of frames is merged
+jointly to 16 tokens a frame and split back per frame. A multi-tower model
+holds one projector per tower (models/vlm.py). Left out for now: the 3-layer
+`fused_tome_mlp`.
 """
 
 from __future__ import annotations
@@ -42,11 +44,20 @@ def projector_forward(
     *,
     projector_type: str = "tome_mlp",
     num_compressed_tokens: int = 16,
+    local_num_frames: int = 1,
     token_order: str = "raw",
     compress: bool = True,
 ) -> torch.Tensor:
-    """(frames, patches, vision_dim) -> (frames, tokens_out, llm_dim)."""
-    x = patch_features
-    if "tome" in projector_type and compress:
-        x = tome_merge(x, num_compressed_tokens, token_order=token_order)
-    return apply_mlp(proj, x)
+    """(frames, patches, vision_dim) -> (frames, tokens_out, llm_dim). With
+    `local_num_frames` > 1, each group of that many frames is merged jointly
+    to num_compressed_tokens * local_num_frames tokens, projected, and split
+    back to num_compressed_tokens a frame."""
+    if not ("tome" in projector_type and compress):
+        return apply_mlp(proj, patch_features)
+    Fn, P, C = patch_features.shape
+    lnf = max(local_num_frames, 1)
+    if Fn % lnf:
+        raise ValueError(f"{Fn} frames do not group by local_num_frames={lnf}")
+    x = patch_features.reshape(Fn // lnf, lnf * P, C)
+    x = apply_mlp(proj, tome_merge(x, num_compressed_tokens * lnf, token_order=token_order))
+    return x.reshape(Fn, num_compressed_tokens, -1) if lnf > 1 else x

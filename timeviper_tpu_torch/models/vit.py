@@ -1,4 +1,5 @@
-"""SigLIP ViT vision tower (counterpart of timeviper_tpu/models/vit.py).
+"""SigLIP and DINOv2 ViT vision towers (counterpart of
+timeviper_tpu/models/vit.py).
 
 Features are the penultimate block's patch tokens with no final norm, as the
 reference's timm patch takes them, so the last block is never run and is not
@@ -14,8 +15,11 @@ residual add and the LayerNorm after it are one call of ops/layernorm.py:
 fused_ln (K8 on the card), which emits int8 rows straight to a calibrated
 W8A8 projection.
 
-Left out for now: class/register tokens and LayerScale (DINOv2), resizing the
-position embedding to another grid.
+DINOv2: the position embedding covers the patches only, and the CLS and
+register tokens are prepended after it is added; LayerScale multiplies each
+block's two residual branches by gamma rounded to their dtype, and the
+features drop the prefix tokens. Left out for now: resizing the position
+embedding to another grid (JAX `_resize_pos_embed`), which raises.
 """
 
 from __future__ import annotations
@@ -55,6 +59,24 @@ def _act(name: str):
     raise ValueError(name)
 
 
+class LayerScale(nn.Module):
+    """A float32 gamma (the JAX `{"gamma": ...}` leaf); the product is taken
+    in the branch's dtype, gamma rounded to it first."""
+
+    def __init__(self, d: int, init: float, device=None):
+        super().__init__()
+        self.init = init
+        self.gamma = nn.Parameter(torch.full((d,), init, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+def layer_scale(ls, x: torch.Tensor) -> torch.Tensor:
+    """x through an optional LayerScale."""
+    return x if ls is None else ls(x)
+
+
 class ViTBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype, device):
         super().__init__()
@@ -70,6 +92,9 @@ class ViTBlock(nn.Module):
             "fc1": nn.Linear(d, cfg.intermediate_size, **kw),
             "fc2": nn.Linear(cfg.intermediate_size, d, **kw),
         })
+        scale = cfg.use_layer_scale
+        self.ls1 = LayerScale(d, cfg.layer_scale_init, device) if scale else None
+        self.ls2 = LayerScale(d, cfg.layer_scale_init, device) if scale else None
 
 
 class ViT(nn.Module):
@@ -79,19 +104,23 @@ class ViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if cfg.use_class_token or cfg.num_register_tokens or cfg.use_layer_scale:
-            raise NotImplementedError("class/register tokens and LayerScale are not ported")
         p, d = cfg.patch_size, cfg.hidden_size
         self.patch_embed = nn.Linear(p * p * 3, d, dtype=dtype, device=device)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_patches, d, dtype=torch.float32, device=device))
+        self.cls_token = (nn.Parameter(torch.zeros(1, 1, d, dtype=torch.float32, device=device))
+                          if cfg.use_class_token else None)
+        self.reg_tokens = (nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d,
+                                                    dtype=torch.float32, device=device))
+                           if cfg.num_register_tokens else None)
         self.layers = nn.ModuleList(
             ViTBlock(cfg, dtype, device) for _ in range(cfg.num_hidden_layers - 1))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights as the JAX init draws them: N(0, 0.02) matrices and
-        position embedding, zero biases, unit LayerNorms."""
+        position embedding, zero biases, unit LayerNorms, zero CLS and
+        register tokens, LayerScale at its init value."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
@@ -100,11 +129,17 @@ class ViT(nn.Module):
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif isinstance(mod, LayerScale):
+                mod.gamma.fill_(mod.init)
+        for tok in (self.cls_token, self.reg_tokens):
+            if tok is not None:
+                tok.zero_()
         self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 
 def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tensor:
-    """pixels (B, H, W, 3) -> penultimate-block patch features (B, P, D)."""
+    """pixels (B, H, W, 3) -> penultimate-block patch features (B, P, D), the
+    prefix (CLS, register) tokens dropped."""
     B, H = pixels.shape[:2]
     p = cfg.patch_size
     grid = H // p
@@ -115,6 +150,10 @@ def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tenso
     patches = (crop.reshape(B, grid, p, grid, p, 3).permute(0, 1, 3, 2, 4, 5)
                .reshape(B, grid * grid, p * p * 3))
     x = model.patch_embed(patches) + model.pos_embed.to(w.dtype)
+    prefix = [tok.to(x.dtype).expand(B, -1, -1) for tok in (model.cls_token, model.reg_tokens)
+              if tok is not None]
+    if prefix:  # after the position add (timm's no_embed_class order)
+        x = torch.cat(prefix + [x], dim=1)
 
     act = _act(cfg.hidden_act)
     nh = cfg.num_attention_heads
@@ -123,9 +162,9 @@ def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tenso
         return _vit_blocks_fused_ln(model, cfg, x, act, nh, hd)
     for layer in model.layers:
         qkv = layer.attn["qkv"](layer.norm1(x))
-        x = x + layer.attn["proj"](encoder_attention_qkv(qkv, nh, hd))
-        x = x + layer.mlp["fc2"](act(layer.mlp["fc1"](layer.norm2(x))))
-    return x
+        x = x + layer_scale(layer.ls1, layer.attn["proj"](encoder_attention_qkv(qkv, nh, hd)))
+        x = x + layer_scale(layer.ls2, layer.mlp["fc2"](act(layer.mlp["fc1"](layer.norm2(x)))))
+    return x[:, cfg.num_prefix_tokens:]
 
 
 def _use_fused_ln(cfg: ViTConfig) -> bool:
@@ -160,7 +199,8 @@ def _vit_blocks_fused_ln(model: ViT, cfg: ViTConfig, x, act, nh: int, hd: int):
                             residual=pending[0], act_inv=inv1)
         out = layer.attn["proj"](encoder_attention_qkv(matmul(qkv_p, n, inv1), nh, hd))
         inv2 = inv_of(fc1_p)
-        x, n = fused_ln(out, layer.norm2.weight, layer.norm2.bias, eps=eps, residual=x,
-                        act_inv=inv2)
-        pending = (x, layer.mlp["fc2"](act(matmul(fc1_p, n, inv2))))
-    return pending[0] + pending[1] if pending is not None else x
+        x, n = fused_ln(layer_scale(layer.ls1, out), layer.norm2.weight, layer.norm2.bias,
+                        eps=eps, residual=x, act_inv=inv2)
+        pending = (x, layer_scale(layer.ls2, layer.mlp["fc2"](act(matmul(fc1_p, n, inv2)))))
+    x = pending[0] + pending[1] if pending is not None else x
+    return x[:, cfg.num_prefix_tokens:]

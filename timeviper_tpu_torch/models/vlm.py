@@ -4,12 +4,18 @@ timeviper_tpu/models/vlm.py).
 The host builds the fusion plan (data/fusion.py) and the model applies it as
 one gather. `vlm_loss` is the training loss over a batch of rows that share
 one plan: the rows run as a written-out batch dimension where the JAX package
-vmaps its one-row loss. Left out for now: multi-tower vision, InternVideo2,
-the qwen2 backbone, pdrop and heterogeneous batches (per-row plans).
+vmaps its one-row loss. Left out for now: the qwen2 backbone, pdrop and
+heterogeneous batches (per-row plans).
 
-The vision tower is trained only on the CPU: its attention kernel (K3) has no
-backward, so on the card the tower runs under no_grad and a trainable tower
-raises.
+Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
+(models/internvideo2.py, clips of 4 frames merged jointly by the projector),
+and "multi": one tower and one projector per backbone id, held in
+`nn.ModuleDict`s keyed as the JAX pytree is, their tokens interleaved per
+frame.
+
+The vision towers are trained only on the CPU: their attention kernels (K3,
+K6) have no backward, so on the card a tower runs under no_grad and a
+trainable tower raises.
 """
 
 from __future__ import annotations
@@ -26,25 +32,68 @@ from timeviper_tpu_torch.config import VLMConfig
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan
 from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.cache import init_nano_cache
+from timeviper_tpu_torch.models.internvideo2 import InternVideo2, encode_frames_iv2
 from timeviper_tpu_torch.models.nano import NanoModel, nano_decode_step, nano_forward
 from timeviper_tpu_torch.models.projector import Projector, projector_forward
 from timeviper_tpu_torch.models.vit import ViT, vit_forward
 
+VIT_FAMILIES = ("siglip", "dinov2")
+
 
 @dataclass(frozen=True)
 class VLMArch:
-    """Static bundle of configs, as timeviper_tpu.models.vlm.VLMArch."""
+    """Static bundle of configs, as timeviper_tpu.models.vlm.VLMArch. A
+    multi-tower model sets `vision_backbones` to (backbone id, family,
+    config) per tower and `vision` to the first tower's config."""
 
     vlm: VLMConfig
-    vision: Any  # ViTConfig
+    vision: Any  # ViTConfig | InternVideo2Config
     llm: Any  # NanoConfig
     llm_family: str = "nano"
     vision_family: str = "siglip"
+    vision_backbones: Optional[Tuple[Tuple[str, str, Any], ...]] = None
 
     @property
     def tokens_per_frame(self) -> int:
         n = self.vlm.num_compressed_tokens
-        return n if n > 0 else self.vision.num_patches
+        if n > 0:
+            return n * (len(self.vision_backbones) if self.vision_backbones else 1)
+        return self.vision.num_patches
+
+    @property
+    def local_num_frames(self) -> int:
+        """Frames merged jointly by one ToMe call (InternVideo2's clips)."""
+        return self.vision.num_frames if self.vision_family == "internvideo2" else 1
+
+    def towers(self) -> Tuple[Tuple[str, str, Any], ...]:
+        """(module key, family, config) of each tower; a single tower's key
+        is ""."""
+        if self.vision_backbones:
+            return tuple((tower_key(bid), fam, cfg) for bid, fam, cfg in self.vision_backbones)
+        return (("", self.vision_family, self.vision),)
+
+
+def tower_key(backbone_id: str) -> str:
+    """A tower's key in the multi-tower ModuleDicts, as in the JAX pytree."""
+    return backbone_id.replace("-", "_").replace("+", "_")
+
+
+def _make_tower(family: str, cfg, dtype, device) -> nn.Module:
+    if family == "internvideo2":
+        return InternVideo2(cfg, dtype, device)
+    if family in VIT_FAMILIES:
+        return ViT(cfg, dtype, device)
+    raise NotImplementedError(f"vision family {family!r} is not ported")
+
+
+def _tower_forward(tower: nn.Module, family: str, cfg, pixels: torch.Tensor) -> torch.Tensor:
+    """pixels (F, H, W, 3) -> per-frame features (F, patches, D)."""
+    if family == "internvideo2":
+        # (F / 4, 4 * g^2, D) clip features -> per frame; the projector
+        # groups them again by local_num_frames
+        clip_feats = encode_frames_iv2(tower, cfg, pixels)
+        return clip_feats.reshape(pixels.shape[0], -1, clip_feats.shape[-1])
+    return vit_forward(tower, cfg, pixels)
 
 
 class TimeViperVLM(nn.Module):
@@ -52,15 +101,26 @@ class TimeViperVLM(nn.Module):
 
     def __init__(self, arch: VLMArch, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if arch.llm_family != "nano" or arch.vision_family != "siglip":
-            raise NotImplementedError(
-                f"{arch.vision_family} + {arch.llm_family} is not ported")
+        if arch.llm_family != "nano":
+            raise NotImplementedError(f"the {arch.llm_family} backbone is not ported")
         device = resolve_device(device)
         self.arch = arch
-        self.vision_backbone = ViT(arch.vision, dtype, device)
-        self.projector = Projector(arch.vision.hidden_size, arch.llm.hidden_size,
-                                   arch.vlm.projector_type, dtype, device)
+        towers = {key: (_make_tower(fam, cfg, dtype, device),
+                        Projector(cfg.hidden_size, arch.llm.hidden_size,
+                                  arch.vlm.projector_type, dtype, device))
+                  for key, fam, cfg in arch.towers()}
+        if arch.vision_backbones:
+            self.vision_backbone = nn.ModuleDict({k: v[0] for k, v in towers.items()})
+            self.projector = nn.ModuleDict({k: v[1] for k, v in towers.items()})
+        else:
+            self.vision_backbone, self.projector = towers[""]
         self.llm_backbone = NanoModel(arch.llm, dtype, device)
+
+    def tower(self, key: str) -> Tuple[nn.Module, Projector]:
+        """The tower and projector of `key` (one of arch.towers())."""
+        if key == "":
+            return self.vision_backbone, self.projector
+        return self.vision_backbone[key], self.projector[key]
 
 
 def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloat16,
@@ -68,28 +128,42 @@ def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloa
     """Build the model on `device` (the card by default) with random weights
     drawn from `generator`, which must live on the same device."""
     model = TimeViperVLM(arch, dtype, device)
-    model.vision_backbone.reset_parameters(generator)
-    model.projector.reset_parameters(generator)
+    for key, _, _ in arch.towers():
+        for part in model.tower(key):
+            part.reset_parameters(generator)
     model.llm_backbone.reset_parameters(generator)
     return model.eval()
 
 
 def encode_visual(model: TimeViperVLM, arch: VLMArch, pixels: torch.Tensor) -> torch.Tensor:
     """pixels (frames, H, W, 3) -> (frames, tokens_per_frame, llm_dim). A
-    frozen tower runs under no_grad."""
+    frozen tower runs under no_grad. Several towers: each tower's tokens go
+    through its own projector (no clip-joint merge, as in the JAX package),
+    then interleave per frame, (F, n, towers, D) -> (F, n * towers, D), or
+    concatenate where their counts differ."""
     tower_trains = torch.is_grad_enabled() and any(
         p.requires_grad for p in model.vision_backbone.parameters())
     if tower_trains and pixels.device.type != "cpu":
-        raise NotImplementedError("the vision tower's attention kernel has no backward: "
+        raise NotImplementedError("the vision towers' attention kernels have no backward: "
                                   "freeze the tower to train on the card")
-    with torch.set_grad_enabled(tower_trains):
-        feats = vit_forward(model.vision_backbone, arch.vision, pixels)
     n = arch.vlm.num_compressed_tokens
-    return projector_forward(
-        model.projector, feats, projector_type=arch.vlm.projector_type,
-        num_compressed_tokens=n if n > 0 else feats.shape[1],
-        token_order=arch.vlm.visual_token_order,
-        compress="tome" in arch.vlm.projector_type)
+    multi = bool(arch.vision_backbones)
+    outs = []
+    for key, fam, cfg in arch.towers():
+        tower, proj = model.tower(key)
+        with torch.set_grad_enabled(tower_trains):
+            feats = _tower_forward(tower, fam, cfg, pixels)
+        outs.append(projector_forward(
+            proj, feats, projector_type=arch.vlm.projector_type,
+            num_compressed_tokens=n if n > 0 else feats.shape[1],
+            local_num_frames=1 if multi else arch.local_num_frames,
+            token_order=arch.vlm.visual_token_order,
+            compress="tome" in arch.vlm.projector_type))
+    if len(outs) == 1:
+        return outs[0]
+    if all(o.shape == outs[0].shape for o in outs):
+        return torch.stack(outs, dim=2).reshape(outs[0].shape[0], -1, outs[0].shape[-1])
+    return torch.cat(outs, dim=1)
 
 
 def fuse_embeddings(model: TimeViperVLM, input_ids: torch.Tensor,

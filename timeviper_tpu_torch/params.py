@@ -3,7 +3,10 @@ anything numpy can copy) -> the port's `state_dict`.
 
 Linear kernels are stored (in, out) in the JAX package and become
 `nn.Linear.weight` (out, in); the ViT patch kernel (p, p, 3, D) becomes the
-(D, p*p*3) weight of the patch matmul; conv taps are (channels, K) in both.
+(D, p*p*3) weight of the patch matmul, InternVideo2's flattened tubelet
+kernel (tb*ps*ps*3, D) is transposed like any linear; conv taps are
+(channels, K) in both. A multi-tower pytree holds one tower and one
+projector per backbone key.
 LoRA factors planted by the JAX package's add_lora (lora_a, lora_b,
 lora_scale) come across unchanged; load them into a model that went through
 the port's add_lora. An int8 leaf of the JAX package's quantize
@@ -45,15 +48,23 @@ def _linear(sd: Dict[str, torch.Tensor], prefix: str, p: Dict[str, Any]) -> None
             sd[f"{prefix}.{leaf}"] = to_tensor(p[leaf])
 
 
+def _layer_scales(sd: Dict[str, torch.Tensor], pre: str, layer: Dict[str, Any]) -> None:
+    for ls in ("ls1", "ls2"):
+        if ls in layer:
+            sd[f"{pre}.{ls}.gamma"] = to_tensor(layer[ls]["gamma"])
+
+
 def vit_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """SigLIP tower. The last block feeds no output (penultimate features)
-    and is dropped."""
+    """SigLIP or DINOv2 tower. The last block feeds no output (penultimate
+    features) and is dropped."""
     sd: Dict[str, torch.Tensor] = {}
     pe = tree["patch_embed"]
     k = to_tensor(pe["kernel"])
     sd["patch_embed.weight"] = k.reshape(-1, k.shape[-1]).T.contiguous()
     sd["patch_embed.bias"] = to_tensor(pe["bias"])
-    sd["pos_embed"] = to_tensor(tree["pos_embed"])
+    for leaf in ("pos_embed", "cls_token", "reg_tokens"):
+        if leaf in tree:
+            sd[leaf] = to_tensor(tree[leaf])
     for i, layer in enumerate(tree["layers"][: cfg.num_hidden_layers - 1]):
         pre = f"layers.{i}"
         for norm in ("norm1", "norm2"):
@@ -63,7 +74,34 @@ def vit_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
         _linear(sd, f"{pre}.attn.proj", layer["attn"]["proj"])
         _linear(sd, f"{pre}.mlp.fc1", layer["mlp"]["fc1"])
         _linear(sd, f"{pre}.mlp.fc2", layer["mlp"]["fc2"])
+        _layer_scales(sd, pre, layer)
     return sd
+
+
+def iv2_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """InternVideo2 tower. The JAX init builds only the effective_depth
+    blocks the features come from, so every block is kept."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "patch_embed", tree["patch_embed"])
+    sd["cls_token"] = to_tensor(tree["cls_token"])
+    sd["pos_embed"] = to_tensor(tree["pos_embed"])
+    for i, layer in enumerate(tree["layers"]):
+        pre = f"layers.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = to_tensor(layer[norm]["weight"])
+        attn = layer["attn"]
+        _linear(sd, f"{pre}.attn.qkv", attn["qkv"])
+        _linear(sd, f"{pre}.attn.proj", attn["proj"])
+        for norm in ("q_norm", "k_norm"):
+            sd[f"{pre}.attn.{norm}.weight"] = to_tensor(attn[norm]["weight"])
+        _linear(sd, f"{pre}.mlp.fc1", layer["mlp"]["fc1"])
+        _linear(sd, f"{pre}.mlp.fc2", layer["mlp"]["fc2"])
+        _layer_scales(sd, pre, layer)
+    return sd
+
+
+def tower_state_dict(tree: Dict[str, Any], family: str, cfg) -> Dict[str, torch.Tensor]:
+    return iv2_state_dict(tree) if family == "internvideo2" else vit_state_dict(tree, cfg)
 
 
 def projector_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -103,10 +141,15 @@ def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
 
 def from_jax_numpy(tree: Dict[str, Any], arch) -> Dict[str, torch.Tensor]:
     """The JAX VLM pytree (init_vlm_params's layout) -> TimeViperVLM state_dict."""
+    parts = [("llm_backbone", nano_state_dict(tree["llm_backbone"], arch.llm))]
+    for key, family, cfg in arch.towers():
+        vis, proj = tree["vision_backbone"], tree["projector"]
+        dot = f".{key}" if key else ""
+        if key:
+            vis, proj = vis[key], proj[key]
+        parts += [(f"vision_backbone{dot}", tower_state_dict(vis, family, cfg)),
+                  (f"projector{dot}", projector_state_dict(proj))]
     sd: Dict[str, torch.Tensor] = {}
-    parts = (("vision_backbone", vit_state_dict(tree["vision_backbone"], arch.vision)),
-             ("projector", projector_state_dict(tree["projector"])),
-             ("llm_backbone", nano_state_dict(tree["llm_backbone"], arch.llm)))
     for prefix, part in parts:
         sd.update({f"{prefix}.{k}": v for k, v in part.items()})
     return sd
