@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, LoRA
-training, int8 serving with the fused kernels, then serving with the
-InternVideo2 tower and with the two-tower DINOv2 + SigLIP encoder.
+"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, long
+video (a streamed clip-by-clip prefill, the chunked long-context forward and
+questions on a cached prefix), LoRA training, int8 serving with the fused
+kernels, then serving with the InternVideo2 tower and with the two-tower
+DINOv2 + SigLIP encoder.
 
     python3 chip_smoke.py
 
@@ -26,7 +28,22 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    inputs the 64-frame request gave them, and the 64-frame request is run
    once more with the plain versions as a reference for its first logits.
    The fused kernels (K5, K7, K8) are switched off here, as by default.
-5. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
+5. long video, on the same bf16 model: (a) 1,024 frames streamed as four
+   256-frame clips of 4,096 tokens, the first through nano_forward with the
+   cache filled, the next three through
+   models/prefix_cache.py:nano_forward_continue (K1 from the carried states,
+   K9 twice per attention layer: exactly 8 launches a clip), whose last-row
+   logits are held against one nano_forward over all 16,384 tokens and
+   against models/longctx.py:nano_forward_longctx in chunks of 4,096 rows;
+   (b) Generator.prefill_prefix on 8 text tokens + 1,016 frames (bucket
+   16,384, suffix budget 512), three questions of 12, 40 and 300 tokens
+   through generate(prefix=...), the 40-token one held against generate()
+   of the whole prompt, and the prefix's cache bitwise unchanged (a SHA-256
+   of every K/V buffer and Mamba state before and after); (c) K9 on the
+   inputs one attention layer of the 4th clip gave it and K1 on a Mamba
+   layer of the 2nd clip (a carried initial state), each against its plain
+   version.
+6. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
    256 frames (4,136 tokens). Every loss finite, the 4th below the 1st, every
@@ -34,7 +51,7 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    are held against their plain versions on the inputs and output cotangents
    the first step gave one Mamba and one attention layer, and the first step's
    loss and LoRA gradient against a run with the plain versions swapped in.
-6. int8 serving: the training model is freed and the same seeded bf16
+7. int8 serving: the training model is freed and the same seeded bf16
    weights are made again; the ViT and the 9B are quantized to W8A8 as
    bench.py does (train/quantize.py), calibrated on one 64-frame clip, and the
    Mamba in_proj leaves fused. The three requests run with the fusions off
@@ -48,14 +65,14 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    tokens of 16 frames are compared across fused, unfused, plain versions and
    the bf16 model. Encode, prefill and decode times of both configurations
    are printed, then the text and 256-frame requests run off, on, on, off.
-7. InternVideo2 serving: the int8 model is freed; internvideo2-1b-16-224px +
+8. InternVideo2 serving: the int8 model is freed; internvideo2-1b-16-224px +
    tome_mlp-16 + nano-9b-v2 (39 blocks of width 1408, clips of 4 frames merged
    jointly to 64 tokens) with random bf16 weights from the seed, the three
    requests at 224 px. Every encode chunk launches K6 once per block (39) and
    K3 never; K6 is held against its plain version on the q, k and (strided) v
    of the 64-frame request's first layer, and that request's first logits
    against a run with every plain version.
-8. DINOv2 + SigLIP serving: dinosiglip-vit-so-384px + nano-9b-v2, each tower
+9. DINOv2 + SigLIP serving: dinosiglip-vit-so-384px + nano-9b-v2, each tower
    with its own ToMe-16 projector, 32 tokens a frame; the text and 64-frame
    requests. Every encode chunk launches K3 23 + 26 times; the first logits
    are held against the plain versions as above.
@@ -74,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import math
 import os
@@ -92,12 +110,19 @@ from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
+from timeviper_tpu_torch.models import prefix_cache as pc_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
-from timeviper_tpu_torch.models.generate import Generator  # noqa: E402
+from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
+from timeviper_tpu_torch.models.longctx import nano_forward_longctx  # noqa: E402
 from timeviper_tpu_torch.models.nano import nano_forward  # noqa: E402
+from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noqa: E402
 from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
+from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
+    block_attn_lse,
+    block_attn_lse_plain,
+)
 from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
     fused_mamba_decode,
     fused_mamba_decode_plain,
@@ -176,12 +201,19 @@ KERNELS = {
                          replaces="timeviper_tpu/ops/decode_fused.py:39", rel_tol=1e-2),
     "layernorm": dict(source="timeviper_tpu_torch/csrc/layernorm.cu",
                       replaces="timeviper_tpu/ops/layernorm.py:37", rel_tol=1e-2),
+    # K9: K2's tile and arithmetic; o (bf16) against its own largest value,
+    # with no floor (|o| <= 1 and about 0.015 over 12k random keys), and the
+    # f32 row statistics l and m of bf16 logits, summed in other orders, to
+    # 1e-4: a mask that dropped 64 of 12,288 keys moves l by 0.5%
+    "block_attn": dict(source="timeviper_tpu_torch/csrc/block_attn.cu",
+                       replaces="timeviper_tpu/parallel/seq_parallel.py:187",
+                       rel_tol=(1e-2, 1e-4, 1e-4), floor=0.0),
 }
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
             "flash_bwd": flash_attention_bwd, "ssd_conv_fwd": ssd_conv_scan_fused,
             "decode_fused": fused_mamba_decode, "layernorm": fused_ln,
-            "vit_attn": vit_attention}
+            "vit_attn": vit_attention, "block_attn": block_attn_lse}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
 FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
@@ -241,10 +273,14 @@ def device_ms(fn, iters: int = 20) -> float:
 def compare(name: str, got, want) -> float:
     """Max abs error of the kernel output(s) against the plain one(s); raises
     past the kernel's tolerance (relative to the plain result's largest
-    magnitude, and for the forward kernels to at least 1). int8 codes may
-    differ by 1 at no more than 0.1% of elements."""
+    magnitude, and for the forward kernels to at least 1 unless the kernel
+    names its own floor; one tolerance for all outputs or one each). int8
+    codes may differ by 1 at no more than 0.1% of elements. A -inf of the
+    plain result (K9's m of a row that saw no key) must be one of the
+    kernel's too."""
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-    floor = 0.0 if name.endswith("_bwd") else 1.0
+    floor = KERNELS[name].get("floor", 0.0 if name.endswith("_bwd") else 1.0)
+    tols = KERNELS[name]["rel_tol"]
     worst, parts = 0.0, []
     for i, (g, w) in enumerate(pairs):
         if g is None or w is None:  # an input with no gradient on one side
@@ -258,13 +294,19 @@ def compare(name: str, got, want) -> float:
             parts.append(f"int8 codes off by <= {d.max().item()} at {share:.2e}")
             continue
         g, w = g.float(), w.float()
+        dead = torch.isneginf(w)
+        if not torch.equal(torch.isneginf(g), dead):
+            raise AssertionError(f"{name}: output {i}: -inf where the plain one has none, "
+                                 "or the other way round")
+        g, w = g.masked_fill(dead, 0.0), w.masked_fill(dead, 0.0)
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: non-finite kernel output {i}")
         err = (g - w).abs().max().item()
         scale = max(w.abs().max().item(), floor)
-        if err > KERNELS[name]["rel_tol"] * scale:
+        tol = tols[i] if isinstance(tols, tuple) else tols
+        if err > tol * scale:
             raise AssertionError(f"{name}: output {i}: max abs error {err:.3e} > "
-                                 f"{KERNELS[name]['rel_tol']} x {scale:.3e}")
+                                 f"{tol} x {scale:.3e}")
         worst = max(worst, err)
         parts.append(f"{err:.2e}/{scale:.2e}")
     if len(parts) > 1 or any("int8" in part for part in parts):
@@ -504,6 +546,38 @@ def kernel_cases(g: torch.Generator):
                    dict(variant=("residual + " if residual else "") + ("int8" if quant else "bf16"),
                         main=residual and not quant, peak=PEAK_F32_FLOPS, device=True))
 
+    # K9, after the others, so that their timing conditions stay as they were
+    # (its plain version holds 6.4 GB of f32 logits): the prefix part of a
+    # 4,096-token clip's continuation against 12,288 cached rows, as the path
+    # runs it (the headline case), and again with the first 64 rows masked by
+    # seg_kv, as a left pad would be; a 256-row question's against 16,384
+    # rows; the causal suffix part at 4,096. The library yardstick is SDPA
+    # with the same mask (GQA in place)
+    for Lq, Lk, causal, masked in ((4096, 12288, False, False), (4096, 12288, False, True),
+                                   (256, 16384, False, False), (4096, 4096, True, False)):
+        q9, k9, v9 = randn(1, Lq, Hq, hd), randn(1, Lk, Hkv, hd), randn(1, Lk, Hkv, hd)
+        kw9, keep, pairs9 = dict(causal=causal), None, Lq * (Lq + 1) // 2 if causal else Lq * Lk
+        main = Lk == 12288 and not masked
+        if masked:
+            seg_kv = torch.zeros(1, Lk, dtype=torch.int32, device=DEV)
+            seg_kv[:, :64] = 1
+            kw9.update(seg_q=torch.zeros(1, Lq, dtype=torch.int32, device=DEV), seg_kv=seg_kv)
+            keep, pairs9 = (seg_kv[0] == 0)[None, None, None], Lq * (Lk - 64)
+        out9 = block_attn_lse(q9, k9, v9, **kw9)
+        lib_in = [x.transpose(1, 2).contiguous() for x in (q9, k9, v9)]
+
+        def lib9(lib_in=lib_in, keep=keep, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *lib_in, attn_mask=keep, is_causal=causal, enable_gqa=True)
+
+        yield ("block_attn", lambda q9=q9, k9=k9, v9=v9, kw9=kw9: block_attn_lse(q9, k9, v9, **kw9),
+               lambda q9=q9, k9=k9, v9=v9, kw9=kw9: block_attn_lse_plain(q9, k9, v9, **kw9),
+               lib9, (4 * Hq * hd * pairs9,
+                      nbytes(q9, k9, v9, kw9.get("seg_q"), kw9.get("seg_kv"), *out9)),
+               dict(variant=f"{'causal' if causal else 'non-causal'} {Lq} x {Lk}"
+                            + (", first 64 keys masked by seg_kv" if masked else ""), main=main))
+        del q9, k9, v9, out9, lib_in
+
 
 def phase_kernels(g: torch.Generator) -> dict:
     results, worst = {}, {}
@@ -704,6 +778,157 @@ def check_against_plain_run(gen, requests, outs: dict, tag: str, min_cos: float 
     log(f"[{tag}] 64 frames, kernels vs plain versions: ids kernels "
         f"{outs['64 frames'].token_ids.tolist()} plain {ref.token_ids.tolist()}")
     logits_agree(f"{tag}", outs["64 frames"].first_logits, ref.first_logits, min_cos)
+
+
+def cache_digest(cache) -> str:
+    """SHA-256 of every K/V buffer and Mamba state of a decode cache, and its
+    length and valid_from."""
+    h = hashlib.sha256(f"{cache['length']} {cache['valid_from']}".encode())
+    for lc in cache["layers"]:
+        for key in sorted(lc):
+            parts = lc[key] if isinstance(lc[key], dict) else {"": lc[key]}
+            for name in sorted(parts):
+                h.update(parts[name].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_long_video(model, arch, kernel_results: dict) -> None:
+    """(a) 1,024 frames streamed in four clips of 4,096 tokens against one
+    prefill of all 16,384 and the chunked long-context forward; (b) three
+    questions on a cached 1,016-frame prefix; (c) K9 and K1 (from a carried
+    state) on inputs the stream gave them."""
+    llm, cfg = model.llm_backbone, arch.llm
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    size = arch.vision.image_size
+    frames = torch.rand(1024, size, size, 3, generator=g, device=DEV) * 2 - 1
+    clip, n_clips = 256 * arch.tokens_per_frame, 4
+    per_cont = 2 * cfg.layers_block_type.count("attention")  # 8 on the 9B
+    cap9, cap1 = Capture(block_attn_lse), Capture(pc_mod.ssd_scan)
+    pc_mod.block_attn_lse, pc_mod.ssd_scan = cap9, cap1
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        embeds = gen.encode_frames(frames)[None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            out = nano_forward(llm, cfg, inputs_embeds=embeds[:, :clip], fill_cache=True,
+                               cache_max_len=n_clips * clip + 256 + MAX_NEW, logits_to_keep=1)
+            logits, cache = out["logits"][:, -1], out["cache"]
+            del out
+            torch.cuda.synchronize()
+            clip_s = [time.perf_counter() - t1]
+            for i in range(1, n_clips):
+                cap1.armed, cap9.armed = i == 1, i == n_clips - 1
+                before = block_attn_lse.launches
+                t = time.perf_counter()
+                logits, cache = nano_forward_continue(llm, cfg, embeds[:, i * clip:(i + 1) * clip],
+                                                      cache)
+                torch.cuda.synchronize()
+                clip_s.append(time.perf_counter() - t)
+                if block_attn_lse.launches - before != per_cont:
+                    raise AssertionError(f"clip {i + 1}: K9 launched "
+                                         f"{block_attn_lse.launches - before} times, not "
+                                         f"{per_cont}")
+            cap1.armed = cap9.armed = False
+            stream_launches = block_attn_lse.launches
+            t = time.perf_counter()
+            one = nano_forward(llm, cfg, inputs_embeds=embeds, fill_cache=True,
+                               cache_max_len=n_clips * clip, logits_to_keep=1)
+            torch.cuda.synchronize()
+            one_s, t = time.perf_counter() - t, time.perf_counter()
+            longctx = nano_forward_longctx(llm, cfg, embeds, chunk_tokens=clip)["logits"][:, -1]
+            torch.cuda.synchronize()
+            long_s = time.perf_counter() - t
+        want = one["logits"][:, -1]
+        last_mamba = max(i for i, bt in enumerate(cfg.layers_block_type) if bt == "mamba")
+        s_stream = cache["layers"][last_mamba]["ssm_state"]
+        s_one = one["cache"]["layers"][last_mamba]["ssm_state"]
+        log(f"[long video] 1,024 frames, 4 clips of {clip} tokens: encode {t1 - t0:.3f} s; "
+            f"clip prefill / continuations {', '.join(f'{x:.3f}' for x in clip_s)} s "
+            f"(stream {sum(clip_s):.3f} s); one-shot prefill of {n_clips * clip} tokens "
+            f"{one_s:.3f} s; longctx (chunks of {clip}) {long_s:.3f} s; K9 launches "
+            f"{stream_launches} ({per_cont} a continuation)")
+        log(f"[long video] layer {last_mamba} ssm_state, streamed vs one-shot: relative error "
+            f"{((s_stream - s_one).norm() / s_one.norm()).item():.3e}")
+        for tag, got in (("streamed continuation", logits), ("longctx", longctx)):
+            logits_agree(f"long video, {tag} vs one-shot", got, want, 0.999)
+        del cache, one, longctx, embeds, logits, want, s_stream, s_one
+        torch.cuda.empty_cache()
+
+        # (b) questions on a cached prefix of 8 text tokens + 1,016 frames
+        text = torch.randint(10, 130000, (8 + 12 + 40 + 300,), generator=g,
+                             device=DEV).tolist()
+        prefix_ids = text[:8] + [IMAGE_TOKEN] * 1016
+        questions = [text[8:20], text[20:60], text[60:]]
+        t = time.perf_counter()
+        state = gen.prefill_prefix(prefix_ids, pixels=frames[:1016], image_token_id=IMAGE_TOKEN,
+                                   suffix_budget=512)
+        torch.cuda.synchronize()
+        log(f"[long video] prefill_prefix: bucket {state.bucket}, pad {state.pad}, cache "
+            f"{state.cache_len} rows, {time.perf_counter() - t:.3f} s with the encode")
+        if state.bucket != pick_bucket(8 + 1016 * arch.tokens_per_frame):
+            raise AssertionError(f"prefix bucket {state.bucket}")
+        digest = cache_digest(state.cache)
+        answers = {}
+        for q in questions:
+            before = block_attn_lse.launches
+            o = gen.generate(q, prefix=state)
+            if block_attn_lse.launches - before != per_cont:
+                raise AssertionError(f"a {len(q)}-token question launched K9 "
+                                     f"{block_attn_lse.launches - before} times, not "
+                                     f"{per_cont}")
+            if not torch.isfinite(o.first_logits).all():
+                raise AssertionError(f"{len(q)}-token question: non-finite logits")
+            answers[len(q)] = o
+            log(f"[long video] question of {len(q)} tokens on the prefix: continuation "
+                f"{o.prefill_s:.3f} s, decode {(o.num_generated - 1) / o.decode_s:.2f} tok/s, "
+                f"{o.token_ids.tolist()}")
+        after = cache_digest(state.cache)
+        log(f"[long video] prefix cache SHA-256 before {digest[:16]}, after three questions "
+            f"{after[:16]}")
+        if after != digest:
+            raise AssertionError("the questions changed the prefix's cache")
+        whole = gen.generate(prefix_ids + questions[1], pixels=frames[:1016],
+                             image_token_id=IMAGE_TOKEN)
+        q40 = answers[40]
+        log(f"[long video] 40-token question, ids on the prefix {q40.token_ids.tolist()}, "
+            f"whole prompt {whole.token_ids.tolist()}; seconds to first token: on the prefix "
+            f"{q40.prefill_s:.3f} s, whole prompt {whole.encode_s + whole.prefill_s:.3f} s "
+            f"(encode {whole.encode_s:.3f} + prefill {whole.prefill_s:.3f})")
+        logits_agree("long video, 40-token question on the prefix vs the whole prompt",
+                     q40.first_logits, whole.first_logits, 0.999)
+        kernel_results["block_attn"]["launches"] = block_attn_lse.launches
+        log(f"[long video] K9 launches in the phase: {block_attn_lse.launches}")
+        del state, answers, whole, q40, frames
+        torch.cuda.empty_cache()
+    finally:
+        pc_mod.block_attn_lse, pc_mod.ssd_scan = block_attn_lse, cap1.fn
+
+    # (c) the kernels on the stream's own inputs
+    with torch.no_grad():
+        err = compare("block_attn", block_attn_lse(*cap9.args, **cap9.kwargs),
+                      block_attn_lse_plain(*cap9.args, **cap9.kwargs))
+        shapes = [tuple(a.shape) for a in cap9.args]
+        log(f"[long video] block_attn on clip 4's first attention layer {shapes}: max abs err "
+            f"{err:.3e}; kernel {timed_ms(lambda: block_attn_lse(*cap9.args, **cap9.kwargs)):.4f}"
+            f" ms")
+        kernel_results["block_attn"]["max_abs_err"] = max(
+            kernel_results["block_attn"]["max_abs_err"], err)
+        del cap9
+        torch.cuda.empty_cache()
+        h0 = cap1.kwargs["initial_state"]
+        err = compare("ssd_fwd", ssd_scan(*cap1.args, **cap1.kwargs),
+                      ssd_chunked(*cap1.args, **cap1.kwargs))
+        ms = timed_ms(lambda: ssd_scan(*cap1.args, **cap1.kwargs))
+        log(f"[long video] ssd_fwd on clip 2's first Mamba layer "
+            f"{[tuple(a.shape) for a in cap1.args]} from a carried state (|h0| max "
+            f"{h0.abs().max().item():.3e}): max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{timed_ms(lambda: ssd_chunked(*cap1.args, **cap1.kwargs), iters=2):.4f} ms")
+        kernel_results["ssd_fwd"]["max_abs_err"] = max(kernel_results["ssd_fwd"]["max_abs_err"],
+                                                       err)
+    torch.cuda.empty_cache()
 
 
 def training_row(arch, n_frames: int, g: torch.Generator):
@@ -1027,6 +1252,7 @@ def main() -> int:
     log(f"[model] TimeViper-9B: {n_params / 1e9:.2f} B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
     bf16 = phase_serving(model, arch, results)
+    phase_long_video(model, arch, results)
     phase_training(model, arch, results, profile=args.profile)
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()

@@ -26,7 +26,9 @@ MODULES = [
     "timeviper_tpu_torch.train.checkpoint", "timeviper_tpu_torch.train.trainer",
     "timeviper_tpu_torch.ops.int8_linear", "timeviper_tpu_torch.ops.layernorm",
     "timeviper_tpu_torch.ops.decode_fused", "timeviper_tpu_torch.train.quantize",
-    "timeviper_tpu_torch.models.internvideo2", "chip_smoke",
+    "timeviper_tpu_torch.models.internvideo2", "timeviper_tpu_torch.ops.block_attention",
+    "timeviper_tpu_torch.models.prefix_cache", "timeviper_tpu_torch.models.longctx",
+    "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent
 

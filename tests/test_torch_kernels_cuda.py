@@ -21,6 +21,11 @@ give bitwise-equal gradients on a repeat (no atomics).
 K6 (csrc/vit_attn.cu) is held to the same 1e-2 as K3, with v read as a
 strided column slice of a fused qkv buffer.
 
+K9 (csrc/block_attn.cu) is held to 1e-2 of each output's largest magnitude
+(o, and the row sums l and maxima m of the scaled logits), in both modes, on
+k and v read as row ranges of a cache buffer, with an empty key block and
+with rows that see no key (l = 0, m = -inf, o = 0 on both sides).
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
@@ -32,6 +37,7 @@ import pytest
 import torch
 from torch_parity import packed_seq, require_cuda, rng, t
 
+from timeviper_tpu_torch.ops.block_attention import block_attn_lse, block_attn_lse_plain
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_plain
 from timeviper_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -72,7 +78,9 @@ def _close(got, want, rel, floor=1.0):
 @pytest.mark.parametrize("packed", [None, (37, 170), (64, 128)])
 def test_ssd_kernel_matches_plain(packed):
     """Ragged tail (L = 300, chunks of 64), a -1 pad plus one boundary, both
-    inside chunks or both on chunk edges, and a carried initial state."""
+    inside chunks or both on chunk edges, and a carried initial state. With
+    no packing, also a question's continuation: 12 rows (one ragged chunk of
+    256) at the 9B's heads and groups from a carried state."""
     dev = require_cuda()
     r = rng(3)
     B, L, H, P, G, N, cs = 2, 300, 16, 64, 4, 128, 64
@@ -87,6 +95,65 @@ def test_ssd_kernel_matches_plain(packed):
     yp, sp = ssd_chunked(x, dt, A, Bm, Cm, **kw)
     _close(y, yp, 1e-2)
     _close(st, sp, 1e-2)
+    if packed is None:
+        B, L, H, P, G = 1, 12, 128, 64, 8
+        x, dt, Bm, Cm = bf(B, L, H, P), bf(B, L, H, k=0.5), bf(B, L, G, N), bf(B, L, G, N)
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+        h0 = t(r.standard_normal((B, H, P, N), np.float32)).to(dev)
+        kw = dict(chunk_size=256, D=torch.ones(H, device=dev), initial_state=h0)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, **kw)
+        yp, sp = ssd_chunked(x, dt, A, Bm, Cm, **kw)
+        _close(y, yp, 1e-2)
+        _close(st, sp, 1e-2)
+
+
+@pytest.mark.parametrize("case", ["causal", "prefix rows", "ragged masked", "empty", "valid"])
+def test_block_attention_kernel_matches_plain(case):
+    """Causal Lq = Lk = 200 with segments; the non-causal prefix part of a
+    continuation (q 70 rows against rows [5, 230) of a 2-batch cache
+    buffer); a ragged Lk of 301 whose first 37 rows are masked by seg_kv and
+    a query segment with no key; an empty block; valid_kv / valid_q."""
+    dev = require_cuda()
+    r = rng(5)
+    B, Hq, Hkv, D = 2, 8, 2, 128
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    Lq = 200 if case == "causal" else 70
+    q = bf(B, Lq, Hq, D)
+    kw, dead = {}, None
+    if case == "causal":
+        k, v = bf(B, Lq, Hkv, D), bf(B, Lq, Hkv, D)
+        seg = t(packed_seq(B, Lq, 13, 100)).to(dev)
+        kw = dict(causal=True, seg_q=seg, seg_kv=seg)
+    elif case == "prefix rows":
+        buf_k, buf_v = bf(B, 256, Hkv, D), bf(B, 256, Hkv, D)
+        k, v = buf_k[:, 5:230], buf_v[:, 5:230]
+    elif case == "ragged masked":
+        k, v = bf(B, 301, Hkv, D), bf(B, 301, Hkv, D)
+        seg_kv = torch.zeros(B, 301, dtype=torch.int32, device=dev)
+        seg_kv[:, :37] = 1
+        seg_q = torch.zeros(B, Lq, dtype=torch.int32, device=dev)
+        seg_q[:, 3] = 2  # sees no key
+        kw, dead = dict(seg_q=seg_q, seg_kv=seg_kv), 3
+    elif case == "empty":
+        k, v = bf(B, 0, Hkv, D), bf(B, 0, Hkv, D)
+    else:
+        k, v = bf(B, 150, Hkv, D), bf(B, 150, Hkv, D)
+        kw = dict(valid_kv=torch.arange(150, device=dev) % 7 != 3,
+                  valid_q=torch.arange(Lq, device=dev) % 5 != 1)
+    before = block_attn_lse.launches
+    o, l, m = block_attn_lse(q, k, v, **kw)
+    assert block_attn_lse.launches == before + 1
+    po, pl, pm = block_attn_lse_plain(q, k, v, **kw)
+    _close(o, po, 1e-2)
+    _close(l, pl, 1e-2)
+    assert torch.equal(torch.isneginf(m), torch.isneginf(pm))
+    _close(torch.where(torch.isneginf(pm), 0.0, m), torch.where(torch.isneginf(pm), 0.0, pm),
+           1e-2)
+    if case == "empty":
+        dead = slice(None)
+    if dead is not None:
+        assert (l[:, :, dead] == 0).all() and torch.isneginf(m[:, :, dead]).all()
+        assert (o[:, dead] == 0).all()
 
 
 @pytest.mark.parametrize("L,packed", [(200, (13, 100)), (256, (64, 128)), (64, None)])
@@ -145,6 +212,13 @@ def test_kernels_raise_on_what_they_do_not_take():
             vit_attention(x, x, bad)
     with pytest.raises(ValueError):
         vit_attention(q, q, q)  # head dim 64
+    with pytest.raises(ValueError):
+        block_attn_lse(q, q, q)  # head dim 64
+    q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        block_attn_lse(q, q[:, :4], q[:, :4], causal=True)  # causal takes Lq == Lk
+    with pytest.raises(ValueError):
+        block_attn_lse(q, q[:, :, :2], q[:, :, :2].contiguous())  # k and v strides differ
 
 
 def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):

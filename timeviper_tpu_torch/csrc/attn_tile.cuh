@@ -26,6 +26,13 @@
 // AttnArgs itself stays as it is: on the H100, 16 more bytes in it changed
 // the instruction schedule of K2 and K3 and slowed both (see PERF.md), so
 // the shared-stride instantiations keep their smaller argument struct.
+//
+// Instantiated with LM (block_attn.cu, K9) the kernel takes AttnArgsLM: the
+// query rows' segment ids come from `seg` (B, Lq) and the keys' from
+// `seg_kv` (B, Lk), so a rectangular block (Lq != Lk) can be masked, and
+// each row's running sum l and max m of the scaled logits are written as
+// (B, Hq, Lq) f32 instead of the log-sum-exp. A row that sees no key keeps
+// l = 0, m = -inf and an output of 0.
 #pragma once
 
 #include <type_traits>
@@ -56,8 +63,15 @@ struct AttnArgsV : AttnArgs {
   int v_rs, v_hs;
 };
 
-template <bool OWN_V>
-using AttnArgsOf = std::conditional_t<OWN_V, AttnArgsV, AttnArgs>;
+struct AttnArgsLM : AttnArgs {
+  const int* seg_kv;  // (B, Lk) segment ids of the keys; null iff seg is
+  float* l;           // (B, Hq, Lq) row sum of exp(s - m)
+  float* m;           // (B, Hq, Lq) row max of the scaled logits s
+};
+
+template <bool OWN_V, bool LM = false>
+using AttnArgsOf =
+    std::conditional_t<LM, AttnArgsLM, std::conditional_t<OWN_V, AttnArgsV, AttnArgs>>;
 
 template <int HD>
 struct AttnShape {
@@ -72,8 +86,8 @@ struct AttnShape {
 };
 
 // grid (ceil(Lq / 64), Hq, B), 128 threads, AttnShape<HD>::smem of dynamic smem.
-template <int HD, bool CAUSAL, bool OWN_V = false>
-__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V> a) {
+template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false>
+__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V, LM> a) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   using S = AttnShape<HD>;
   constexpr int KS = S::HDP / 16, NO = HD / 8, NT = kAttnBKV / 8, LD = S::LD, VPR = S::VPR;
@@ -136,7 +150,10 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
     }
     if (tid < kAttnBKV) {
       const int t = kv0 + tid;
-      segk[tid] = (a.seg != nullptr && t < a.Lk) ? a.seg[(long long)b * a.Lk + t] : 0;
+      if constexpr (LM)
+        segk[tid] = (a.seg_kv != nullptr && t < a.Lk) ? a.seg_kv[(long long)b * a.Lk + t] : 0;
+      else
+        segk[tid] = (a.seg != nullptr && t < a.Lk) ? a.seg[(long long)b * a.Lk + t] : 0;
     }
     __syncthreads();
 
@@ -222,9 +239,16 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
     const float inv = l[row] > 0.f ? 1.f / l[row] : 0.f;
     // the backward recomputes P = exp(s * scale - lse); a row that saw no
     // key gets +inf, so its P is 0
-    if (a.lse != nullptr && (lane & 3) == 0)
+    if constexpr (LM) {
+      if ((lane & 3) == 0) {
+        const long long i = ((long long)b * a.Hq + h) * a.Lq + qpos[row];
+        a.l[i] = l[row];
+        a.m[i] = m[row];
+      }
+    } else if (a.lse != nullptr && (lane & 3) == 0) {
       a.lse[((long long)b * a.Hq + h) * a.Lq + qpos[row]] =
           l[row] > 0.f ? m[row] + logf(l[row]) : INFINITY;
+    }
     __nv_bfloat16* ob = a.o + b * a.o_bs + (long long)qpos[row] * a.o_rs + (long long)h * a.o_hs;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -234,14 +258,14 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
   }
 }
 
-template <int HD, bool CAUSAL, bool OWN_V = false>
-int launch_attn(const AttnArgsOf<OWN_V>& a, int B, cudaStream_t stream) {
+template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false>
+int launch_attn(const AttnArgsOf<OWN_V, LM>& a, int B, cudaStream_t stream) {
   constexpr size_t smem = AttnShape<HD>::smem;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<HD, CAUSAL, OWN_V>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<HD, CAUSAL, OWN_V, LM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kAttnBQ - 1) / kAttnBQ, a.Hq, B);
-  attn_fwd_kernel<HD, CAUSAL, OWN_V><<<grid, kAttnThreads, smem, stream>>>(a);
+  attn_fwd_kernel<HD, CAUSAL, OWN_V, LM><<<grid, kAttnThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -10,8 +10,15 @@
   3. host loop: one `decode_step` per token until a terminator or
      `max_new_tokens`.
 
-Left out for now: pdrop, sequence parallelism, speculative decoding,
-`prefill_prefix` and the serving engine.
+Questions on a cached video: `prefill_prefix` prefills the shared part of
+the prompt (system text and the video) once and returns a `PrefixState`;
+`generate(question_ids, prefix=state)` then runs only the question on top of
+it (models/prefix_cache.py:nano_forward_continue) and decodes. One
+PrefixState serves any number of questions: a continuation never writes
+into it.
+
+Left out for now: pdrop, sequence parallelism, speculative decoding and the
+serving engine.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from timeviper_tpu_torch.models.vlm import (
     encode_visual,
     vlm_forward,
 )
+from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
@@ -70,6 +78,18 @@ class GenerationOutput:
     encode_s: float  # host seconds, each phase ended by a device synchronize
     prefill_s: float
     decode_s: float
+
+
+@dataclasses.dataclass
+class PrefixState:
+    """A cached prompt prefix (typically system text and a video): the decode
+    cache after one prefill of it, reusable by any number of questions."""
+
+    cache: dict
+    bucket: int  # prefix rows filled (cache["length"])
+    cache_len: int  # cache capacity
+    suffix_budget: int  # the largest suffix bucket it can take
+    pad: int = 0  # leading pad rows (cache["valid_from"])
 
 
 def _sync(device: torch.device) -> None:
@@ -158,6 +178,43 @@ class Generator:
             out.append(int(tok[0]))
         return np.asarray(out, np.int32)
 
+    def prefill_prefix(
+        self,
+        input_ids: Sequence[int],
+        pixels=None,
+        image_token_id: Optional[int] = None,
+        suffix_budget: int = 512,
+        cache_len: Optional[int] = None,
+    ) -> PrefixState:
+        """Prefill a shared prompt prefix once and return a PrefixState for
+        generate(prefix=...). The budget is raised to one SSD chunk at least
+        (a suffix bucket is a multiple of the chunk); the cache holds the
+        bucket, the budget and max_new_tokens."""
+        suffix_budget = max(suffix_budget, self.arch.llm.chunk_size)
+        visual = self.encode_frames(pixels) if pixels is not None else None
+        plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(
+            list(input_ids), image_token_id)
+        visual = self._check_visual(plan, visual)
+        need = bucket + suffix_budget + self.max_new_tokens
+        cache_len = need if cache_len is None else cache_len
+        if cache_len < need:
+            raise ValueError(f"cache_len {cache_len} < prefix bucket {bucket} + suffix_budget "
+                             f"{suffix_budget} + max_new_tokens {self.max_new_tokens}")
+        _, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad, cache_len)
+        return PrefixState(cache=cache, bucket=bucket, cache_len=cache_len,
+                           suffix_budget=suffix_budget, pad=pad)
+
+    def _check_visual(self, plan, visual):
+        """The visual tokens, or an empty (0, D) tensor without frames; raises
+        if the prompt's <image> slots and the frames disagree."""
+        nv = 0 if visual is None else visual.shape[0]
+        if plan.num_visual != nv:
+            raise ValueError(f"prompt has {plan.num_visual} visual slots, pixels give {nv}")
+        if visual is None:
+            emb = self.model.llm_backbone.embeddings.weight
+            visual = emb.new_zeros(0, self.arch.llm.hidden_size)
+        return visual
+
     def generate(
         self,
         input_ids: Sequence[int],
@@ -165,20 +222,20 @@ class Generator:
         image_token_id: Optional[int] = None,
         answer_prompt_ids: Optional[Sequence[int]] = None,
         rng_seed: int = 0,
+        prefix: Optional[PrefixState] = None,
     ) -> GenerationOutput:
-        """Generate a completion for one prompt (batch 1)."""
+        """Generate a completion for one prompt (batch 1). With `prefix` (from
+        prefill_prefix), `input_ids` is the suffix only (the question after
+        the video) and `prefill_s` the seconds of its continuation."""
         ids = list(input_ids) + list(answer_prompt_ids or [])
+        if prefix is not None:
+            return self._generate_on_prefix(ids, pixels, prefix, rng_seed)
         t0 = time.perf_counter()
         visual = self.encode_frames(pixels) if pixels is not None else None
         _sync(self.device)
         t1 = time.perf_counter()
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(ids, image_token_id)
-        nv = 0 if visual is None else visual.shape[0]
-        if plan.num_visual != nv:
-            raise ValueError(f"prompt has {plan.num_visual} visual slots, pixels give {nv}")
-        if visual is None:
-            emb = self.model.llm_backbone.embeddings.weight
-            visual = emb.new_zeros(0, self.arch.llm.hidden_size)
+        visual = self._check_visual(plan, visual)
         first_logits, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
                                            bucket + self.max_new_tokens)
         _sync(self.device)
@@ -188,3 +245,30 @@ class Generator:
         return GenerationOutput(token_ids=tokens, num_generated=len(tokens),
                                 first_logits=first_logits, encode_s=t1 - t0,
                                 prefill_s=t2 - t1, decode_s=t3 - t2)
+
+    def _generate_on_prefix(self, ids, pixels, prefix: PrefixState, rng_seed: int
+                            ) -> GenerationOutput:
+        """The JAX Generator's checks (ValueErrors, not asserts: a caller may
+        catch them per item and fall back to a full prefill), then the
+        continuation and the decode."""
+        if pixels is not None:
+            raise ValueError("the video already lives in the prefix cache")
+        if not ids:
+            raise ValueError("empty suffix on a cached prefix")
+        chunk = self.arch.llm.chunk_size
+        sb = -(-len(ids) // chunk) * chunk
+        if sb > prefix.suffix_budget:
+            raise ValueError(f"suffix of {len(ids)} tokens needs a {sb}-token bucket (chunk "
+                             f"multiple) > the prefix's suffix_budget {prefix.suffix_budget}")
+        t0 = time.perf_counter()
+        llm = self.model.llm_backbone
+        with torch.inference_mode():
+            embeds = llm.embeddings(torch.as_tensor([ids], dtype=torch.long, device=self.device))
+            first_logits, cache = nano_forward_continue(llm, self.arch.llm, embeds, prefix.cache)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        tokens = self.decode(first_logits, cache, rng_seed)
+        t2 = time.perf_counter()
+        return GenerationOutput(token_ids=tokens, num_generated=len(tokens),
+                                first_logits=first_logits, encode_s=0.0, prefill_s=t1 - t0,
+                                decode_s=t2 - t1)

@@ -1,0 +1,176 @@
+"""Continuation on a filled decode cache: ask several questions of one video
+without running its prefill again (counterpart of
+timeviper_tpu/models/prefix_cache.py, its Nemotron-H path).
+
+`nano_forward_continue` runs S suffix tokens (a question, or the next clip of
+a streamed video) on top of a cache that holds `length` processed tokens:
+
+* Mamba layers continue exactly: the conv reads the cache's rolling window of
+  raw inputs (ops/conv.py:init_conv_state layout) before the suffix, and the
+  SSD scan (K1 on the card) starts from the cached `ssm_state`.
+* Attention layers append the suffix's K/V rows at [length, length + S) of a
+  copy of the layer's buffers. The suffix's queries attend the prefix rows
+  [valid_from, length) in one non-causal block and their own rows in one
+  causal block; both are ops/block_attention.py:block_attn_lse (K9 on the
+  card), and the two parts merge by their row sums and maxima.
+
+Nemotron-H attention has no RoPE, so a continuation computes the same
+function as one prefill of prefix and suffix together.
+
+Where the port leaves the JAX code behind, and why:
+
+* Only the real suffix runs. `length` and the suffix length are host
+  integers here (models/cache.py), so there are no trailing pads: the JAX
+  machinery that makes pads inert for XLA's static shapes (dt activated
+  before the kernel and zeroed at the pads, the conv window sliced at the
+  real length) has nothing to do. The result at the real rows, the updated
+  cache and the new length are JAX's.
+* One suffix-attention path for every S. JAX scans the keys with an
+  online softmax for short suffixes only because its TPU kernel needed
+  S >= 256 and 256-aligned shapes; K9 needs neither, and the scan computes
+  the same function. The prefix part reads exactly the filled rows, so the
+  JAX `kv_bucket` cap on attended rows has no counterpart.
+* The input cache is never written. One cache serves any number of
+  questions, in any order, as JAX's immutable pytree does: the attention
+  layers' K/V buffers are copied before the suffix rows are written (the
+  decode step writes rows in place, models/nano.py), and the Mamba states
+  are new tensors.
+
+Not ported yet: a cache from a pdrop prefill (`ca_kv`, `kv_len`,
+`kv_valid`) and the speculative verify pass (`logits_all`, the `chunk_size`
+override), which raise NotImplementedError, and `qwen2_forward_continue`,
+which waits for the qwen2 backbone.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from timeviper_tpu_torch.config import NanoConfig
+from timeviper_tpu_torch.models.nano import (
+    AttentionMixer,
+    MambaMixer,
+    compute_logits,
+    mamba_in_proj,
+    mlp_mixer_forward,
+)
+from timeviper_tpu_torch.ops.block_attention import block_attn_lse
+from timeviper_tpu_torch.ops.conv import causal_conv1d
+from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
+from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan
+
+
+def _conv_continue(raw: torch.Tensor, window: torch.Tensor, weight, bias, activation):
+    """The causal conv of `raw` (B, S, C) continued from the rolling window
+    (B, C, K) of the K raw inputs before it, oldest first. Returns (the
+    conv's output (B, S, C), the new window of the last K raw inputs)."""
+    K = window.shape[-1]
+    ext = torch.cat([window[..., 1:].transpose(1, 2).to(raw.dtype), raw], dim=1)
+    out = causal_conv1d(ext, weight, bias, activation)[:, K - 1:]
+    return out, ext[:, -K:].transpose(1, 2).to(window.dtype).contiguous()
+
+
+def _mamba_continue(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor,
+                    cache_layer: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """x (B, S, D) normed rows that follow those the cache entry has seen ->
+    (out (B, S, D), new cache entry). An `ssm_state` of None starts from
+    zero; longctx.py runs its chunks through here."""
+    B, S, _ = x.shape
+    di = cfg.mamba_intermediate_size
+    G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
+    gate, xr, Br, Cr, dt = mamba_in_proj(m, cfg, x)
+    cv, cs, act = m.conv1d, cache_layer["conv_state"], cfg.mamba_hidden_act
+    xs, win_x = _conv_continue(xr, cs["x"], cv["x"].weight, cv["x"].bias, act)
+    Bs, win_B = _conv_continue(Br, cs["B"], cv["B"].weight, cv["B"].bias, act)
+    Cs, win_C = _conv_continue(Cr, cs["C"], cv["C"].weight, cv["C"].bias, act)
+    y, final_state = ssd_scan(
+        xs.reshape(B, S, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, S, G, N),
+        Cs.reshape(B, S, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
+        dt_limit=cfg.time_step_limit, initial_state=cache_layer["ssm_state"])
+    y = gated_rms_norm(y.reshape(B, S, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
+                       group_size=di // G)
+    return m.out_proj(y), {"conv_state": {"x": win_x, "B": win_B, "C": win_C},
+                           "ssm_state": final_state}
+
+
+def merge_blocks(prefix, suffix) -> torch.Tensor:
+    """Merge two (o, l, m) results over disjoint key sets into one output
+    (B, S, Hq, D) in o's dtype. A part whose row saw no key (l = 0) gets
+    weight 0, so an empty or fully masked part leaves the other alone."""
+    (o_p, l_p, m_p), (o_s, l_s, m_s) = prefix, suffix
+    m_new = torch.maximum(m_p, m_s)  # (B, Hq, S)
+    a = torch.where(l_p > 0, l_p * torch.exp(m_p - m_new), 0.0)
+    b = torch.where(l_s > 0, l_s * torch.exp(m_s - m_new), 0.0)
+    denom = torch.clamp(a + b, min=1e-30)
+    wa = (a / denom).transpose(1, 2)[..., None]  # (B, S, Hq, 1)
+    wb = (b / denom).transpose(1, 2)[..., None]
+    out = (torch.where(wa > 0, o_p.float() * wa, 0.0)
+           + torch.where(wb > 0, o_s.float() * wb, 0.0))
+    return out.to(o_p.dtype)
+
+
+def attention_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
+                     valid_from: int = 0) -> torch.Tensor:
+    """Attention of S suffix queries q (B, S, Hq, hd) over a cache buffer k,
+    v (B, M, Hkv, hd) whose rows [length, length + S) already hold the
+    suffix's own K/V: query i sees rows [valid_from, length + i]. Two K9
+    blocks, merged by (l, m)."""
+    S = q.shape[1]
+    prefix = block_attn_lse(q, k[:, valid_from:length], v[:, valid_from:length], causal=False)
+    own = block_attn_lse(q, k[:, length:length + S], v[:, length:length + S], causal=True)
+    return merge_blocks(prefix, own)
+
+
+def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
+                        cache_layer: Dict[str, Any], length: int, valid_from: int
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry whose
+    buffers are copies of the input's with the suffix rows written)."""
+    B, S, _ = x.shape
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if length + S > cache_layer["k"].shape[1]:
+        raise ValueError(f"a suffix of {S} rows after {length} overflows the cache's "
+                         f"{cache_layer['k'].shape[1]} slots")
+    q = m.q_proj(x).reshape(B, S, Hq, hd)
+    k, v = cache_layer["k"].clone(), cache_layer["v"].clone()
+    k[:, length:length + S] = m.k_proj(x).reshape(B, S, Hkv, hd).to(k.dtype)
+    v[:, length:length + S] = m.v_proj(x).reshape(B, S, Hkv, hd).to(v.dtype)
+    out = attention_suffix(q, k, v, length, valid_from)
+    return m.o_proj(out.reshape(B, S, Hq * hd)), {"k": k, "v": v}
+
+
+@torch.no_grad()
+def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
+                          cache: Dict[str, Any], pdrop_params=None, logits_all: bool = False,
+                          chunk_size: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run a suffix on top of a filled cache. inputs_embeds (B, S, D) holds
+    the S real suffix rows, no pads. Returns (the f32 logits (B, V) of its
+    last row, the updated cache with length += S). The input cache is left
+    untouched."""
+    if logits_all or chunk_size is not None:
+        raise NotImplementedError("the speculative verify pass (logits_all, chunk_size) "
+                                  "is not ported")
+    if pdrop_params is not None or any(key in cache for key in ("ca_kv", "kv_valid")) or any(
+            "kv_len" in lc or "kv_valid" in lc for lc in cache["layers"]):
+        raise NotImplementedError("a cache from a pdrop prefill is not ported")
+    S = inputs_embeds.shape[1]
+    length, valid_from = int(cache["length"]), int(cache["valid_from"])
+    eps = cfg.layer_norm_epsilon
+    hidden = inputs_embeds
+    new_layers = []
+    for block, lc in zip(model.layers, cache["layers"]):
+        normed = rms_norm(hidden, block.norm.weight, eps)
+        if block.block_type == "mamba":
+            out, lc = _mamba_continue(block.mixer, cfg, normed, lc)
+        elif block.block_type == "attention":
+            out, lc = _attention_continue(block.mixer, cfg, normed, lc, length, valid_from)
+        else:
+            out, lc = mlp_mixer_forward(block.mixer, cfg, normed), {}
+        hidden = hidden + out
+        new_layers.append(lc)
+    hidden = rms_norm(hidden[:, -1], model.norm_f.weight, eps)
+    return compute_logits(model, hidden), {"layers": new_layers, "length": length + S,
+                                           "valid_from": valid_from}
