@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of TimeViper once on one CUDA card: serving, long
-video (a streamed clip-by-clip prefill, the chunked long-context forward and
-questions on a cached prefix), LoRA training, int8 serving with the fused
-kernels, then serving with the InternVideo2 tower and with the two-tower
-DINOv2 + SigLIP encoder.
+"""Drive the PyTorch port of TimeViper once on one CUDA card: the two
+microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
+chunked long-context forward and questions on a cached prefix), the
+slot-batched serving engine, LoRA training, int8 serving with the fused
+kernels, then serving with the InternVideo2 tower (bf16, then int8) and with
+the two-tower DINOv2 + SigLIP encoder.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,15 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat.
+   gradients on a repeat. K2 also runs at each tile of the K2
+   microbenchmark's sweep, K10a at 8 frames for 1, 2 and 4 heads a block,
+   with the exp and without it. Each output's SHA-256 is printed, to compare
+   the kernels' bits across runs and machines.
+3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
+   attention on the last 256 query rows of heads 0-3 and the first 256 of
+   heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
+   SDPA, the qkv projections) and bench/microbench_flash.py at L 81,920 (K2
+   at each tile, SDPA), their JSON printed, K10a's launches counted.
 4. serving: TimeViper-9B (SigLIP-SO400M-384 + ToMe-16 MLP + Nemotron-H 9B,
    all 52 layers) with random bf16 weights from a seeded CUDA generator, three
    greedy requests through Generator.generate (text only, 64 frames, 256
@@ -43,6 +52,15 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    inputs one attention layer of the 4th clip gave it and K1 on a Mamba
    layer of the 2nd clip (a carried initial state), each against its plain
    version.
+5b. the serving engine, on the same bf16 model: serving/engine.py with 8
+   slots of 16,384 rows, 4 decode steps a sync, chunks of 2,048 tokens,
+   greedy; 15 requests (10 text prompts of 20-900 tokens, batched by bucket
+   in the first round; two of 64 frames; a 6,000-token prompt in three
+   chunks; two questions on a prefill_prefix of 8 tokens + 256 frames). Every
+   request served; first-token logits against Generator.generate (cosine
+   0.999); >= 95% of the tokens the argmax of one nano_forward over prompt
+   and output of an f32 copy of the backbone; K1, K2, K3 and K9 launched; output tokens/s, rounds and the
+   largest gap between rounds, with chunked prefill on and then off.
 6. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
@@ -71,7 +89,11 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    requests at 224 px. Every encode chunk launches K6 once per block (39) and
    K3 never; K6 is held against its plain version on the q, k and (strided) v
    of the 64-frame request's first layer, and that request's first logits
-   against a run with every plain version.
+   against a run with every plain version. Then the model is quantized W8A8
+   as in phase 7 (every tower linear, the tubelet embedding too, under
+   TIMEVIPER_VIT_INT8_MXU), calibrated on the 64 frames, and serves the
+   64-frame request: K6 39 times a chunk, first logits against the plain
+   versions with the int8 limit (cosine 0.98).
 9. DINOv2 + SigLIP serving: dinosiglip-vit-so-384px + nano-9b-v2, each tower
    with its own ToMe-16 projector, 32 tokens a frame; the text and 64-frame
    requests. Every encode chunk launches K3 23 + 26 times; the first logits
@@ -106,7 +128,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
-from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
+from timeviper_tpu_torch.bench import microbench_flash, microbench_vit_attn  # noqa: E402
+from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
@@ -115,9 +138,9 @@ from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
 from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
 from timeviper_tpu_torch.models.longctx import nano_forward_longctx  # noqa: E402
-from timeviper_tpu_torch.models.nano import nano_forward  # noqa: E402
+from timeviper_tpu_torch.models.nano import NanoModel, nano_forward  # noqa: E402
 from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noqa: E402
-from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params  # noqa: E402
+from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params, vlm_forward  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
     block_attn_lse,
@@ -128,11 +151,18 @@ from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
     fused_mamba_decode_plain,
 )
 from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
+    FLASH_TILE,
+    FLASH_TILES,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+)
+from timeviper_tpu_torch.ops.headgrid_attention import (  # noqa: E402
+    headgrid_attention,
+    headgrid_attention_plain,
+    pad_heads,
 )
 from timeviper_tpu_torch.ops.int8_linear import Int8Linear  # noqa: E402
 from timeviper_tpu_torch.ops.layernorm import fused_ln, fused_ln_plain  # noqa: E402
@@ -151,6 +181,7 @@ from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
     vit_attention_qkv,
     vit_attention_qkv_plain,
 )
+from timeviper_tpu_torch.serving import Request, ServingEngine  # noqa: E402
 from timeviper_tpu_torch.train.lora import add_lora  # noqa: E402
 from timeviper_tpu_torch.train.optim import OptimConfig  # noqa: E402
 from timeviper_tpu_torch.train.quantize import (  # noqa: E402
@@ -165,6 +196,11 @@ DEV = torch.device("cuda")
 SEED = 0
 IMAGE_TOKEN = 131000  # an id inside the 131072 vocabulary that no text id uses
 MAX_NEW = 16
+# phase 5b: the largest gap, under the f32 teacher-forcing reference, between
+# a row's argmax logit and the engine's token where they differ. Sound runs
+# missed only at near-ties, with gaps of at most 4.9e-2 (NVIDIA H100 80GB
+# HBM3, 700 W); a slot that attends over the wrong keys misses by more.
+MISS_GAP_LIMIT = 0.1
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -208,12 +244,19 @@ KERNELS = {
     "block_attn": dict(source="timeviper_tpu_torch/csrc/block_attn.cu",
                        replaces="timeviper_tpu/parallel/seq_parallel.py:187",
                        rel_tol=(1e-2, 1e-4, 1e-4), floor=0.0),
+    # K10a: bf16 probabilities and sums of them in f32 on both sides, as K3;
+    # against its own largest value with no floor (its outputs, averages of
+    # 729 values of v, stay far below 1)
+    "headgrid_attn": dict(source="timeviper_tpu_torch/csrc/headgrid_attn.cu",
+                          replaces="scripts/microbench_vit_attn.py:65", rel_tol=1e-2,
+                          floor=0.0),
 }
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
             "flash_bwd": flash_attention_bwd, "ssd_conv_fwd": ssd_conv_scan_fused,
             "decode_fused": fused_mamba_decode, "layernorm": fused_ln,
-            "vit_attn": vit_attention, "block_attn": block_attn_lse}
+            "vit_attn": vit_attention, "block_attn": block_attn_lse,
+            "headgrid_attn": headgrid_attention}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
 FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
@@ -464,6 +507,13 @@ def kernel_cases(g: torch.Generator):
     yield ("flash_bwd", lambda: flash_attention_bwd(q, k, v, out, do, lse, seq),
            lambda: flash_attention_bwd_plain(q, k, v, do, seq), lib_fwd_bwd,
            (10 * Hq * hd * pairs, nbytes(q, k, v, out, do, lse, seq, q, k, v)))
+    # K2 at each tile of the microbenchmark's sweep (phase 3b), same inputs
+    for tile in FLASH_TILES:
+        yield ("flash_fwd",
+               lambda tile=tile: flash_attention_fwd(q, k, v, seq, False, tile)[0],
+               lambda: flash_attention_plain(q, k, v, segment_ids=seq), lib,
+               (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out)),
+               dict(variant=f"tile {tile[0]} x {tile[1]}", main=False))
     del lib, lib_inputs
 
     # K3: one SigLIP-SO400M layer over 8 frames
@@ -474,6 +524,28 @@ def kernel_cases(g: torch.Generator):
            lambda: vit_attention_qkv_plain(qkv, nh, vhd), sdpa(vq, vk, vv, causal=False)[0],
            (4 * F_ * nh * T * T * vhd, nbytes(qkv) * 4 // 3))
     del qkv, vq, vk, vv
+
+    # K10a: the ViT microbenchmark's head-grid kernel on one SigLIP layer over
+    # 8 frames, heads padded from 72 to 128 columns, at each hpp with and
+    # without the exp; N(0, 1) inputs (the script's N(0, 0.3) make the
+    # softmax nearly flat); the library yardstick is SDPA on the padded q, k
+    # and v with hd 72's scale
+    qkv = pad_heads(randn(F_, T, 3 * nh * vhd), nh, vhd).contiguous()
+    lib_in = [x.transpose(1, 2).contiguous() for x in qkv.reshape(F_, T, 3, nh, 128).unbind(2)]
+
+    def lib10():
+        return torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=vhd ** -0.5)
+
+    for hpp in (1, 2, 4):
+        for do_exp in (True, False):
+            yield ("headgrid_attn",
+                   lambda hpp=hpp, e=do_exp: headgrid_attention(qkv, nh, hpp, vhd ** -0.5, e),
+                   lambda e=do_exp: headgrid_attention_plain(qkv, nh, vhd ** -0.5, do_exp=e),
+                   lib10 if do_exp else None,
+                   (4 * F_ * nh * T * T * 128, nbytes(qkv) * 4 // 3),
+                   dict(variant=f"hpp {hpp}, exp {'on' if do_exp else 'off'}",
+                        main=hpp == 2 and do_exp))
+    del qkv, lib_in
 
     # K6: one InternVideo2 layer over 16 clips (64 frames); q and k as the
     # q/k norms give them, v a column slice of the fused qkv projection
@@ -579,12 +651,22 @@ def kernel_cases(g: torch.Generator):
         del q9, k9, v9, out9, lib_in
 
 
+def output_digest(out) -> str:
+    """SHA-256 of a kernel's output tensor(s), bytes as they lie on the card."""
+    h = hashlib.sha256()
+    for x in (out if isinstance(out, tuple) else (out,)):
+        if x is not None:
+            h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_kernels(g: torch.Generator) -> dict:
     results, worst = {}, {}
     for name, kern, plain, library, (flops, moved), *opts in kernel_cases(g):
         opt = opts[0] if opts else {}
         got = kern()
         torch.cuda.synchronize()
+        digest = output_digest(got)
         want = plain()
         err = compare(name, got, want)
         worst[name] = max(worst.get(name, 0.0), err)
@@ -610,11 +692,80 @@ def phase_kernels(g: torch.Generator) -> dict:
         how = "device time, cold L2" if opt.get("device") else "CUDA events"
         log(f"[kernels] {label}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib} ({how}), bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{flops:.3e} FLOP, {moved:.3e} B)")
+            f"{flops:.3e} FLOP, {moved:.3e} B); output SHA-256 {digest[:16]}")
         torch.cuda.empty_cache()
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
     return results
+
+
+def sampled_causal_attention(q, k, v, rows: slice, heads: slice) -> torch.Tensor:
+    """Plain causal attention in f32 for some query rows of some heads (all of
+    one KV head), probabilities rounded to bf16 before P V as the plain
+    version rounds them: (1, rows, heads, D) bf16. The whole L^2 of the 80k
+    shape is not computable plainly."""
+    L, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    rep = Hq // k.shape[2]
+    kvh = heads.start // rep
+    if (heads.stop - 1) // rep != kvh:
+        raise ValueError("sampled heads must share one KV head")
+    qs = q[0, rows, heads].float()
+    s = torch.einsum("nhd,ld->hnl", qs, k[0, :, kvh].float()) / math.sqrt(D)
+    pos = torch.arange(L, device=q.device)
+    s = s.masked_fill(pos[None, None, :] > pos[rows][None, :, None], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("hnl,ld->nhd", p, v[0, :, kvh].float())[None].to(torch.bfloat16)
+
+
+def phase_microbench(results: dict) -> None:
+    """3b: K2 at the 80k-prefill shape at every tile against plain attention
+    on sampled query rows, then both microbenchmarks at full shapes (ViT
+    attention at 256 frames with K10a, K2 at L 81,920), their JSON printed
+    and K10a's launches counted."""
+    L, Hq, Hkv, D = 81920, 32, 8, 128
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    q, k, v = ((torch.randn(1, L, h, D, generator=g, device=DEV) * 0.3).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    samples = ((slice(L - 256, L), slice(0, 4)), (slice(0, 256), slice(28, 32)))
+    refs = [sampled_causal_attention(q, k, v, rows, heads) for rows, heads in samples]
+    for tile in FLASH_TILES:
+        out = flash_attention_fwd(q, k, v, None, False, tile)[0]
+        torch.cuda.synchronize()
+        errs = [compare("flash_fwd", out[:, rows, heads].contiguous(), want)
+                for (rows, heads), want in zip(samples, refs)]
+        log(f"[microbench] flash_fwd tile {tile[0]} x {tile[1]} at L {L}: max abs err "
+            f"{max(errs):.3e} on the last 256 rows of heads 0-3 and the first 256 of heads "
+            f"28-31 against plain f32 attention; output SHA-256 {output_digest(out)[:16]}")
+        del out
+    del q, k, v, refs
+    torch.cuda.empty_cache()
+
+    headgrid_attention.launches = 0
+    vit = microbench_vit_attn.run(DEV, frames=256)
+    results["headgrid_attn"]["launches"] = headgrid_attention.launches
+    log("[microbench] microbench_vit_attn " + json.dumps(vit))
+    if headgrid_attention.launches != 4 * (microbench_vit_attn.STEPS + 1):
+        raise AssertionError(f"K10a launched {headgrid_attention.launches} times in the ViT "
+                             "microbenchmark")
+    torch.cuda.empty_cache()
+    before = flash_attention.launches
+    flash = microbench_flash.run(DEV, seq=L)
+    log("[microbench] microbench_flash " + json.dumps(flash))
+    if flash_attention.launches - before != len(FLASH_TILES) * (int(os.environ.get(
+            "MB_STEPS", 3)) + 1):
+        raise AssertionError("K2 launches in the flash microbenchmark")
+    log(f"[microbench] K10a at 256 frames: hpp 1 / 2 / 4 "
+        + " / ".join(f"{vit[f'hd128_grid_hpp{h}_ms']:.4f}" for h in (1, 2, 4))
+        + f" ms, hpp 2 without the exp {vit['hd128_grid_hpp2_noexp_ms']:.4f} ms; bound "
+        f"{vit['bound_hd128_ms']:.4f} ms; SDPA at hd 128 {vit['sdpa_hd128_ms']:.4f} ms; K3 "
+        f"(hd 72) {vit['current_qkv_ms']:.4f} ms, bound {vit['bound_hd72_ms']:.4f}, SDPA "
+        f"{vit['sdpa_hd72_ms']:.4f} ms")
+    log(f"[microbench] K2 at L {L}: "
+        + ", ".join(f"tile {bq} x {bk} {flash[f'blk_q{bq}_k{bk}_ms']:.2f} ms "
+                    f"({flash[f'blk_q{bq}_k{bk}_tfs']:.1f} TFLOP/s)" for bq, bk in FLASH_TILES)
+        + f"; bound {flash['bound_ms']:.2f} ms; SDPA {flash['sdpa_ms']:.2f} ms "
+        f"({flash['sdpa_tfs']:.1f} TFLOP/s)")
+    torch.cuda.empty_cache()
 
 
 class Capture:
@@ -931,6 +1082,202 @@ def phase_long_video(model, arch, kernel_results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def engine_requests(arch, g: torch.Generator):
+    """The engine's request mix, in queue order: (label, Request kwargs, the
+    prompt's frames). Text prompts of 20-900 tokens; the first eight fill
+    the 8 slots in round one with a bucket of four (128) and one of two
+    (512); two of 64 frames (K3); a 6,000-token prompt that runs in chunks;
+    two questions of 40 and 300 tokens for the cached prefix."""
+    size = arch.vision.image_size
+
+    def text(n):
+        return torch.randint(10, 130000, (n,), generator=g, device=DEV).tolist()
+
+    def frames(n):
+        return torch.rand(n, size, size, 3, generator=g, device=DEV) * 2 - 1
+
+    def vision(new):
+        return ("64 frames", dict(input_ids=text(8) + [IMAGE_TOKEN] * 64 + text(32),
+                                  pixels=frames(64), image_token_id=IMAGE_TOKEN,
+                                  max_new_tokens=new))
+
+    mix = [(f"text {n}", dict(input_ids=text(n), max_new_tokens=new))
+           for n, new in ((20, 8), (40, 16), (60, 24), (100, 32), (300, 12), (400, 40),
+                          (700, 20))]
+    mix.append(vision(16))
+    mix.append(("text 6000, chunked", dict(input_ids=text(6000), max_new_tokens=24)))
+    mix += [(f"question {n}", dict(input_ids=text(n), max_new_tokens=new))
+            for n, new in ((40, 16), (300, 8))]
+    mix.append(vision(48))
+    mix += [(f"text {n}", dict(input_ids=text(n), max_new_tokens=new))
+            for n, new in ((200, 48), (900, 10), (150, 28))]
+    return mix
+
+
+@torch.inference_mode()
+def forced_logits(llm, arch, gen, ids, visual, n: int) -> torch.Tensor:
+    """The f32 logits (n, V) of the last n rows of one nano_forward of `llm`
+    over the bucketed, fused row of `ids` and the frames' visual tokens (the
+    rows that predict a request's n outputs), fused as vlm_forward fuses
+    it."""
+    plan, bucket, pad, ids_arr, gather_idx, seq_idx = gen._plan_prompt(ids, IMAGE_TOKEN)
+    visual = gen._check_visual(plan, visual)
+    text = llm.embeddings(torch.as_tensor(ids_arr, dtype=torch.long, device=DEV))
+    src = torch.cat([text, visual.to(text.dtype)])
+    fused = src[torch.as_tensor(gather_idx, dtype=torch.long, device=DEV)][None]
+    seq = torch.as_tensor(seq_idx, dtype=torch.int32, device=DEV)[None]
+    return nano_forward(llm, arch.llm, inputs_embeds=fused, seq_idx=seq,
+                        logits_to_keep=n)["logits"][0]
+
+
+def phase_engine(model, arch, smi: str, kernel_results: dict) -> None:
+    """5b: the serving engine on the bf16 9B: 8 slots, 16,384 rows each, 4
+    decode steps a sync, chunks of 2,048 tokens, greedy; 15 requests (see
+    engine_requests) and a prefix of 8 text tokens + 256 frames. Every
+    request served without error; each request's first-token logits against
+    Generator.generate on the same request (cosine >= 0.999); >= 95% of the
+    engine's tokens the argmax of one nano_forward over prompt + output of an
+    f32 copy of the backbone (random weights give near-ties: each miss is
+    printed with its top-2 margin, and no miss may lie more than
+    MISS_GAP_LIMIT below the row's argmax, so that a fault in one slot cannot
+    hide in the pooled share; the bf16 model's own forward, and the
+    Generator's greedy tokens, are counted beside it); K1, K2, K3 and K9
+    launched. Then the same requests with chunked prefill off,
+    for the round gaps."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    mix = engine_requests(arch, g)
+    size = arch.vision.image_size
+    prefix_ids = torch.randint(10, 130000, (8,), generator=g, device=DEV).tolist() + [
+        IMAGE_TOKEN] * 256
+    prefix_px = torch.rand(256, size, size, 3, generator=g, device=DEV) * 2 - 1
+    kw = dict(terminator_ids=[], num_slots=8, max_len=16384, steps_per_sync=4)
+    runs = {}
+    for chunked in (2048, None):
+        eng = ServingEngine(model, arch, prefill_chunk_tokens=chunked, **kw)
+        if chunked:
+            t0 = time.perf_counter()
+            state = eng.prefill_prefix(prefix_ids, pixels=prefix_px,
+                                       image_token_id=IMAGE_TOKEN, suffix_budget=512)
+            torch.cuda.synchronize()
+            log(f"[engine] prefill_prefix of 8 tokens + 256 frames: bucket {state.bucket}, "
+                f"{time.perf_counter() - t0:.3f} s with the encode")
+        reqs = [Request(request_id=i, prefix=state if label.startswith("question") else None,
+                        **rkw) for i, (label, rkw) in enumerate(mix)]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        gaps = [b - a for a, b in zip(eng.round_stamps, eng.round_stamps[1:])]
+        n_tok = sum(len(r.output_ids) for r in out)
+        tag = "chunked prefill on" if chunked else "chunked prefill off"
+        log(f"[engine] {tag}: {len(out)} requests, {n_tok} output tokens in {wall:.3f} s, "
+            f"{n_tok / wall:.2f} output tokens/s, {len(gaps)} rounds, largest gap between "
+            f"rounds {max(gaps):.3f} s (round {gaps.index(max(gaps)) + 1}; median "
+            f"{sorted(gaps)[len(gaps) // 2]:.3f} s; all {', '.join(f'{x:.3f}' for x in gaps)}); "
+            f"{smi}")
+        log(f"[engine] {tag}: launches {launches}")
+        bad = [(r.request_id, r.error) for r in out if r.error or not r.done]
+        if bad:
+            raise AssertionError(f"engine requests failed: {bad}")
+        for name in ("ssd_fwd", "flash_fwd", "vit_attn_qkv", "block_attn"):
+            if launches[name] == 0:
+                raise AssertionError(f"{name} was never launched by the engine ({tag})")
+        runs[chunked] = out
+        del eng
+        torch.cuda.empty_cache()
+
+    out = runs[2048]
+    ref_gen = Generator(model, arch, terminator_ids=[], max_new_tokens=1)
+    # the teacher-forcing references: the bf16 model (kernels) and an f32
+    # copy of its backbone (the same weights, plain versions: the kernels
+    # take bf16), which leaves only the served side's bf16 rounding
+    llm32 = NanoModel(arch.llm, torch.float32, DEV)
+    llm32.load_state_dict(model.llm_backbone.state_dict())
+    refs = {"bf16": lambda f, ve, n: forced_logits(model.llm_backbone, arch, ref_gen, f, ve, n)}
+
+    def f32_rows(f, ve, n):
+        use_plain_versions()
+        try:
+            return forced_logits(llm32, arch, ref_gen, f, ve, n)
+        finally:
+            use_kernels()
+
+    refs["f32"] = f32_rows
+
+    def forced_hits(ref, full, visual, tokens):
+        """(hits, misses described, the largest miss's gap to the argmax) of
+        teacher forcing over `tokens`."""
+        rows = refs[ref](full + tokens[:-1], visual, len(tokens))
+        misses, worst = [], 0.0
+        for t, (tok, row) in enumerate(zip(tokens, rows)):
+            top = torch.topk(row, 2).values
+            if int(row.argmax()) != tok:
+                gap = (top[0] - row[tok]).item()
+                worst = max(worst, gap)
+                misses.append(f"token {t}: {tok} (gap {gap:.3e}), "
+                              f"argmax {int(row.argmax())} (top-2 margin "
+                              f"{(top[0] - top[1]).item():.3e})")
+        return len(tokens) - len(misses), misses, worst
+
+    hits = {(who, ref): 0 for who in ("engine", "generator") for ref in refs}
+    total = agree = 0
+    worst_gap = (0.0, "")
+    for (label, rkw), r in zip(mix, out):
+        ids, px = rkw["input_ids"], rkw.get("pixels")
+        # the Generator on the same request: its first logits, and its own
+        # greedy tokens as a baseline for teacher forcing
+        base_gen = Generator(model, arch, terminator_ids=[], max_new_tokens=len(r.output_ids))
+        if label.startswith("question"):
+            ref = base_gen.generate(ids, prefix=state)
+            full, full_px = prefix_ids + ids, prefix_px
+        else:
+            ref = base_gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+            full, full_px = ids, px
+        cos = cosine(r.first_logits, ref.first_logits)
+        if not cos >= 0.999:
+            raise AssertionError(f"engine {label}: first-token logits cosine {cos:.6f} against "
+                                 "Generator.generate")
+        misses = {}
+        with torch.inference_mode():  # the frames' tokens, through the tower's kernels
+            visual = ref_gen.encode_frames(full_px) if full_px is not None else None
+        for who, tokens in (("engine", r.output_ids), ("generator", ref.token_ids.tolist())):
+            for name in refs:
+                n_hit, misses[who, name], gap = forced_hits(name, full, visual, tokens)
+                hits[who, name] += n_hit
+                if (who, name) == ("engine", "f32") and gap > worst_gap[0]:
+                    worst_gap = (gap, label)
+        same = next((i for i, (a, b) in enumerate(zip(r.output_ids, ref.token_ids.tolist()))
+                     if a != b), len(r.output_ids))
+        total, agree = total + len(r.output_ids), agree + same
+        log(f"[engine] {label}: {len(r.output_ids)} tokens, first logits cosine {cos:.6f} "
+            f"against Generator.generate, whose tokens agree for the first {same}; teacher "
+            f"forcing misses, bf16 / f32 reference: engine {len(misses['engine', 'bf16'])} / "
+            f"{len(misses['engine', 'f32'])}, the Generator's own tokens "
+            f"{len(misses['generator', 'bf16'])} / {len(misses['generator', 'f32'])}"
+            + "".join(f"; f32 {m}" for m in misses["engine", "f32"]))
+    del llm32
+    off = runs[None]
+    same = sum(a.output_ids == b.output_ids for a, b in zip(out, off))
+    log(f"[engine] teacher forcing over {total} tokens: "
+        + ", ".join(f"{who}'s tokens {hits[who, ref]} ({100 * hits[who, ref] / total:.1f}%) "
+                    f"against the {ref} reference" for who, ref in hits)
+        + f"; the engine's tokens agree with the Generator's up to the first difference for "
+        f"{agree} of {total}; chunked prefill on and off give the same tokens for {same} of "
+        f"{len(out)} requests; the engine's largest miss under the f32 reference lies "
+        f"{worst_gap[0]:.3e} below the argmax ({worst_gap[1] or 'no miss'}; limit "
+        f"{MISS_GAP_LIMIT})")
+    if hits["engine", "f32"] < 0.95 * total:
+        raise AssertionError("the engine's tokens disagree with teacher forcing")
+    if worst_gap[0] > MISS_GAP_LIMIT:
+        raise AssertionError(f"engine {worst_gap[1]}: a token {worst_gap[0]:.3e} below the "
+                             f"argmax of teacher forcing (limit {MISS_GAP_LIMIT})")
+    del runs, out, off, state
+    torch.cuda.empty_cache()
+
+
 def training_row(arch, n_frames: int, g: torch.Generator):
     """One row, collated as a user's data would be: 8 text tokens, the frames,
     32 text tokens, with labels on those last 32."""
@@ -1190,14 +1537,18 @@ def ab_rounds(gen, requests) -> None:
 
 
 def phase_tower_serving(vision_id: str, n_requests: int, tag: str,
-                        kernel_results: dict) -> dict:
+                        kernel_results: dict, int8: bool = False) -> dict:
     """Serve `n_requests` of the three requests with another vision tower and
     nano-9b-v2 at full width and depth (random bf16 weights from the seed):
     every encode chunk must launch the tower's attention kernel once per
     block (K6 for InternVideo2, K3 for the ViTs) and the other one never. The
     kernel is held against its plain version on the armed 64-frame request's
     first call, and that request's first logits against the plain versions'.
-    Returns the launch counts."""
+    With `int8`, the model is then quantized W8A8 as the int8 phase does
+    (tower and backbone, calibrated on the 64-frame request's frames, the
+    in_proj fused) and serves the 64-frame request again, with the int8
+    phase's agreement check against the plain versions. Returns the launch
+    counts of the bf16 requests."""
     arch = build_arch(VLMConfig(vision_backbone_id=vision_id))
     t0 = time.perf_counter()
     model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
@@ -1232,7 +1583,52 @@ def phase_tower_serving(vision_id: str, n_requests: int, tag: str,
     del captures
     torch.cuda.empty_cache()
     check_against_plain_run(gen, requests, outs, tag)
+    if int8:
+        int8_tower_request(model, arch, gen, requests, outs, blocks, tag)
     return launches
+
+
+def int8_tower_request(model, arch, gen, requests, bf16_outs, blocks, tag: str) -> None:
+    """W8A8 on a single-tower model, as phase_int8_serving makes it, then
+    the 64-frame request: the tower's attention kernel once per block and
+    encode chunk, every tower linear int8 under the tower's switch, the first
+    logits against the plain versions (cosine 0.98, the int8 limit)."""
+    t0 = time.perf_counter()
+    cfg, clip = arch.vision, requests[1][1][1]
+    tower_fwd = (iv2_mod.encode_frames_iv2 if arch.vision_family == "internvideo2"
+                 else vit_mod.vit_forward)
+    quantize_params_int8(model.vision_backbone)
+    quantize_params_int8(model.llm_backbone)
+    calibrate_act_scales(lambda m, px: tower_fwd(m, cfg, px), model.vision_backbone, [clip])
+    with torch.no_grad():
+        emb = encode_visual(model, arch, clip)
+    calibrate_act_scales(
+        lambda m, e: nano_forward(m, arch.llm, inputs_embeds=e, logits_to_keep=1),
+        model.llm_backbone, [emb.reshape(1, -1, emb.shape[-1])])
+    fuse_decode_in_proj(model.llm_backbone)
+    del emb
+    torch.cuda.empty_cache()
+    tower_int8 = [m for m in model.vision_backbone.modules() if isinstance(m, Int8Linear)]
+    if not tower_int8 or any(m.switch != "TIMEVIPER_VIT_INT8_MXU" or m.act_inv is None
+                             for m in tower_int8):
+        raise AssertionError(f"{tag} int8: the tower's linears are not all calibrated int8 "
+                             "under TIMEVIPER_VIT_INT8_MXU")
+    log(f"[{tag} int8] quantized {len(tower_int8)} tower linears (the tubelet embedding "
+        f"too: {isinstance(getattr(model.vision_backbone, 'patch_embed', None), Int8Linear)}) "
+        f"and {sum(isinstance(m, Int8Linear) for m in model.llm_backbone.modules())} backbone "
+        f"linears, calibrated on the 64 frames; {torch.cuda.memory_allocated() / 2**30:.1f} "
+        f"GiB, {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    outs = serve(gen, requests[1:2], f"{tag} int8")
+    chunks = -(-clip.shape[0] // gen.clip_size)
+    for name, per_chunk in blocks.items():
+        got = WRAPPERS[name].launches
+        if got != per_chunk * chunks:
+            raise AssertionError(f"{tag} int8: {name} launched {got} times, not "
+                                 f"{per_chunk * chunks}")
+    check_against_plain_run(gen, requests, outs, f"{tag} int8", 0.98)
+    log(f"[{tag} int8] 64 frames: first-token logits, int8 vs the bf16 model: cosine "
+        f"{cosine(outs['64 frames'].first_logits, bf16_outs['64 frames'].first_logits):.6f}")
 
 
 def main() -> int:
@@ -1243,6 +1639,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     results = phase_kernels(torch.Generator(device=DEV).manual_seed(SEED))
+    phase_microbench(results)
     arch = build_arch(VLMConfig())  # siglip-vit-so400m-384px + tome_mlp-16 + nano-9b-v2
     t0 = time.perf_counter()
     model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
@@ -1253,6 +1650,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
     bf16 = phase_serving(model, arch, results)
     phase_long_video(model, arch, results)
+    phase_engine(model, arch, smi, results)
     phase_training(model, arch, results, profile=args.profile)
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()
@@ -1260,7 +1658,7 @@ def main() -> int:
     phase_int8_serving(arch, results, bf16, profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    iv2 = phase_tower_serving("internvideo2-1b-16-224px", 3, "iv2", results)
+    iv2 = phase_tower_serving("internvideo2-1b-16-224px", 3, "iv2", results, int8=True)
     results["vit_attn"]["launches"] = iv2["vit_attn"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -1269,7 +1667,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+             **({"tile": list(FLASH_TILE)} if name == "flash_fwd" else {}))
         for name, r in results.items()]}
     print(smi)
     print(json.dumps(line))

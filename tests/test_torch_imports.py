@@ -28,6 +28,9 @@ MODULES = [
     "timeviper_tpu_torch.ops.decode_fused", "timeviper_tpu_torch.train.quantize",
     "timeviper_tpu_torch.models.internvideo2", "timeviper_tpu_torch.ops.block_attention",
     "timeviper_tpu_torch.models.prefix_cache", "timeviper_tpu_torch.models.longctx",
+    "timeviper_tpu_torch.ops.headgrid_attention", "timeviper_tpu_torch.serving",
+    "timeviper_tpu_torch.serving.engine", "timeviper_tpu_torch.bench",
+    "timeviper_tpu_torch.bench.microbench_vit_attn", "timeviper_tpu_torch.bench.microbench_flash",
     "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent

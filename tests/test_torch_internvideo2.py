@@ -20,6 +20,7 @@ from timeviper_tpu.config import VLMConfig, tiny_nano_config
 from timeviper_tpu.models import generate as jax_gen
 from timeviper_tpu.models import internvideo2 as jax_iv2
 from timeviper_tpu.models import vlm as jax_vlm
+from timeviper_tpu.train import quantize as jax_quant
 from timeviper_tpu_torch.config import InternVideo2Config
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod
 from timeviper_tpu_torch.models.generate import Generator
@@ -30,8 +31,10 @@ from timeviper_tpu_torch.models.internvideo2 import (
     internvideo2_forward,
 )
 from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch, encode_visual
+from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, VIT_SWITCH, Int8Linear
 from timeviper_tpu_torch.ops.vit_attention import vit_attention_plain
 from timeviper_tpu_torch.params import from_jax_numpy, iv2_state_dict
+from timeviper_tpu_torch.train.quantize import calibrate_act_scales, quantize_params_int8
 
 IMG = 500
 TINY = dict(image_size=28, patch_size=14, num_frames=2, hidden_size=32, intermediate_size=64,
@@ -136,3 +139,41 @@ def test_generate_matches_jax():
     with pytest.raises(ValueError):
         Generator(model, arch, terminator_ids=[-2], max_new_tokens=1, clip_size=3).generate(
             ids, pixels=pixels, image_token_id=IMG)
+
+
+def test_int8_tower_matches_jax(monkeypatch):
+    """W8A8 on the tower: quantize_params_int8 (min_size 1, the tubelet
+    kernel included) + calibrate_act_scales against the JAX package's, then
+    the tower through the int8 product under TIMEVIPER_VIT_INT8_MXU=1 (the
+    backbone's switch off, so the tower's own switch must carry it). The JAX
+    parameters are made eagerly: its calibration pairs maxima with leaves in
+    dict order, which jax.jit would sort. Scales and features within f32
+    rounding (the forwards sum in other orders; the int8 codes and their
+    int32 sums are exact)."""
+    cfg, jcfg = InternVideo2Config(**TINY), JaxIV2Config(**TINY)
+    params = jax_iv2.init_internvideo2_params(jax.random.PRNGKey(3), jcfg, jnp.float32)
+    model = InternVideo2(cfg, torch.float32, "cpu")
+    model.load_state_dict(iv2_state_dict(params))
+    clips = rng(5).standard_normal((2, 2, 28, 28, 3), np.float32)
+    qp = jax_quant.quantize_params_int8(params, min_size=1)
+    qp = jax_quant.calibrate_act_scales(
+        lambda p, b: jax_iv2.internvideo2_forward(p, jcfg, b), qp, [jnp.asarray(clips)])
+    quantize_params_int8(model, min_size=1)
+    calibrate_act_scales(lambda m, b: internvideo2_forward(m, cfg, b), model, [t(clips)])
+    int8 = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    assert isinstance(model.patch_embed, Int8Linear)
+    assert len(int8) == 1 + 4 * cfg.effective_depth
+    assert all(m.switch == VIT_SWITCH and m.act_inv is not None for m in int8)
+    leaves = [qp["patch_embed"]] + [layer[a][b] for layer in qp["layers"]
+                                    for a, b in (("attn", "qkv"), ("attn", "proj"),
+                                                 ("mlp", "fc1"), ("mlp", "fc2"))]
+    for mod, leaf in zip(int8, leaves):
+        np.testing.assert_array_equal(mod.kernel_q.numpy(), np.asarray(leaf["kernel_q"]).T)
+        np.testing.assert_allclose(float(mod.act_inv), float(leaf["act_inv"]), rtol=1e-5)
+    monkeypatch.setenv(VIT_SWITCH, "1")
+    monkeypatch.setenv(LLM_SWITCH, "0")
+    got = internvideo2_forward(model, cfg, t(clips))
+    want = np.asarray(jax.jit(jax_iv2.internvideo2_forward, static_argnums=1)(
+        qp, jcfg, jnp.asarray(clips)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())

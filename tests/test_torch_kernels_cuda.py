@@ -26,6 +26,12 @@ K9 (csrc/block_attn.cu) is held to 1e-2 of each output's largest magnitude
 k and v read as row ranges of a cache buffer, with an empty key block and
 with rows that see no key (l = 0, m = -inf, o = 0 on both sides).
 
+K2 also runs at every tile of FLASH_TILES (the K2 microbenchmark's sweep),
+and K10a (csrc/headgrid_attn.cu, the ViT attention microbenchmark's
+head-grid kernel) at 1, 2 and 4 heads a block, with the exp and without it,
+both to 1e-2 of the largest magnitude like the other forward kernels (K10a
+with no floor of 1: its outputs are averages of v, far below 1).
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
@@ -40,10 +46,17 @@ from torch_parity import packed_seq, require_cuda, rng, t
 from timeviper_tpu_torch.ops.block_attention import block_attn_lse, block_attn_lse_plain
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_plain
 from timeviper_tpu_torch.ops.flash_attention import (
+    FLASH_TILES,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_fwd,
     flash_attention_plain,
+)
+from timeviper_tpu_torch.ops.headgrid_attention import (
+    headgrid_attention,
+    headgrid_attention_plain,
+    pad_heads,
 )
 from timeviper_tpu_torch.ops.ssd import ssd_chunked
 from timeviper_tpu_torch.ops.int8_linear import Int8Linear, apply_linear_w8a8
@@ -168,6 +181,41 @@ def test_flash_kernel_matches_plain(L, packed):
     seg = t(packed_seq(B, L, *packed)).to(dev) if packed else None
     _close(flash_attention(q, k, v, segment_ids=seg),
            flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+
+
+@pytest.mark.parametrize("tile", FLASH_TILES)
+@pytest.mark.parametrize("L,packed", [(300, (13, 140)), (256, None)])
+def test_flash_kernel_tiles_match_plain(L, packed, tile):
+    """K2 at each tile shape of the microbenchmark's sweep: ragged tails
+    under 64 and 128 rows, a -1 pad and a boundary inside the tiles."""
+    dev = require_cuda()
+    r = rng(11)
+    B, Hq, Hkv, D = 2, 8, 2, 128
+    q, k, v = (t(r.standard_normal((B, L, h, D), np.float32)).to(dev, torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    seg = t(packed_seq(B, L, *packed)).to(dev) if packed else None
+    before = flash_attention.launches
+    _close(flash_attention_fwd(q, k, v, seg, False, tile)[0],
+           flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("do_exp", [True, False])
+@pytest.mark.parametrize("hpp", [1, 2, 4])
+def test_headgrid_kernel_matches_plain(hpp, do_exp):
+    """K10a on SigLIP's heads padded from 72 to 128 columns: 3 frames of 729
+    tokens (a ragged last tile of 25 rows and keys, whose padding must not
+    enter the row sums)."""
+    dev = require_cuda()
+    H, hd = 16, 72
+    qkv = t(rng(12).standard_normal((3, 729, 3 * H * hd), np.float32))
+    qkv = pad_heads(qkv.to(dev, torch.bfloat16), H, hd).contiguous()
+    before = headgrid_attention.launches
+    got = headgrid_attention(qkv, H, hpp, hd ** -0.5, do_exp)
+    assert headgrid_attention.launches == before + 1
+    # against the output's own largest value (averages of v stay below 1)
+    _close(got, headgrid_attention_plain(qkv, H, hd ** -0.5, do_exp), 1e-2, floor=0.0)
+    assert not got.reshape(3, 729, H, 128)[..., hd:].any()
 
 
 @pytest.mark.parametrize("T,hd", [(729, 72), (100, 64)])
@@ -377,15 +425,17 @@ def test_conv_scan_kernel_matches_plain(packed):
 
 
 @pytest.mark.parametrize("M", [1, 16, 33])
-def test_int8_product_on_the_card_is_the_cpu_one(M):
-    """torch._int_mm takes more than 16 rows on the card; fewer are padded.
-    The W8A8 apply gives the CPU's result bit for bit."""
+@pytest.mark.parametrize("K", [128, 588])
+def test_int8_product_on_the_card_is_the_cpu_one(M, K):
+    """torch._int_mm takes more than 16 rows and an inner dim that is a
+    multiple of 8 on the card; fewer rows, and InternVideo2's 588-wide
+    tubelet, are padded. The W8A8 apply gives the CPU's result bit for bit."""
     dev = require_cuda()
     r = rng(10)
-    mod = Int8Linear(t(r.integers(-127, 128, (256, 128)).astype(np.int8)),
+    mod = Int8Linear(t(r.integers(-127, 128, (256, K)).astype(np.int8)),
                      t((r.random(256) * 0.01).astype(np.float32)), None,
                      torch.tensor(127.0 / 3.0))
-    x = t(r.standard_normal((M, 128), np.float32)).to(torch.bfloat16)
+    x = t(r.standard_normal((M, K), np.float32)).to(torch.bfloat16)
     want = apply_linear_w8a8(mod, x)
     got = apply_linear_w8a8(mod.to(dev), x.to(dev))
     assert torch.equal(got.cpu(), want)

@@ -3,8 +3,11 @@
 // ViT attention from the fused qkv buffer) and vit_attn.cu (non-causal
 // whole-clip attention from separate q, k and v).
 //
-// One block of 4 warps owns BQ = 64 query rows of one (batch, head); each
-// warp owns 16 of them and streams the keys in tiles of BKV = 64. Both
+// One block of BQ / 16 warps owns BQ query rows of one (batch, head); each
+// warp owns 16 of them and streams the keys in tiles of BKV. The tile shape
+// is a template parameter, (64, 64) by default: every path launches that
+// instantiation (4 warps), and the K2 microbenchmark
+// (bench/microbench_flash.py) sweeps (64 | 128) x (64 | 128). Both
 // products run as mma.sync.m16n8k16 (bf16 in, f32 accumulate): S = Q K^T with
 // Q held in registers for the whole walk and K read from shared memory, then
 // O += P V with P taken straight from S's accumulator registers (rounded to
@@ -41,9 +44,8 @@
 
 namespace tv {
 
-constexpr int kAttnBQ = 64;
-constexpr int kAttnBKV = 64;
-constexpr int kAttnThreads = 128;
+constexpr int kAttnBQ = 64;   // the default tile: query rows a block
+constexpr int kAttnBKV = 64;  // and keys a tile
 
 struct AttnArgs {
   const __nv_bfloat16* q;
@@ -73,7 +75,7 @@ template <bool OWN_V, bool LM = false>
 using AttnArgsOf =
     std::conditional_t<LM, AttnArgsLM, std::conditional_t<OWN_V, AttnArgsV, AttnArgs>>;
 
-template <int HD>
+template <int HD, int BQ = kAttnBQ, int BKV = kAttnBKV>
 struct AttnShape {
   static constexpr int HDP = (HD + 15) / 16 * 16;  // Q K^T depth, padded
   // row stride of the Q, K and V tiles: 16-byte rows whose 32-bit word
@@ -81,31 +83,37 @@ struct AttnShape {
   // ldmatrix rows fall on distinct banks
   static constexpr int LD = HDP + 8;
   static constexpr int VPR = HDP / 8;  // 16-byte vectors in a padded row
+  static constexpr int threads = 2 * BQ;  // a warp per 16 query rows
   static constexpr size_t smem =
-      sizeof(__nv_bfloat16) * (kAttnBQ + 2 * kAttnBKV) * LD + sizeof(int) * kAttnBKV;
+      sizeof(__nv_bfloat16) * (BQ + 2 * BKV) * LD + sizeof(int) * BKV;
 };
 
-// grid (ceil(Lq / 64), Hq, B), 128 threads, AttnShape<HD>::smem of dynamic smem.
-template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false>
-__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V, LM> a) {
+// grid (ceil(Lq / BQ), Hq, B), 2 * BQ threads, AttnShape<HD, BQ, BKV>::smem of
+// dynamic smem.
+template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false, int BQ = kAttnBQ,
+          int BKV = kAttnBKV>
+__global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
+    attn_fwd_kernel(AttnArgsOf<OWN_V, LM> a) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
-  using S = AttnShape<HD>;
-  constexpr int KS = S::HDP / 16, NO = HD / 8, NT = kAttnBKV / 8, LD = S::LD, VPR = S::VPR;
+  using S = AttnShape<HD, BQ, BKV>;
+  static_assert(BKV <= S::threads, "one thread per key loads the key segments");
+  constexpr int kAttnThreads = S::threads;
+  constexpr int KS = S::HDP / 16, NO = HD / 8, NT = BKV / 8, LD = S::LD, VPR = S::VPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
-  __nv_bfloat16* Ks = Qs + kAttnBQ * LD;                            // [BKV][LD]
-  __nv_bfloat16* Vs = Ks + kAttnBKV * LD;                           // [BKV][LD]
-  int* segk = reinterpret_cast<int*>(Vs + kAttnBKV * LD);
+  __nv_bfloat16* Ks = Qs + BQ * LD;                                 // [BKV][LD]
+  __nv_bfloat16* Vs = Ks + BKV * LD;                                // [BKV][LD]
+  int* segk = reinterpret_cast<int*>(Vs + BKV * LD);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kAttnBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
   const __nv_bfloat16* qb = a.q + b * a.q_bs + (long long)h * a.q_hs;
   const __nv_bfloat16* kb = a.k + b * a.k_bs + (long long)hk * a.k_hs;
   const __nv_bfloat16* vb = a.v + b * a.k_bs + (long long)hk * a.k_hs;
   if constexpr (OWN_V) vb = a.v + b * a.v_bs + (long long)hk * a.v_hs;
 
-  for (int e = tid; e < kAttnBQ * VPR; e += kAttnThreads) {
+  for (int e = tid; e < BQ * VPR; e += kAttnThreads) {
     const int r = e / VPR, d = (e % VPR) * 8, t = q0 + r;
     *reinterpret_cast<uint4*>(Qs + r * LD + d) =
         ld_row8(qb + (long long)t * a.q_rs + d, t < a.Lq && d < HD);
@@ -136,10 +144,10 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
-  const int kv_end = CAUSAL ? min(a.Lk, q0 + kAttnBQ) : a.Lk;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kAttnBKV) {
+  const int kv_end = CAUSAL ? min(a.Lk, q0 + BQ) : a.Lk;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile's Ks and Vs are no longer read
-    for (int e = tid; e < kAttnBKV * VPR; e += kAttnThreads) {
+    for (int e = tid; e < BKV * VPR; e += kAttnThreads) {
       const int j = e / VPR, d = (e % VPR) * 8, t = kv0 + j;
       const bool in = t < a.Lk && d < HD;
       *reinterpret_cast<uint4*>(Ks + j * LD + d) = ld_row8(kb + (long long)t * a.k_rs + d, in);
@@ -148,7 +156,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
       else
         *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.k_rs + d, in);
     }
-    if (tid < kAttnBKV) {
+    if (tid < BKV) {
       const int t = kv0 + tid;
       if constexpr (LM)
         segk[tid] = (a.seg_kv != nullptr && t < a.Lk) ? a.seg_kv[(long long)b * a.Lk + t] : 0;
@@ -157,7 +165,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    // S = Q K^T for this warp's 16 rows and the tile's BKV keys
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -217,7 +225,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
 
     // O += P V: P's accumulator layout is the A operand's layout
 #pragma unroll
-    for (int kk = 0; kk < kAttnBKV / 16; ++kk) {
+    for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -258,14 +266,16 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnArgsOf<OWN_V
   }
 }
 
-template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false>
+template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false, int BQ = kAttnBQ,
+          int BKV = kAttnBKV>
 int launch_attn(const AttnArgsOf<OWN_V, LM>& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = AttnShape<HD>::smem;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<HD, CAUSAL, OWN_V, LM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using S = AttnShape<HD, BQ, BKV>;
+  auto kernel = attn_fwd_kernel<HD, CAUSAL, OWN_V, LM, BQ, BKV>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + kAttnBQ - 1) / kAttnBQ, a.Hq, B);
-  attn_fwd_kernel<HD, CAUSAL, OWN_V, LM><<<grid, kAttnThreads, smem, stream>>>(a);
+  const dim3 grid((a.Lq + BQ - 1) / BQ, a.Hq, B);
+  kernel<<<grid, S::threads, S::smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -16,12 +16,18 @@
 // design and skips key tiles past the query tile's last row. Under autograd
 // it also writes each row's log-sum-exp (f32, (B, Hq, L)) for the backward
 // (flash_bwd.cu); the serving path passes NULL and skips it.
+//
+// The tile (BQ, BKV) is chosen per call from {64, 128}^2: BQ 128 runs 8
+// warps, and BKV 128 takes more than 48 KB of dynamic shared memory. The
+// paths run (64, 64); the K2 microbenchmark (bench/microbench_flash.py, the
+// counterpart of the TPU script scripts/microbench_flash.py, which swept the
+// bundled kernel's block sizes at L = 81,920) runs all four.
 #include "attn_tile.cuh"
 
-extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
-                            void* o, void* lse, int B, int Lq, int Lk, int Hq, int Hkv, int D,
-                            float scale, void* stream) {
-  if (D != 128 || Hq % Hkv != 0 || (seg != nullptr && Lq != Lk)) return cudaErrorInvalidValue;
+namespace {
+
+tv::AttnArgs flash_args(const void* q, const void* k, const void* v, const void* seg, void* o,
+                        void* lse, int Lq, int Lk, int Hq, int Hkv, int D, float scale) {
   tv::AttnArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -40,5 +46,20 @@ extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const v
   a.o_hs = D;
   a.Lq = Lq; a.Lk = Lk; a.Hq = Hq; a.Hkv = Hkv;
   a.scale = scale;
-  return tv::launch_attn<128, true>(a, B, static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+}  // namespace
+
+extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
+                            void* o, void* lse, int B, int Lq, int Lk, int Hq, int Hkv, int D,
+                            float scale, int bq, int bkv, void* stream) {
+  if (D != 128 || Hq % Hkv != 0 || (seg != nullptr && Lq != Lk)) return cudaErrorInvalidValue;
+  const tv::AttnArgs a = flash_args(q, k, v, seg, o, lse, Lq, Lk, Hq, Hkv, D, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bq == 64 && bkv == 64) return tv::launch_attn<128, true, false, false, 64, 64>(a, B, s);
+  if (bq == 64 && bkv == 128) return tv::launch_attn<128, true, false, false, 64, 128>(a, B, s);
+  if (bq == 128 && bkv == 64) return tv::launch_attn<128, true, false, false, 128, 64>(a, B, s);
+  if (bq == 128 && bkv == 128) return tv::launch_attn<128, true, false, false, 128, 128>(a, B, s);
+  return cudaErrorInvalidValue;
 }

@@ -11,9 +11,17 @@ features are the patch tokens with CLS dropped; the VLM's projector merges
 each clip's 4 x 256 tokens jointly (models/projector.py, local_num_frames).
 
 Attention reads q and k as the norm gives them and v as a column slice of
-the qkv projection, so no head layout is copied. Left out for now: the int8
-path of the tower's linears, the attention-pooling head and resizing the
-position table of a pretrained checkpoint (`interpolate_pos_embed`).
+the qkv projection, so no head layout is copied.
+
+int8 (train/quantize.py): every linear of the tower, the flattened 2-D
+tubelet kernel too, is quantized by the same size rule as in the JAX
+package and takes TIMEVIPER_VIT_INT8_MXU as its switch, as the JAX tower's
+linears go through the ViT's `_apply_linear`
+(timeviper_tpu/models/internvideo2.py:37-45). The forward reads its compute
+dtype from the tower, never from a weight that may have been quantized.
+
+Left out for now: the attention-pooling head and resizing the position table
+of a pretrained checkpoint (`interpolate_pos_embed`).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from torch import nn
 from timeviper_tpu_torch.config import InternVideo2Config
 from timeviper_tpu_torch.models.nano import RMSNorm
 from timeviper_tpu_torch.models.vit import LayerScale
+from timeviper_tpu_torch.ops.int8_linear import VIT_SWITCH
 from timeviper_tpu_torch.ops.norms import rms_norm
 from timeviper_tpu_torch.ops.vit_attention import encoder_attention
 
@@ -85,8 +94,11 @@ class InternVideo2(nn.Module):
     """The tower's weights: only the `effective_depth` blocks the features
     come from are built, as the JAX init builds them."""
 
+    INT8_SWITCH = VIT_SWITCH  # the int8 path's switch (ops/int8_linear.py)
+
     def __init__(self, cfg: InternVideo2Config, dtype=torch.bfloat16, device=None):
         super().__init__()
+        self.dtype = dtype  # the compute dtype, whether or not a linear is quantized
         d = cfg.hidden_size
         t_size = cfg.num_frames // cfg.tubelet_size
         self.patch_embed = nn.Linear(cfg.tubelet_size * cfg.patch_size * cfg.patch_size * 3, d,
@@ -127,9 +139,8 @@ def internvideo2_forward(model: InternVideo2, cfg: InternVideo2Config, clips: to
     if T % tb or g * ps != H or W != H:
         raise ValueError(f"clips of {T} frames of {H}x{W} do not tile into tubelets of "
                          f"{tb} x {ps}x{ps}")
-    w = model.patch_embed.weight
     # (B, T', g, g, tb, ps, ps, 3): one matmul with the flattened tubelet kernel
-    x = (clips.to(w.dtype).reshape(B, T // tb, tb, g, ps, g, ps, 3)
+    x = (clips.to(model.dtype).reshape(B, T // tb, tb, g, ps, g, ps, 3)
          .permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, (T // tb) * g * g, tb * ps * ps * 3))
     x = model.patch_embed(x)
     # CLS before the position add: the table's row 0 is CLS's (zero)

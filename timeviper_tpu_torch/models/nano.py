@@ -13,7 +13,8 @@ package:
   the JAX package's `_remat_wrap` with policy "full").
 * `nano_decode_step`: one token; Mamba layers take the O(1) state update,
   attention layers write their KV buffer in place at `length` and attend
-  over the slots [valid_from, length].
+  over the slots [valid_from, length]. `length` and `valid_from` are host
+  integers, or (B,) tensors with one per row (the serving engine).
 
 Attention has no RoPE; the MLP is up -> relu^2 -> down. Head h of a Mamba
 layer reads group h // (H/G). Linear weights are torch's (out, in); a LoRA'd
@@ -309,21 +310,43 @@ def attention_mixer_decode(
     cfg: NanoConfig,
     x: torch.Tensor,
     cache_layer: Dict[str, Any],
-    length: int,
-    valid_from: int = 0,
+    length,
+    valid_from=0,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token against the fixed-capacity KV buffer. The new K/V row is
     written IN PLACE at slot `length` (no copy of the buffer per token); the
-    token attends over slots [valid_from, length]."""
+    token attends over slots [valid_from, length].
+
+    `length` and `valid_from` are host integers shared by every row, or (B,)
+    integer tensors, one per row (the serving engine's slots sit at
+    different lengths): then each row writes its K/V at its own slot, an
+    index scatter, and a key mask limits it to its own [valid_from_b,
+    length_b]. The keys read are the slots up to the longest row's; its
+    length is read on the host, so CPU tensors cost no device sync."""
     B = x.shape[0]
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     k, v = cache_layer["k"], cache_layer["v"]
-    if length >= k.shape[1]:
-        raise ValueError(f"KV cache of {k.shape[1]} slots is full")
     q = m.q_proj(x).reshape(B, 1, Hq, hd)
-    k[:, length] = m.k_proj(x).reshape(B, Hkv, hd).to(k.dtype)
-    v[:, length] = m.v_proj(x).reshape(B, Hkv, hd).to(v.dtype)
-    out = attention(q, k[:, valid_from:length + 1], v[:, valid_from:length + 1])
+    k_new = m.k_proj(x).reshape(B, Hkv, hd).to(k.dtype)
+    v_new = m.v_proj(x).reshape(B, Hkv, hd).to(v.dtype)
+    if not isinstance(length, torch.Tensor):
+        if length >= k.shape[1]:
+            raise ValueError(f"KV cache of {k.shape[1]} slots is full")
+        k[:, length] = k_new
+        v[:, length] = v_new
+        out = attention(q, k[:, valid_from:length + 1], v[:, valid_from:length + 1])
+        return m.o_proj(out.reshape(B, 1, Hq * hd)), cache_layer
+    span = int(length.max()) + 1
+    if span > k.shape[1]:
+        raise ValueError(f"KV cache of {k.shape[1]} slots is full")
+    pos = length.to(k.device, torch.long)
+    vf = torch.as_tensor(valid_from).to(k.device, torch.long).expand(B)
+    rows = torch.arange(B, device=k.device)
+    k[rows, pos] = k_new
+    v[rows, pos] = v_new
+    slots = torch.arange(span, device=k.device)[None]
+    mask = (slots <= pos[:, None]) & (slots >= vf[:, None])  # (B, span)
+    out = attention(q, k[:, :span], v[:, :span], mask[:, None])
     return m.o_proj(out.reshape(B, 1, Hq * hd)), cache_layer
 
 
@@ -413,7 +436,9 @@ def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
 def nano_decode_step(
     model: NanoModel, cfg: NanoConfig, input_ids: torch.Tensor, cache: Dict[str, Any]
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step. input_ids (B, 1). Returns (logits (B, V) f32, cache)."""
+    """One decode step. input_ids (B, 1). Returns (logits (B, V) f32, cache).
+    The cache's `length` and `valid_from` are host integers or (B,) tensors
+    (attention_mixer_decode); the returned length is one more."""
     hidden = model.embeddings(input_ids)
     length, valid_from = cache["length"], cache["valid_from"]
     eps = cfg.layer_norm_epsilon

@@ -263,4 +263,6 @@ def init_cache(arch: VLMArch, batch_size: int, max_len: int, dtype=torch.bfloat1
 
 
 def decode_step(model: TimeViperVLM, arch: VLMArch, token: torch.Tensor, cache):
+    """One token per row; the cache's lengths are host integers or one per
+    row (models/nano.py:nano_decode_step)."""
     return nano_decode_step(model.llm_backbone, arch.llm, token, cache)

@@ -41,10 +41,11 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "tv_ssd_fwd": [_P] * 22 + [_I] * 11 + [_F, _F, _P],
     "tv_ssd_bwd": [_P] * 25 + [_I] * 8 + [_F, _F, _P],
-    "tv_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "tv_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "tv_flash_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
     "tv_block_attn": [_P] * 8 + [_I] * 6 + [_L, _I, _F, _P],
     "tv_vit_attn_qkv": [_P, _P] + [_I] * 4 + [_F, _P],
+    "tv_headgrid_attn": [_P, _P] + [_I] * 5 + [_F, _P],
     "tv_vit_attn": [_P] * 4 + [_I] * 4 + [_L, _I] * 3 + [_F, _P],
     "tv_layernorm": [_P] * 7 + [_I] * 2 + [_F, _P],
     "tv_decode_fused": [_P] * 15 + [_I] * 6 + [_L, _L, _F, _P],

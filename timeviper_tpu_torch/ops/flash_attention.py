@@ -12,6 +12,10 @@ differentiated by autograd.
 `flash_attention` is the entry point: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernels or raises. Under autograd the CUDA path is
 `FlashAttnFn`, whose backward is `flash_attention_bwd` (K2-bwd's wrapper).
+The paths run K2's (64, 64) tile; `flash_attention_fwd(tile=)` runs the
+forward at any tile of FLASH_TILES for the K2 microbenchmark
+(bench/microbench_flash.py, the counterpart of scripts/microbench_flash.py's
+block-size sweep).
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ import torch
 
 from timeviper_tpu_torch.ops import _cuda
 from timeviper_tpu_torch.ops.attention import attention, make_attention_mask
+
+
+FLASH_TILE = (64, 64)  # (query rows, keys) of the tile every path runs
+FLASH_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # csrc/flash_fwd.cu
 
 
 def flash_attention_plain(q, k, v, segment_ids=None):
@@ -126,9 +134,11 @@ def _check(q, k, v, segment_ids):
                          "int32 (B, L) with Lq == Lk")
 
 
-def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool):
-    """K2 on CUDA tensors -> (out, the row log-sum-exp (B, Hq, L) f32 that
-    K2-bwd takes, or None)."""
+def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool, tile=FLASH_TILE):
+    """K2 on CUDA tensors at `tile` = (query rows, keys) of FLASH_TILES ->
+    (out, the row log-sum-exp (B, Hq, L) f32 that K2-bwd takes, or None)."""
+    if tuple(tile) not in FLASH_TILES:
+        raise ValueError(f"flash_attention kernel: tile {tile} is not one of {FLASH_TILES}")
     _check(q, k, v, segment_ids)
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
@@ -140,7 +150,8 @@ def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool):
     p = _cuda.ptr
     err = _cuda.lib().tv_flash_fwd(
         p(q), p(k), p(v), p(segment_ids), p(out), p(lse), B, Lq, Lk, Hq, Hkv, D,
-        1.0 / math.sqrt(D), _cuda.stream_of(q))
+        1.0 / math.sqrt(D), tile[0], tile[1], _cuda.stream_of(q))
     _cuda.check(err, "tv_flash_fwd")
     flash_attention.launches += 1
     return out, lse
+

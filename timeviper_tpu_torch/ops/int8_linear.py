@@ -55,13 +55,17 @@ def use_int8_mxu(switch: str, x: torch.Tensor) -> bool:
 def int_mm(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     """(..., in) int8 x (out, in) int8 -> (..., out) int32, exact.
 
-    On the card torch._int_mm takes more than 16 rows: fewer (a decode step)
-    are padded with zero rows, which leave the real rows' sums unchanged."""
+    On the card torch._int_mm takes more than 16 rows and an inner dim that
+    is a multiple of 8: fewer rows (a decode step) are padded with zero rows,
+    and an inner dim such as InternVideo2's 588-wide tubelet (14 x 14 x 3)
+    with zero columns of both operands; neither changes the real sums."""
     lead = xq.shape[:-1]
     x2 = xq.reshape(-1, xq.shape[-1])
-    M = x2.shape[0]
+    M, K = x2.shape
     if x2.is_cuda and M <= 16:
         x2 = F.pad(x2, (0, 0, 0, 17 - M))
+    if x2.is_cuda and K % 8:
+        x2, kernel_q = F.pad(x2, (0, -K % 8)), F.pad(kernel_q, (0, -K % 8))
     acc = torch._int_mm(x2, kernel_q.t())
     return acc[:M].reshape(*lead, kernel_q.shape[0])
 

@@ -4,9 +4,12 @@ timeviper_tpu/ops/tome.py).
 Even tokens are sources, odd tokens destinations. Each source scores its best
 cosine match among the destinations; the r best-scoring sources are merged,
 size-weighted, into their matches. Output order is [unmerged sources by
-descending score, destinations], as in the reference. The merge is the direct
-form: a stable argsort and a scatter-add (the JAX package's one-hot matmul
-stood in for a scatter the TPU serializes).
+descending score, destinations], as in the reference. The merged sources
+are summed into their destinations as a product with a one-hot matrix, as
+the JAX package does: a scatter-add takes atomics on the card, whose order
+changes from run to run, and so did the visual tokens' last bits and, at
+near-ties, the greedy tokens after them. The product's sums are the same on
+every run.
 """
 
 from __future__ import annotations
@@ -50,8 +53,10 @@ def _bipartite_merge_round(
     src_s, dst_s = size[:, ::2], size[:, 1::2]
     merged_x = src_x.gather(1, src_idx[..., None].expand(-1, -1, C))
     merged_s = src_s.gather(1, src_idx[..., None])
-    dx = dst_x.scatter_add(1, dst_idx[..., None].expand(-1, -1, C), merged_x)
-    ds = dst_s.scatter_add(1, dst_idx[..., None], merged_s)
+    onehot = torch.zeros(B, r, dst_x.shape[1], dtype=x.dtype, device=x.device)
+    onehot.scatter_(2, dst_idx[..., None], 1.0)  # [b, i, j] = 1: merged source i -> dst j
+    dx = dst_x + onehot.transpose(1, 2) @ merged_x
+    ds = dst_s + onehot.transpose(1, 2) @ merged_s
     unm_x = src_x.gather(1, unm_idx[..., None].expand(-1, -1, C))
     unm_s = src_s.gather(1, unm_idx[..., None])
     return torch.cat([unm_x, dx], dim=1), torch.cat([unm_s, ds], dim=1)

@@ -3,7 +3,8 @@
 `quantize_params_int8` swaps every linear the JAX package would quantize
 (a 2-D kernel of at least `min_size` elements) for an `Int8Linear`, in place.
 The ViT's patch embedding is an `nn.Linear` here, but in the JAX package it
-is a 4-D (p, p, 3, D) leaf that is never quantized, so it stays as it is.
+is a 4-D (p, p, 3, D) leaf that is never quantized, so it stays as it is;
+InternVideo2's flattened 2-D tubelet kernel is quantized in both.
 
 `calibrate_act_scales` runs a forward with the amax sink of
 ops/int8_linear.py installed and gives each int8 layer that saw input
