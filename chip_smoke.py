@@ -13,14 +13,18 @@ Phases, each of which raises on failure (there is no fallback anywhere):
 1. device: a CUDA card must be present; print its name and power limit;
    TF32 off for matmuls and convolutions.
 2. build: compile csrc/*.cu (one nvcc per source, all started together) into
-   one library; print the seconds and each kernel's registers and spills.
+   one library; print the seconds and each kernel's registers and spills,
+   and for the Hopper attention kernels (K9, K6: csrc/attn_sm90.cuh) their
+   entry names, ptxas's notes and their dynamic shared memory a block.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat. K2 also runs at each tile of the K2
+   gradients on a repeat, and K9 and K6 bitwise-equal outputs (their lines
+   also give the key splits and blocks of the launch, the achieved TFLOP/s
+   and the share of the bound). K2 also runs at each tile of the K2
    microbenchmark's sweep, K10a at 8 frames for 1, 2 and 4 heads a block,
    with the exp and without it. Each output's SHA-256 is printed, to compare
    the kernels' bits across runs and machines.
@@ -143,8 +147,10 @@ from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noq
 from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params, vlm_forward  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
+    BLOCK_ROWS,
     block_attn_lse,
     block_attn_lse_plain,
+    block_attn_plan,
 )
 from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
     fused_mamba_decode,
@@ -176,6 +182,7 @@ from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
     ssd_scan_fwd,
 )
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
+    VIT_ATTN_BLOCK_ROWS,
     vit_attention,
     vit_attention_plain,
     vit_attention_qkv,
@@ -237,7 +244,7 @@ KERNELS = {
                          replaces="timeviper_tpu/ops/decode_fused.py:39", rel_tol=1e-2),
     "layernorm": dict(source="timeviper_tpu_torch/csrc/layernorm.cu",
                       replaces="timeviper_tpu/ops/layernorm.py:37", rel_tol=1e-2),
-    # K9: K2's tile and arithmetic; o (bf16) against its own largest value,
+    # K9: o (bf16) against its own largest value,
     # with no floor (|o| <= 1 and about 0.015 over 12k random keys), and the
     # f32 row statistics l and m of bf16 logits, summed in other orders, to
     # 1e-4: a mask that dropped 64 of 12,288 keys moves l by 0.5%
@@ -443,8 +450,13 @@ def phase_build() -> None:
     _cuda.lib()
     log(f"[build] {path.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_cuda.build_seconds:.1f} s)")
+    sm90 = False  # inside the log of a source built on csrc/attn_sm90.cuh
     for line in _cuda.build_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if line.startswith("=="):
+            sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu")
+        if (line.startswith("==") or "registers" in line or "spill" in line
+                or sm90 and ("entry function" in line or "warning" in line.lower()
+                             or "(C75" in line)):  # ptxas's wgmma notes
             log(f"[build]   {line.strip()}")
 
 
@@ -456,7 +468,9 @@ def kernel_cases(g: torch.Generator):
     of several cases of a kernel, `main` marks the one its line in the
     kernels record gives, `peak` the operations' peak rate, `device` times
     the calls by their device time with a cold L2 (ms-scale calls are timed
-    by CUDA events around a loop)."""
+    by CUDA events around a loop), `repeat` asks a second call for the same
+    bits, and `launch` describes the kernel's launch (its line then gives
+    the achieved TFLOP/s and the share of the bound)."""
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=DEV) * scale).to(torch.bfloat16)
 
@@ -556,7 +570,9 @@ def kernel_cases(g: torch.Generator):
     out = vit_attention(cq, ck, cv)
     yield ("vit_attn", lambda: vit_attention(cq, ck, cv), lambda: vit_attention_plain(cq, ck, cv),
            sdpa(cq, ck, cv, causal=False)[0],
-           (4 * B6 * H6 * T6 * T6 * hd6, nbytes(cq, ck, out) + cv.numel() * cv.element_size()))
+           (4 * B6 * H6 * T6 * T6 * hd6, nbytes(cq, ck, out) + cv.numel() * cv.element_size()),
+           dict(repeat=True, launch=f"{-(-T6 // VIT_ATTN_BLOCK_ROWS) * H6 * B6} blocks of "
+                                    f"{VIT_ATTN_BLOCK_ROWS} rows"))
     del qkv, cq, ck, cv, out
 
     # K5: K1's layer with the conv fused in, on raw streams that are column
@@ -623,13 +639,17 @@ def kernel_cases(g: torch.Generator):
     # 4,096-token clip's continuation against 12,288 cached rows, as the path
     # runs it (the headline case), and again with the first 64 rows masked by
     # seg_kv, as a left pad would be; a 256-row question's against 16,384
-    # rows; the causal suffix part at 4,096. The library yardstick is SDPA
+    # rows, and the 12- and 40-token questions' of phase 5 (32 and 16 key
+    # splits); the causal suffix part at 4,096. The library yardstick is SDPA
     # with the same mask (GQA in place)
     for Lq, Lk, causal, masked in ((4096, 12288, False, False), (4096, 12288, False, True),
-                                   (256, 16384, False, False), (4096, 4096, True, False)):
+                                   (256, 16384, False, False), (12, 16384, False, False),
+                                   (40, 16384, False, False), (4096, 4096, True, False)):
         q9, k9, v9 = randn(1, Lq, Hq, hd), randn(1, Lk, Hkv, hd), randn(1, Lk, Hkv, hd)
         kw9, keep, pairs9 = dict(causal=causal), None, Lq * (Lq + 1) // 2 if causal else Lq * Lk
         main = Lk == 12288 and not masked
+        pack, n_split, _ = block_attn_plan(1, Lq, Lk, Hq, Hkv, causal)
+        blocks = -(-Lq * pack // BLOCK_ROWS) * (Hq // pack) * n_split
         if masked:
             seg_kv = torch.zeros(1, Lk, dtype=torch.int32, device=DEV)
             seg_kv[:, :64] = 1
@@ -647,7 +667,9 @@ def kernel_cases(g: torch.Generator):
                lib9, (4 * Hq * hd * pairs9,
                       nbytes(q9, k9, v9, kw9.get("seg_q"), kw9.get("seg_kv"), *out9)),
                dict(variant=f"{'causal' if causal else 'non-causal'} {Lq} x {Lk}"
-                            + (", first 64 keys masked by seg_kv" if masked else ""), main=main))
+                            + (", first 64 keys masked by seg_kv" if masked else ""), main=main,
+                    repeat=True, launch=f"{n_split} key split(s), {blocks} blocks, "
+                                        f"{pack} heads a block"))
         del q9, k9, v9, out9, lib_in
 
 
@@ -675,6 +697,10 @@ def phase_kernels(g: torch.Generator) -> dict:
             if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: a repeat gave other gradients")
             del again
+        if opt.get("repeat"):
+            again = output_digest(kern())
+            if again != digest:
+                raise AssertionError(f"{name}: a repeat gave other bits ({again[:16]})")
         del got, want
         if opt.get("device"):
             ms, plain_ms = device_ms(kern), device_ms(plain, iters=3)
@@ -690,9 +716,15 @@ def phase_kernels(g: torch.Generator) -> dict:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         label = f"{name} [{opt['variant']}]" if "variant" in opt else name
         how = "device time, cold L2" if opt.get("device") else "CUDA events"
+        extra = ""
+        if "launch" in opt:
+            extra = (f"; {opt['launch']}; {flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{bound_ms / ms:.1%} of the bound")
+        if opt.get("repeat"):
+            extra += "; a repeat gave the same SHA-256"
         log(f"[kernels] {label}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib} ({how}), bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{flops:.3e} FLOP, {moved:.3e} B); output SHA-256 {digest[:16]}")
+            f"{flops:.3e} FLOP, {moved:.3e} B); output SHA-256 {digest[:16]}{extra}")
         torch.cuda.empty_cache()
     for name, err in worst.items():
         results[name]["max_abs_err"] = err

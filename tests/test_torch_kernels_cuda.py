@@ -24,7 +24,11 @@ strided column slice of a fused qkv buffer.
 K9 (csrc/block_attn.cu) is held to 1e-2 of each output's largest magnitude
 (o, and the row sums l and maxima m of the scaled logits), in both modes, on
 k and v read as row ranges of a cache buffer, with an empty key block and
-with rows that see no key (l = 0, m = -inf, o = 0 on both sides).
+with rows that see no key (l = 0, m = -inf, o = 0 on both sides); also where
+ops/block_attention.py:block_attn_plan splits the keys across blocks (a
+ragged Lk of 5,000, segments across a split boundary, Lq 1 and 12, GQA
+groups of 1 and 4), where a repeat must give the same bits (the splits merge
+in a fixed order, with no atomics). K6 must repeat its bits too.
 
 K2 also runs at every tile of FLASH_TILES (the K2 microbenchmark's sweep),
 and K10a (csrc/headgrid_attn.cu, the ViT attention microbenchmark's
@@ -43,7 +47,14 @@ import pytest
 import torch
 from torch_parity import packed_seq, require_cuda, rng, t
 
-from timeviper_tpu_torch.ops.block_attention import block_attn_lse, block_attn_lse_plain
+from timeviper_tpu_torch.ops import block_attention as block_attention_mod
+from timeviper_tpu_torch.ops import vit_attention as vit_attention_mod
+from timeviper_tpu_torch.ops.block_attention import (
+    ATTN_BKV,
+    block_attn_lse,
+    block_attn_lse_plain,
+    block_attn_plan,
+)
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_plain
 from timeviper_tpu_torch.ops.flash_attention import (
     FLASH_TILES,
@@ -169,6 +180,49 @@ def test_block_attention_kernel_matches_plain(case):
         assert (o[:, dead] == 0).all()
 
 
+@pytest.mark.parametrize("case", ["ragged", "segments", "question 1", "question 12",
+                                  "group 1"])
+def test_block_attention_split_kernel_matches_plain(case):
+    """Shapes where the plan splits the keys: 40 rows (or 1, or 12) of 32
+    heads against a ragged Lk of 5,000 (39 tiles and 8 keys) on 8 KV heads
+    (GQA groups of 4) or 32 (groups of 1). `segments`: row 0 sees only
+    keys of the first split, row 1 none at all, row 2 a segment that
+    crosses the first split boundary."""
+    dev = require_cuda()
+    r = rng(11)
+    B, Hq, D, Lk = 1, 32, 128, 5000
+    Hkv = 32 if case == "group 1" else 8
+    Lq = {"question 1": 1, "question 12": 12}.get(case, 40)
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    q, k, v = bf(B, Lq, Hq, D), bf(B, Lk, Hkv, D), bf(B, Lk, Hkv, D)
+    _, n_split, split_tiles = block_attn_plan(B, Lq, Lk, Hq, Hkv)
+    assert n_split > 1
+    kw = {}
+    if case == "segments":
+        edge = split_tiles * ATTN_BKV
+        seg_kv = torch.zeros(B, Lk, dtype=torch.int32, device=dev)
+        seg_kv[:, :100] = 1
+        seg_kv[:, edge - 50:edge + 50] = 2
+        seg_q = torch.zeros(B, Lq, dtype=torch.int32, device=dev)
+        seg_q[:, 0], seg_q[:, 1], seg_q[:, 2] = 1, 9, 2
+        kw = dict(seg_q=seg_q, seg_kv=seg_kv)
+    before = block_attn_lse.launches
+    got = block_attn_lse(q, k, v, **kw)
+    assert block_attn_lse.launches == before + 1
+    o, l, m = got
+    po, pl, pm = block_attn_lse_plain(q, k, v, **kw)
+    _close(o, po, 1e-2)
+    _close(l, pl, 1e-2)
+    assert torch.equal(torch.isneginf(m), torch.isneginf(pm))
+    _close(torch.where(torch.isneginf(pm), 0.0, m), torch.where(torch.isneginf(pm), 0.0, pm),
+           1e-2)
+    if case == "segments":
+        assert (l[:, :, 1] == 0).all() and torch.isneginf(m[:, :, 1]).all()
+        assert (o[:, 1] == 0).all()
+    again = block_attn_lse(q, k, v, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("L,packed", [(200, (13, 100)), (256, (64, 128)), (64, None)])
 def test_flash_kernel_matches_plain(L, packed):
     """Ragged tail or not; a -1 pad plus one boundary inside tiles or on the
@@ -226,11 +280,12 @@ def test_vit_kernel_matches_plain(T, hd):
     _close(vit_attention_qkv(qkv, H, hd), vit_attention_qkv_plain(qkv, H, hd), 1e-2)
 
 
-@pytest.mark.parametrize("T", [1025, 300])
+@pytest.mark.parametrize("T", [1025, 300, 65, 1])
 def test_whole_clip_kernel_matches_plain(T):
     """K6 on InternVideo2's heads (16 x 88): q and k contiguous, v a column
     slice of a fused qkv buffer (row stride 3 * 1408), as the tower gives
-    them; T 1025 (a ragged last tile of 1) and 300."""
+    them; T 1025 (a ragged last key of 1 and a last query row of 1), 300,
+    65 and 1. A repeat gives the same bits."""
     dev = require_cuda()
     B, H, hd = 3, 16, 88
     r = rng(9)
@@ -240,8 +295,30 @@ def test_whole_clip_kernel_matches_plain(T):
     v = qkv[..., 2 * H * hd:].view(B, T, H, hd)
     assert not v.is_contiguous()
     before = vit_attention.launches
-    _close(vit_attention(q, k, v), vit_attention_plain(q, k, v), 1e-2)
+    got = vit_attention(q, k, v)
+    _close(got, vit_attention_plain(q, k, v), 1e-2)
     assert vit_attention.launches == before + 1
+    assert torch.equal(got, vit_attention(q, k, v))
+
+
+@pytest.mark.parametrize("name,value", [("ATTN_BKV", 64), ("BLOCK_ROWS", 192),
+                                        ("VIT_ATTN_BLOCK_ROWS", 128)])
+def test_attention_kernels_refuse_a_plan_for_another_tile(monkeypatch, name, value):
+    """The Python side's tile (the split plan's keys a tile and rows a block,
+    K6's rows a block) is checked by the C entry point: a plan made for
+    another tile is refused, not launched."""
+    dev = require_cuda()
+    vit = name.startswith("VIT")
+    monkeypatch.setattr(vit_attention_mod if vit else block_attention_mod, name, value)
+
+    def zeros(heads, hd):
+        return torch.zeros(1, 40, heads, hd, dtype=torch.bfloat16, device=dev)
+
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if vit:
+            vit_attention(zeros(8, 88), zeros(8, 88), zeros(8, 88))
+        else:
+            block_attn_lse(zeros(8, 128), zeros(2, 128), zeros(2, 128))
 
 
 def test_kernels_raise_on_what_they_do_not_take():

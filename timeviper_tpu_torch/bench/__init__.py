@@ -2,7 +2,9 @@
 `python -m timeviper_tpu_torch.bench.microbench_vit_attn` and
 `python -m timeviper_tpu_torch.bench.microbench_flash`. Each prints one JSON
 object whose keys line up with the TPU script's, plus the card, its power
-limit and the torch and CUDA versions; nothing runs at import."""
+limit and the torch and CUDA versions; nothing runs at import.
+`python -m timeviper_tpu_torch.bench.attention_ab` times K6 and K9 for
+comparing two trees of the package on one card."""
 
 from __future__ import annotations
 

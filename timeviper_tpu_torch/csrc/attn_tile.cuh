@@ -1,7 +1,7 @@
 // Tiled online-softmax attention forward on bf16 tensor cores, shared by
-// flash_fwd.cu (causal GQA prefill), vit_attn_qkv.cu (non-causal whole-frame
-// ViT attention from the fused qkv buffer) and vit_attn.cu (non-causal
-// whole-clip attention from separate q, k and v).
+// flash_fwd.cu (causal GQA prefill) and vit_attn_qkv.cu (non-causal
+// whole-frame ViT attention from the fused qkv buffer). K9 and K6 run on
+// attn_sm90.cuh.
 //
 // One block of BQ / 16 warps owns BQ query rows of one (batch, head); each
 // warp owns 16 of them and streams the keys in tiles of BKV. The tile shape
@@ -15,30 +15,17 @@
 // read transposed out of shared memory by ldmatrix. Tiles move from device
 // memory in 16-byte vectors. Row max and sum are f32 and shared by the four
 // lanes of a row through shuffles. A head dim that is no multiple of 16
-// (SigLIP's 72, InternVideo2's 88) is zero-padded to the next one (80, 96)
-// for Q K^T only.
+// (SigLIP's 72) is zero-padded to the next one (80) for Q K^T only.
 //
 // Every row stride and head offset must be a multiple of 8 elements and the
 // base pointers 16-byte aligned (the wrappers check).
 //
 // Element (b, t, h, d) of q sits at q + b*q_bs + t*q_rs + h*q_hs + d, and the
 // same for k, v and o: the caller's strides let one kernel read heads
-// straight out of a fused projection buffer. v shares k's strides, unless the
-// kernel is instantiated with OWN_V and takes AttnArgsV (vit_attn.cu: v is a
-// column slice of the qkv buffer while q and k come from the q/k norms).
-// AttnArgs itself stays as it is: on the H100, 16 more bytes in it changed
-// the instruction schedule of K2 and K3 and slowed both (see PERF.md), so
-// the shared-stride instantiations keep their smaller argument struct.
-//
-// Instantiated with LM (block_attn.cu, K9) the kernel takes AttnArgsLM: the
-// query rows' segment ids come from `seg` (B, Lq) and the keys' from
-// `seg_kv` (B, Lk), so a rectangular block (Lq != Lk) can be masked, and
-// each row's running sum l and max m of the scaled logits are written as
-// (B, Hq, Lq) f32 instead of the log-sum-exp. A row that sees no key keeps
-// l = 0, m = -inf and an output of 0.
+// straight out of a fused projection buffer; v shares k's strides. AttnArgs
+// stays as it is: on the H100, 16 more bytes in it changed the instruction
+// schedule of K2 and K3 and slowed both (see PERF.md).
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -60,21 +47,6 @@ struct AttnArgs {
   float scale;
 };
 
-struct AttnArgsV : AttnArgs {
-  long long v_bs;
-  int v_rs, v_hs;
-};
-
-struct AttnArgsLM : AttnArgs {
-  const int* seg_kv;  // (B, Lk) segment ids of the keys; null iff seg is
-  float* l;           // (B, Hq, Lq) row sum of exp(s - m)
-  float* m;           // (B, Hq, Lq) row max of the scaled logits s
-};
-
-template <bool OWN_V, bool LM = false>
-using AttnArgsOf =
-    std::conditional_t<LM, AttnArgsLM, std::conditional_t<OWN_V, AttnArgsV, AttnArgs>>;
-
 template <int HD, int BQ = kAttnBQ, int BKV = kAttnBKV>
 struct AttnShape {
   static constexpr int HDP = (HD + 15) / 16 * 16;  // Q K^T depth, padded
@@ -90,10 +62,8 @@ struct AttnShape {
 
 // grid (ceil(Lq / BQ), Hq, B), 2 * BQ threads, AttnShape<HD, BQ, BKV>::smem of
 // dynamic smem.
-template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false, int BQ = kAttnBQ,
-          int BKV = kAttnBKV>
-__global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
-    attn_fwd_kernel(AttnArgsOf<OWN_V, LM> a) {
+template <int HD, bool CAUSAL, int BQ = kAttnBQ, int BKV = kAttnBKV>
+__global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads) attn_fwd_kernel(AttnArgs a) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   using S = AttnShape<HD, BQ, BKV>;
   static_assert(BKV <= S::threads, "one thread per key loads the key segments");
@@ -111,7 +81,6 @@ __global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
   const __nv_bfloat16* qb = a.q + b * a.q_bs + (long long)h * a.q_hs;
   const __nv_bfloat16* kb = a.k + b * a.k_bs + (long long)hk * a.k_hs;
   const __nv_bfloat16* vb = a.v + b * a.k_bs + (long long)hk * a.k_hs;
-  if constexpr (OWN_V) vb = a.v + b * a.v_bs + (long long)hk * a.v_hs;
 
   for (int e = tid; e < BQ * VPR; e += kAttnThreads) {
     const int r = e / VPR, d = (e % VPR) * 8, t = q0 + r;
@@ -151,17 +120,11 @@ __global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
       const int j = e / VPR, d = (e % VPR) * 8, t = kv0 + j;
       const bool in = t < a.Lk && d < HD;
       *reinterpret_cast<uint4*>(Ks + j * LD + d) = ld_row8(kb + (long long)t * a.k_rs + d, in);
-      if constexpr (OWN_V)
-        *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.v_rs + d, in);
-      else
-        *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.k_rs + d, in);
+      *reinterpret_cast<uint4*>(Vs + j * LD + d) = ld_row8(vb + (long long)t * a.k_rs + d, in);
     }
     if (tid < BKV) {
       const int t = kv0 + tid;
-      if constexpr (LM)
-        segk[tid] = (a.seg_kv != nullptr && t < a.Lk) ? a.seg_kv[(long long)b * a.Lk + t] : 0;
-      else
-        segk[tid] = (a.seg != nullptr && t < a.Lk) ? a.seg[(long long)b * a.Lk + t] : 0;
+      segk[tid] = (a.seg != nullptr && t < a.Lk) ? a.seg[(long long)b * a.Lk + t] : 0;
     }
     __syncthreads();
 
@@ -247,13 +210,7 @@ __global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
     const float inv = l[row] > 0.f ? 1.f / l[row] : 0.f;
     // the backward recomputes P = exp(s * scale - lse); a row that saw no
     // key gets +inf, so its P is 0
-    if constexpr (LM) {
-      if ((lane & 3) == 0) {
-        const long long i = ((long long)b * a.Hq + h) * a.Lq + qpos[row];
-        a.l[i] = l[row];
-        a.m[i] = m[row];
-      }
-    } else if (a.lse != nullptr && (lane & 3) == 0) {
+    if (a.lse != nullptr && (lane & 3) == 0) {
       a.lse[((long long)b * a.Hq + h) * a.Lq + qpos[row]] =
           l[row] > 0.f ? m[row] + logf(l[row]) : INFINITY;
     }
@@ -266,11 +223,10 @@ __global__ void __launch_bounds__(AttnShape<HD, BQ, BKV>::threads)
   }
 }
 
-template <int HD, bool CAUSAL, bool OWN_V = false, bool LM = false, int BQ = kAttnBQ,
-          int BKV = kAttnBKV>
-int launch_attn(const AttnArgsOf<OWN_V, LM>& a, int B, cudaStream_t stream) {
+template <int HD, bool CAUSAL, int BQ = kAttnBQ, int BKV = kAttnBKV>
+int launch_attn(const AttnArgs& a, int B, cudaStream_t stream) {
   using S = AttnShape<HD, BQ, BKV>;
-  auto kernel = attn_fwd_kernel<HD, CAUSAL, OWN_V, LM, BQ, BKV>;
+  auto kernel = attn_fwd_kernel<HD, CAUSAL, BQ, BKV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::smem);
   if (err != cudaSuccess) return err;

@@ -57,9 +57,9 @@ extern "C" int tv_flash_fwd(const void* q, const void* k, const void* v, const v
   if (D != 128 || Hq % Hkv != 0 || (seg != nullptr && Lq != Lk)) return cudaErrorInvalidValue;
   const tv::AttnArgs a = flash_args(q, k, v, seg, o, lse, Lq, Lk, Hq, Hkv, D, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bq == 64 && bkv == 64) return tv::launch_attn<128, true, false, false, 64, 64>(a, B, s);
-  if (bq == 64 && bkv == 128) return tv::launch_attn<128, true, false, false, 64, 128>(a, B, s);
-  if (bq == 128 && bkv == 64) return tv::launch_attn<128, true, false, false, 128, 64>(a, B, s);
-  if (bq == 128 && bkv == 128) return tv::launch_attn<128, true, false, false, 128, 128>(a, B, s);
+  if (bq == 64 && bkv == 64) return tv::launch_attn<128, true, 64, 64>(a, B, s);
+  if (bq == 64 && bkv == 128) return tv::launch_attn<128, true, 64, 128>(a, B, s);
+  if (bq == 128 && bkv == 64) return tv::launch_attn<128, true, 128, 64>(a, B, s);
+  if (bq == 128 && bkv == 128) return tv::launch_attn<128, true, 128, 128>(a, B, s);
   return cudaErrorInvalidValue;
 }

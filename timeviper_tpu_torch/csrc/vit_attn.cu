@@ -11,44 +11,45 @@
 // come out of the full-width q/k RMSNorm as their own (B, T, H*hd) tensors,
 // v is a column slice of the fused qkv projection (row stride 3*H*hd), so
 // nothing is padded or copied. It scales the f32 logits, subtracts the
-// running row max (attn_tile.cuh) and sums the f32 probabilities, which
-// equals the TPU kernel's result wherever the logits stay below 75.
+// running row max and sums the f32 probabilities, which equals the TPU
+// kernel's result wherever the logits stay below 75.
 //
 // What bounds it on the H100: the 4 * T^2 * hd products per (clip, head),
-// 5.9 GFLOP per clip over 16 heads at T = 1025, run on the bf16 tensor
-// cores through mma.sync. hd = 88 is no multiple of the MMA depth 16, so Q
-// and K are zero-padded to 96 columns in shared memory for Q K^T; P V needs
-// no padding (88 = 11 output tiles of 8). One block per 64 query rows of one
-// (clip, head): 17 x 16 x B blocks, 272 per clip, which fills 132 SMs at any
-// clip count.
-#include "attn_tile.cuh"
+// 5.9 GFLOP per clip over 16 heads at T = 1025, on the bf16 tensor cores.
+// The kernel is attn_sm90.cuh's (wgmma fed by a TMA ring from a producer
+// warp) at hd 88: TMA reads each row as three 32-column boxes (64-byte
+// swizzle) of a map whose head dim is 88, so columns 88-95 arrive as zeros
+// and Q K^T runs at depth 96 with no copy; P V runs at N = 88. Three
+// consumer warpgroups take 192 query rows a block, so a clip's 1,025 rows
+// fill 17 of 18 warpgroup tiles (6 blocks a (clip, head), 1,536 at 16
+// clips) where 128-row blocks would leave a ninth block for one row. The
+// keys come in tiles of 64 (three warpgroups get 160 registers a thread,
+// too few for 128-key tiles with Q K^T and P V in flight at once); the
+// 1,025th key runs as a 16-key tile (wgmma N 16), not a whole 64-key one.
+#include "attn_sm90.cuh"
 
+namespace {
+constexpr int kBKV = 64;  // keys a tile
+constexpr int kNWG = 3;   // consumer warpgroups, 64 query rows each
+}
+
+// block_rows: the query rows a block that the caller counts blocks in; a
+// launch for another tile is refused.
 extern "C" int tv_vit_attn(const void* q, const void* k, const void* v, void* o, int B, int T,
                            int H, int hd, long long q_bs, int q_rs, long long k_bs, int k_rs,
-                           long long v_bs, int v_rs, float scale, void* stream) {
-  tv::AttnArgsV a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.seg = nullptr;
-  a.q_bs = q_bs;
-  a.q_rs = q_rs;
-  a.q_hs = hd;
-  a.k_bs = k_bs;
-  a.k_rs = k_rs;
-  a.k_hs = hd;
-  a.v_bs = v_bs;
-  a.v_rs = v_rs;
-  a.v_hs = hd;
-  a.o_bs = (long long)T * H * hd;  // the output is a fresh contiguous (B, T, H, hd)
-  a.o_rs = H * hd;
-  a.o_hs = hd;
-  a.Lq = T; a.Lk = T; a.Hq = H; a.Hkv = H;
-  a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 88: return tv::launch_attn<88, false, true>(a, B, s);
-    default: return cudaErrorInvalidValue;
-  }
+                           long long v_bs, int v_rs, int block_rows, float scale, void* stream) {
+  using namespace tv::sm90;
+  if (block_rows != kNWG * 64 || hd != 88 || B < 1 || T < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  AttnParams p{};
+  if (!(encode_map(&p.tq, q, hd, H, T, B, hd, q_rs, q_bs, 32, 1, 64) &&
+        encode_map(&p.tk, k, hd, H, T, B, hd, k_rs, k_bs, 32, 1, kBKV) &&
+        encode_map(&p.tv, v, hd, H, T, B, hd, v_rs, v_bs, 32, 1, kBKV)))
+    return cudaErrorInvalidValue;
+  p.o = static_cast<__nv_bfloat16*>(o);  // a fresh contiguous (B, T, H, hd)
+  p.B = B; p.Lq = T; p.Lk = T; p.Hq = H; p.Hkv = H;
+  p.pack = 1; p.n_split = 1; p.split_tiles = (T + kBKV - 1) / kBKV;
+  p.scale = scale;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  return launch<88, 32, kNWG, kBKV, false>(p, static_cast<cudaStream_t>(stream));
 }

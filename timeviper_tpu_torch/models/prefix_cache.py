@@ -56,7 +56,7 @@ from timeviper_tpu_torch.models.nano import (
     mamba_in_proj,
     mlp_mixer_forward,
 )
-from timeviper_tpu_torch.ops.block_attention import block_attn_lse
+from timeviper_tpu_torch.ops.block_attention import block_attn_lse, merge_parts
 from timeviper_tpu_torch.ops.conv import causal_conv1d
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
 from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan
@@ -95,32 +95,16 @@ def _mamba_continue(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor,
                            "ssm_state": final_state}
 
 
-def merge_blocks(prefix, suffix) -> torch.Tensor:
-    """Merge two (o, l, m) results over disjoint key sets into one output
-    (B, S, Hq, D) in o's dtype. A part whose row saw no key (l = 0) gets
-    weight 0, so an empty or fully masked part leaves the other alone."""
-    (o_p, l_p, m_p), (o_s, l_s, m_s) = prefix, suffix
-    m_new = torch.maximum(m_p, m_s)  # (B, Hq, S)
-    a = torch.where(l_p > 0, l_p * torch.exp(m_p - m_new), 0.0)
-    b = torch.where(l_s > 0, l_s * torch.exp(m_s - m_new), 0.0)
-    denom = torch.clamp(a + b, min=1e-30)
-    wa = (a / denom).transpose(1, 2)[..., None]  # (B, S, Hq, 1)
-    wb = (b / denom).transpose(1, 2)[..., None]
-    out = (torch.where(wa > 0, o_p.float() * wa, 0.0)
-           + torch.where(wb > 0, o_s.float() * wb, 0.0))
-    return out.to(o_p.dtype)
-
-
 def attention_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
                      valid_from: int = 0) -> torch.Tensor:
     """Attention of S suffix queries q (B, S, Hq, hd) over a cache buffer k,
     v (B, M, Hkv, hd) whose rows [length, length + S) already hold the
     suffix's own K/V: query i sees rows [valid_from, length + i]. Two K9
-    blocks, merged by (l, m)."""
+    blocks, merged by (l, m) (ops/block_attention.py:merge_parts)."""
     S = q.shape[1]
     prefix = block_attn_lse(q, k[:, valid_from:length], v[:, valid_from:length], causal=False)
     own = block_attn_lse(q, k[:, length:length + S], v[:, length:length + S], causal=True)
-    return merge_blocks(prefix, own)
+    return merge_parts([prefix, own])[0]
 
 
 def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,

@@ -23,6 +23,14 @@ kernel gave NaN there).
 `block_attn_lse` is the entry point: a CPU tensor takes the plain version,
 `block_attn_lse_plain`; a CUDA tensor launches the kernel (csrc/block_attn.cu)
 or raises.
+
+The kernel's launch plan is `block_attn_plan`, a function of the shapes
+alone: how many query heads of one KV head a block packs, and whether the
+keys are split across blocks in whole tiles when the blocks of a call would
+not fill the card (a short question against a long prefix). Split partials
+are merged in a fixed order; `merge_parts` is that merge's plain
+counterpart, and the continuation (models/prefix_cache.py) merges its prefix
+and suffix parts with it.
 """
 
 from __future__ import annotations
@@ -35,6 +43,57 @@ import torch
 from timeviper_tpu_torch.ops import _cuda
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# The kernel's tile, which the plan counts in; tv_block_attn refuses a launch
+# whose tile is not its own (csrc/block_attn.cu: kBKV, two consumer
+# warpgroups of 64 rows)
+ATTN_BKV = 128  # keys a tile
+BLOCK_ROWS = 128  # (row, head) pairs a block
+SPLIT_TARGET_BLOCKS = 256  # a fixed target, about two blocks per SM of an H100
+MIN_SPLIT_TILES = 4  # a split walks at least this many key tiles
+
+
+def block_attn_plan(B: int, Lq: int, Lk: int, Hq: int, Hkv: int,
+                    causal: bool = False) -> Tuple[int, int, int]:
+    """(pack, n_split, split_tiles) of a K9 launch, from the shapes alone.
+
+    pack: the query heads of one KV head that a block serves, the largest
+    power of two that divides Hq / Hkv and 64 (a warpgroup's 64 rows hold
+    64 / pack rows of pack heads). n_split: how many blocks share the keys of
+    one set of query rows, each walking split_tiles tiles of ATTN_BKV keys
+    (the last split may walk fewer, none walks none): more than 1 only when a
+    non-causal call would launch fewer than SPLIT_TARGET_BLOCKS blocks and has
+    at least 2 * MIN_SPLIT_TILES key tiles."""
+    rep = Hq // Hkv
+    pack = 1
+    while pack < 64 and rep % (2 * pack) == 0:
+        pack *= 2
+    tiles = -(-Lk // ATTN_BKV)
+    blocks = -(-Lq * pack // BLOCK_ROWS) * (Hq // pack) * B
+    n_split = 1
+    if not causal and blocks:
+        n_split = min(-(-SPLIT_TARGET_BLOCKS // blocks), tiles // MIN_SPLIT_TILES)
+    if n_split <= 1:
+        return pack, 1, max(tiles, 1)
+    split_tiles = -(-tiles // n_split)
+    return pack, -(-tiles // split_tiles), split_tiles
+
+
+def merge_parts(parts) -> Result:
+    """Merge (o (B, Lq, Hq, D), l, m (B, Hq, Lq)) results over disjoint key
+    sets, in list order: a part whose row saw no key (l = 0) gets weight 0,
+    so an empty or fully masked part leaves the others alone. Returns (o in
+    the first part's dtype, l, m) relative to the merged row max; the plain
+    counterpart of csrc/block_attn.cu:attn_merge_kernel."""
+    m = torch.stack([p[2] for p in parts]).amax(dim=0)
+    weights = [torch.where(l_s > 0, l_s * torch.exp(m_s - m), 0.0) for _, l_s, m_s in parts]
+    total = torch.stack(weights).sum(dim=0)
+    denom = torch.clamp(total, min=1e-30)
+    o = 0.0
+    for (o_s, _, _), a in zip(parts, weights):
+        w = (a / denom).transpose(1, 2)[..., None]
+        o = o + torch.where(w > 0, o_s.float() * w, 0.0)
+    return o.to(parts[0][0].dtype), total, m
 
 
 def fold_segments(B: int, Lq: int, Lk: int, valid_kv=None, valid_q=None, seg_q=None,
@@ -96,15 +155,25 @@ def block_attn_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     Lk, Hkv = k.shape[1], k.shape[2]
     _check(q, k, v, causal)
     sq, sk = fold_segments(B, Lq, Lk, valid_kv, valid_q, seg_q, seg_kv, q.device)
+    pad = -Lk % 4  # TMA reads the key ids from rows of whole 16-byte units
+    if sk is not None and (pad or sk.data_ptr() % 16):
+        sk = torch.cat([sk, sk.new_zeros(B, pad)], dim=1)
     o = torch.empty_like(q)
     l = torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     if Lq == 0:
         return o, l, m
+    pack, n_split, split_tiles = block_attn_plan(B, Lq, Lk, Hq, Hkv, causal)
+    o_part = l_part = m_part = None
+    if n_split > 1:  # scratch for the splits' partial results
+        o_part = torch.empty(n_split, B, Lq, Hq, D, dtype=torch.float32, device=q.device)
+        l_part = torch.empty(n_split, B, Hq, Lq, dtype=torch.float32, device=q.device)
+        m_part = torch.empty_like(l_part)
     p = _cuda.ptr
     err = _cuda.lib().tv_block_attn(
-        p(q), p(k), p(v), p(sq), p(sk), p(o), p(l), p(m), B, Lq, Lk, Hq, Hkv, D, k.stride(0),
-        int(causal), 1.0 / math.sqrt(D), _cuda.stream_of(q))
+        p(q), p(k), p(v), p(sq), p(sk), p(o), p(l), p(m), p(o_part), p(l_part), p(m_part),
+        B, Lq, Lk, Hq, Hkv, D, k.stride(0), int(causal), ATTN_BKV, BLOCK_ROWS, pack, n_split,
+        split_tiles, 1.0 / math.sqrt(D), _cuda.stream_of(q))
     _cuda.check(err, "tv_block_attn")
     block_attn_lse.launches += 1
     return o, l, m

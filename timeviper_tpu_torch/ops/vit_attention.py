@@ -29,6 +29,9 @@ from timeviper_tpu_torch.ops import _cuda
 from timeviper_tpu_torch.ops.attention import attention
 
 VIT_ATTN_HEAD_DIMS = (88,)  # instantiated in csrc/vit_attn.cu
+# query rows a block of that kernel (three consumer warpgroups of 64), which
+# tv_vit_attn checks: a clip's 1,025 rows take 6 blocks a head
+VIT_ATTN_BLOCK_ROWS = 192
 
 
 def vit_attention_qkv_plain(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
@@ -107,7 +110,7 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     err = _cuda.lib().tv_vit_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, hd,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        hd ** -0.5, _cuda.stream_of(q))
+        VIT_ATTN_BLOCK_ROWS, hd ** -0.5, _cuda.stream_of(q))
     _cuda.check(err, "tv_vit_attn")
     vit_attention.launches += 1
     return out
