@@ -14,20 +14,24 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    TF32 off for matmuls and convolutions.
 2. build: compile csrc/*.cu (one nvcc per source, all started together) into
    one library; print the seconds and each kernel's registers and spills,
-   and for the Hopper attention kernels (K9, K6: csrc/attn_sm90.cuh) their
-   entry names, ptxas's notes and their dynamic shared memory a block.
+   and for the Hopper attention kernels (K9, K2, K6, K3: csrc/attn_sm90.cuh)
+   their entry names and ptxas's notes.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat, and K9 and K6 bitwise-equal outputs (their lines
-   also give the key splits and blocks of the launch, the achieved TFLOP/s
-   and the share of the bound). K2 also runs at each tile of the K2
-   microbenchmark's sweep, K10a at 8 frames for 1, 2 and 4 heads a block,
-   with the exp and without it. Each output's SHA-256 is printed, to compare
-   the kernels' bits across runs and machines.
+   gradients on a repeat, and K9, K2, K6 and K3 bitwise-equal outputs (their
+   lines also give the launch plan, the achieved TFLOP/s and the share of
+   the bound). K2 runs with segment ids (its library yardstick SDPA with a
+   boolean mask, which takes SDPA's masked backend), without them (SDPA's
+   flash backend with is_causal), with its row log-sum-exp (held against
+   the plain one) and at each tile of the K2 microbenchmark's sweep; K2-bwd
+   takes that forward's log-sum-exp. K3 runs at SigLIP's shape and at
+   DINOv2-L's (hd 64, T 734); K10a at 8 frames for 1, 2 and 4 heads a
+   block, with the exp and without it. Each output's SHA-256 is printed, to
+   compare the kernels' bits across runs and machines.
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
    heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
@@ -108,9 +112,10 @@ The line before the last is one JSON object {"kernels": [...]}; the last is
 
     python3 chip_smoke.py --profile
 
-also profiles one more training step on the 256-frame row after the checks,
-and the int8 256-frame request with the fusions off and on (torch.profiler;
-device time by kernel name and the device's busy share).
+also profiles the bf16 encode of the 256-frame request, one more training
+step on the 256-frame row after the checks, and the int8 256-frame request
+with the fusions off and on (torch.profiler; device time by kernel name and
+the device's busy share).
 """
 
 from __future__ import annotations
@@ -152,6 +157,7 @@ from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
     block_attn_lse_plain,
     block_attn_plan,
 )
+from timeviper_tpu_torch.ops.block_attention import gqa_pack  # noqa: E402
 from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
     fused_mamba_decode,
     fused_mamba_decode_plain,
@@ -164,6 +170,7 @@ from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    flash_lse_plain,
 )
 from timeviper_tpu_torch.ops.headgrid_attention import (  # noqa: E402
     headgrid_attention,
@@ -183,6 +190,7 @@ from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
 )
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
     VIT_ATTN_BLOCK_ROWS,
+    VIT_QKV_BLOCK_ROWS,
     vit_attention,
     vit_attention_plain,
     vit_attention_qkv,
@@ -223,8 +231,10 @@ FUSIONS = ("TIMEVIPER_FUSED_CONV", "TIMEVIPER_FUSED_DECODE", "TIMEVIPER_VIT_FUSE
 KERNELS = {
     "ssd_fwd": dict(source="timeviper_tpu_torch/csrc/ssd_fwd.cu",
                     replaces="timeviper_tpu/ops/ssd_pallas.py:52", rel_tol=1e-2),
+    # K2: o as the other forward kernels; its row log-sum-exp (the variant
+    # that returns it), f32 sums of bf16 logits in other orders, to 1e-4
     "flash_fwd": dict(source="timeviper_tpu_torch/csrc/flash_fwd.cu",
-                      replaces="timeviper_tpu/ops/flash_pallas.py:39", rel_tol=1e-2),
+                      replaces="timeviper_tpu/ops/flash_pallas.py:39", rel_tol=(1e-2, 1e-4)),
     "vit_attn_qkv": dict(source="timeviper_tpu_torch/csrc/vit_attn_qkv.cu",
                          replaces="timeviper_tpu/ops/vit_attention.py:197", rel_tol=1e-2),
     "vit_attn": dict(source="timeviper_tpu_torch/csrc/vit_attn.cu",
@@ -404,14 +414,28 @@ def ssd_flops(L, H, P, G, N, cs, backward=False) -> float:
     return nc * (G * cs * cs * N + H * cs * cs * P + 4 * H * cs * P * N)
 
 
-def sdpa(q, k, v, seq=None, causal=True):
+def sdpa(q, k, v, seq=None, causal=True, flash=False):
     """torch's scaled_dot_product_attention, the library yardstick (timed
     here, called nowhere in the port), on (B, L, H, D) inputs: the KV heads
     repeated for GQA and the layout changed once, outside the timed call; the
-    causal and segment mask given as a boolean mask. Returns (call, inputs)."""
+    causal and segment mask given as a boolean mask, which takes SDPA's
+    masked backend. `flash`: causal with no segments as is_causal, on
+    contiguous inputs, forced to SDPA's flash backend. Returns (call,
+    inputs)."""
     rep = q.shape[2] // k.shape[2]
     inputs = (q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
               v.repeat_interleave(rep, 2).transpose(1, 2))
+    if flash:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        inputs = tuple(x.contiguous() for x in inputs)
+
+        def flash_call(*qkv):
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(*(qkv or inputs),
+                                                                        is_causal=True)
+
+        return flash_call, inputs
     mask = None
     if causal:
         L = q.shape[1]
@@ -453,7 +477,8 @@ def phase_build() -> None:
     sm90 = False  # inside the log of a source built on csrc/attn_sm90.cuh
     for line in _cuda.build_log.splitlines():
         if line.startswith("=="):
-            sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu")
+            sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu", "flash_fwd.cu",
+                                "vit_attn_qkv.cu")
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or sm90 and ("entry function" in line or "warning" in line.lower()
                              or "(C75" in line)):  # ptxas's wgmma notes
@@ -504,14 +529,35 @@ def kernel_cases(g: torch.Generator):
     del states, outs
 
     # K2 / K2-bwd: one attention layer of the 9B at L = 4096, same segments
+    # (the main case: the paths pass ids, -1 for left pads); then without
+    # segments, against SDPA's flash backend; then with the row log-sum-exp
+    # that K2-bwd takes
     Hq, Hkv, hd = 32, 8, 128
     q, k, v = randn(1, L, Hq, hd), randn(1, L, Hkv, hd), randn(1, L, Hkv, hd)
     pairs = causal_pairs(seq)
     out, lse = flash_attention_fwd(q, k, v, seq, with_lse=True)
     lib, lib_inputs = sdpa(q, k, v, seq)
+    pack = gqa_pack(Hq, Hkv)
+
+    def k2_plan(tile):
+        blocks = -(-L * pack // tile[0]) * (Hq // pack)
+        return (f"{blocks} blocks of {tile[0]} (row, head) pairs ({tile[0] // pack} tokens x "
+                f"{pack} heads), {tile[1]} keys a tile")
+
     yield ("flash_fwd", lambda: flash_attention(q, k, v, segment_ids=seq),
            lambda: flash_attention_plain(q, k, v, segment_ids=seq), lib,
-           (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out)))
+           (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out)),
+           dict(variant="segmented; library: SDPA with a boolean mask (masked backend)",
+                repeat=True, launch=k2_plan(FLASH_TILE)))
+    yield ("flash_fwd", lambda: flash_attention(q, k, v),
+           lambda: flash_attention_plain(q, k, v), sdpa(q, k, v, flash=True)[0],
+           (4 * Hq * hd * L * (L + 1) // 2, nbytes(q, k, v, out)),
+           dict(variant="unsegmented; library: SDPA flash backend, is_causal", main=False,
+                repeat=True, launch=k2_plan(FLASH_TILE)))
+    yield ("flash_fwd", lambda: flash_attention_fwd(q, k, v, seq, with_lse=True),
+           lambda: (flash_attention_plain(q, k, v, segment_ids=seq), flash_lse_plain(q, k, seq)),
+           None, (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out, lse)),
+           dict(variant="segmented, with the row log-sum-exp", main=False, repeat=True))
     do = randn(1, L, Hq, hd)
 
     def lib_fwd_bwd():
@@ -527,17 +573,23 @@ def kernel_cases(g: torch.Generator):
                lambda tile=tile: flash_attention_fwd(q, k, v, seq, False, tile)[0],
                lambda: flash_attention_plain(q, k, v, segment_ids=seq), lib,
                (4 * Hq * hd * pairs, nbytes(q, k, v, seq, out)),
-               dict(variant=f"tile {tile[0]} x {tile[1]}", main=False))
+               dict(variant=f"tile {tile[0]} x {tile[1]}", main=False, launch=k2_plan(tile)))
     del lib, lib_inputs
 
-    # K3: one SigLIP-SO400M layer over 8 frames
+    # K3: one SigLIP-SO400M layer over 8 frames (the main case), and one
+    # DINOv2-L layer (1 + 4 registers + 729 patches, hd 64) over 8 frames
     F_, T, nh, vhd = 8, 729, 16, 72
-    qkv = randn(F_, T, 3 * nh * vhd)
-    vq, vk, vv = qkv.reshape(F_, T, 3, nh, vhd).unbind(2)
-    yield ("vit_attn_qkv", lambda: vit_attention_qkv(qkv, nh, vhd),
-           lambda: vit_attention_qkv_plain(qkv, nh, vhd), sdpa(vq, vk, vv, causal=False)[0],
-           (4 * F_ * nh * T * T * vhd, nbytes(qkv) * 4 // 3))
-    del qkv, vq, vk, vv
+    for T3, hd3 in ((T, vhd), (734, 64)):
+        qkv = randn(F_, T3, 3 * nh * hd3)
+        vq, vk, vv = qkv.reshape(F_, T3, 3, nh, hd3).unbind(2)
+        yield ("vit_attn_qkv", lambda qkv=qkv, hd3=hd3: vit_attention_qkv(qkv, nh, hd3),
+               lambda qkv=qkv, hd3=hd3: vit_attention_qkv_plain(qkv, nh, hd3),
+               sdpa(vq, vk, vv, causal=False)[0],
+               (4 * F_ * nh * T3 * T3 * hd3, nbytes(qkv) * 4 // 3),
+               dict(variant=f"T {T3}, hd {hd3}", main=hd3 == vhd, repeat=True,
+                    launch=f"{-(-T3 // VIT_QKV_BLOCK_ROWS) * nh * F_} blocks of "
+                           f"{VIT_QKV_BLOCK_ROWS} rows"))
+        del qkv, vq, vk, vv
 
     # K10a: the ViT microbenchmark's head-grid kernel on one SigLIP layer over
     # 8 frames, heads padded from 72 to 128 columns, at each hpp with and
@@ -907,9 +959,10 @@ def logits_agree(tag: str, got, want, min_cos: float = 0.99) -> None:
         raise AssertionError(f"{tag}: first-token logits disagree")
 
 
-def phase_serving(model, arch, kernel_results: dict) -> dict:
+def phase_serving(model, arch, kernel_results: dict, profile: bool = False) -> dict:
     """Returns the bf16 model's first-token logits of the requests and
-    `tower` of 16 of the 64 frames, the int8 phase's references."""
+    `tower` of 16 of the 64 frames, the int8 phase's references. `profile`:
+    also profile the 256-frame request's encode."""
     for var in FUSIONS:  # the fused kernels off, as by default
         os.environ[var] = "0"
     gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
@@ -933,6 +986,10 @@ def phase_serving(model, arch, kernel_results: dict) -> dict:
     del captures
     torch.cuda.empty_cache()
     check_against_plain_run(gen, requests, outs, "serve")
+    if profile:
+        with torch.no_grad():
+            profile_call("bf16 encode of the 256-frame request",
+                         lambda: encode_visual(model, arch, requests[2][1][1]))
     return {"logits": {label: o.first_logits for label, o in outs.items()},
             "tower": tower(model, arch, requests[1][1][1][:16])}
 
@@ -1666,7 +1723,8 @@ def int8_tower_request(model, arch, gen, requests, bf16_outs, blocks, tag: str) 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile a training step and an int8 request after the checks")
+                        help="profile the bf16 256-frame encode, a training step and an int8 "
+                             "request after the checks")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -1680,7 +1738,7 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[model] TimeViper-9B: {n_params / 1e9:.2f} B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
-    bf16 = phase_serving(model, arch, results)
+    bf16 = phase_serving(model, arch, results, profile=args.profile)
     phase_long_video(model, arch, results)
     phase_engine(model, arch, smi, results)
     phase_training(model, arch, results, profile=args.profile)

@@ -30,8 +30,11 @@ ragged Lk of 5,000, segments across a split boundary, Lq 1 and 12, GQA
 groups of 1 and 4), where a repeat must give the same bits (the splits merge
 in a fixed order, with no atomics). K6 must repeat its bits too.
 
-K2 also runs at every tile of FLASH_TILES (the K2 microbenchmark's sweep),
-and K10a (csrc/headgrid_attn.cu, the ViT attention microbenchmark's
+K2 (csrc/flash_fwd.cu) and K3 (csrc/vit_attn_qkv.cu) run on
+csrc/attn_sm90.cuh like K9 and K6 and must repeat their bits too; K2's row
+log-sum-exp, which K2-bwd takes, is held to 1e-4 of its largest magnitude
+(f32 sums of the same bf16 logits in another order). K2 also runs at every
+tile of FLASH_TILES (the K2 microbenchmark's sweep), and K10a (csrc/headgrid_attn.cu, the ViT attention microbenchmark's
 head-grid kernel) at 1, 2 and 4 heads a block, with the exp and without it,
 both to 1e-2 of the largest magnitude like the other forward kernels (K10a
 with no floor of 1: its outputs are averages of v, far below 1).
@@ -45,9 +48,10 @@ than 0.1% of elements (ties of y * act_inv, whose sums differ in order).
 import numpy as np
 import pytest
 import torch
-from torch_parity import packed_seq, require_cuda, rng, t
+from torch_parity import packed_seq, require_cuda, rng, row_pads, t
 
 from timeviper_tpu_torch.ops import block_attention as block_attention_mod
+from timeviper_tpu_torch.ops import flash_attention as flash_attention_mod
 from timeviper_tpu_torch.ops import vit_attention as vit_attention_mod
 from timeviper_tpu_torch.ops.block_attention import (
     ATTN_BKV,
@@ -63,6 +67,7 @@ from timeviper_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
+    flash_lse_plain,
 )
 from timeviper_tpu_torch.ops.headgrid_attention import (
     headgrid_attention,
@@ -223,18 +228,46 @@ def test_block_attention_split_kernel_matches_plain(case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("L,packed", [(200, (13, 100)), (256, (64, 128)), (64, None)])
+@pytest.mark.parametrize("L,packed", [(200, (13, 100)), (256, (64, 128)), (64, None),
+                                      (1, None), (63, (5, 40)), (300, (13, 140)),
+                                      (300, (32, 128)), (203, "rows")])
 def test_flash_kernel_matches_plain(L, packed):
-    """Ragged tail or not; a -1 pad plus one boundary inside tiles or on the
-    64-row tile edges."""
+    """Ragged tail or not (L 1, 63, 203, 300: L % 4 != 0 too, so the key ids
+    are padded); a -1 pad plus one boundary inside tiles, or on the 32-token
+    block and 128-key tile edges; B 3 with a pad of its own per row. A
+    repeat gives the same bits."""
     dev = require_cuda()
     r = rng(1)
-    B, Hq, Hkv, D = 2, 8, 2, 128
+    B, Hq, Hkv, D = (3 if packed == "rows" else 2), 8, 2, 128
     q, k, v = (t(r.standard_normal((B, L, h, D), np.float32)).to(dev, torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
-    seg = t(packed_seq(B, L, *packed)).to(dev) if packed else None
-    _close(flash_attention(q, k, v, segment_ids=seg),
-           flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+    seg = None
+    if packed == "rows":
+        seg = t(row_pads(B, L, (0, 17, 130))).to(dev)
+    elif packed:
+        seg = t(packed_seq(B, L, *packed)).to(dev)
+    got = flash_attention(q, k, v, segment_ids=seg)
+    _close(got, flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+    assert torch.equal(got, flash_attention(q, k, v, segment_ids=seg))
+
+
+@pytest.mark.parametrize("L,packed", [(1, None), (203, "rows"), (300, (13, 140))])
+def test_flash_kernel_lse_matches_plain(L, packed):
+    """The row log-sum-exp that K2 writes for K2-bwd, m + log(l) of the
+    scaled logits, against the plain one."""
+    dev = require_cuda()
+    r = rng(13)
+    B, Hq, Hkv, D = 3, 8, 2, 128
+    q, k, v = (t(r.standard_normal((B, L, h, D), np.float32)).to(dev, torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    seg = None
+    if packed == "rows":
+        seg = t(row_pads(B, L, (0, 17, 130))).to(dev)
+    elif packed:
+        seg = t(packed_seq(B, L, *packed)).to(dev)
+    out, lse = flash_attention_fwd(q, k, v, seg, with_lse=True)
+    _close(out, flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+    _close(lse, flash_lse_plain(q, k, seg), 1e-4)
 
 
 @pytest.mark.parametrize("tile", FLASH_TILES)
@@ -272,12 +305,19 @@ def test_headgrid_kernel_matches_plain(hpp, do_exp):
     assert not got.reshape(3, 729, H, 128)[..., hd:].any()
 
 
-@pytest.mark.parametrize("T,hd", [(729, 72), (100, 64)])
+@pytest.mark.parametrize("T,hd", [(729, 72), (734, 64), (100, 64), (1, 72)])
 def test_vit_kernel_matches_plain(T, hd):
+    """K3 at SigLIP's (729, 72) and DINOv2-L's (734, 64) frames, whose last
+    key tiles hold 25 and 30 keys, at 100 rows and at 1; q, k and v read in
+    place from the fused qkv rows. A repeat gives the same bits."""
     dev = require_cuda()
     F, H = 3, 16
     qkv = t(rng(2).standard_normal((F, T, 3 * H * hd), np.float32)).to(dev, torch.bfloat16)
-    _close(vit_attention_qkv(qkv, H, hd), vit_attention_qkv_plain(qkv, H, hd), 1e-2)
+    before = vit_attention_qkv.launches
+    got = vit_attention_qkv(qkv, H, hd)
+    assert vit_attention_qkv.launches == before + 1
+    _close(got, vit_attention_qkv_plain(qkv, H, hd), 1e-2)
+    assert torch.equal(got, vit_attention_qkv(qkv, H, hd))
 
 
 @pytest.mark.parametrize("T", [1025, 300, 65, 1])
@@ -302,22 +342,32 @@ def test_whole_clip_kernel_matches_plain(T):
 
 
 @pytest.mark.parametrize("name,value", [("ATTN_BKV", 64), ("BLOCK_ROWS", 192),
-                                        ("VIT_ATTN_BLOCK_ROWS", 128)])
+                                        ("VIT_ATTN_BLOCK_ROWS", 128),
+                                        ("VIT_QKV_BLOCK_ROWS", 128),
+                                        ("FLASH_TILES", (64, 64))])
 def test_attention_kernels_refuse_a_plan_for_another_tile(monkeypatch, name, value):
     """The Python side's tile (the split plan's keys a tile and rows a block,
-    K6's rows a block) is checked by the C entry point: a plan made for
-    another tile is refused, not launched."""
+    K6's and K3's rows a block, K2's tile) is checked by the C entry point: a
+    plan made for another tile is refused, not launched."""
     dev = require_cuda()
-    vit = name.startswith("VIT")
-    monkeypatch.setattr(vit_attention_mod if vit else block_attention_mod, name, value)
 
     def zeros(heads, hd):
         return torch.zeros(1, 40, heads, hd, dtype=torch.bfloat16, device=dev)
 
     with pytest.raises(RuntimeError, match="CUDA error"):
-        if vit:
+        if name == "FLASH_TILES":
+            monkeypatch.setattr(flash_attention_mod, name, (value,))
+            flash_attention_fwd(zeros(8, 128), zeros(2, 128), zeros(2, 128), None, False,
+                                value)
+        elif name == "VIT_QKV_BLOCK_ROWS":
+            monkeypatch.setattr(vit_attention_mod, name, value)
+            vit_attention_qkv(torch.zeros(1, 40, 3 * 8 * 72, dtype=torch.bfloat16,
+                                          device=dev), 8, 72)
+        elif name.startswith("VIT"):
+            monkeypatch.setattr(vit_attention_mod, name, value)
             vit_attention(zeros(8, 88), zeros(8, 88), zeros(8, 88))
         else:
+            monkeypatch.setattr(block_attention_mod, name, value)
             block_attn_lse(zeros(8, 128), zeros(2, 128), zeros(2, 128))
 
 

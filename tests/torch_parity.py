@@ -35,6 +35,15 @@ def packed_seq(B: int, L: int, pad: int, cut: int) -> np.ndarray:
     return np.tile(row.astype(np.int32), (B, 1))
 
 
+def row_pads(B: int, L: int, pads) -> np.ndarray:
+    """Segment ids of B rows, row b with a -1 left pad of pads[b] rows (at
+    most L - 1), then one segment 0: a batched prefill's rows."""
+    seg = np.zeros((B, L), np.int32)
+    for b, pad in enumerate(pads):
+        seg[b, :min(pad, L - 1)] = -1
+    return seg
+
+
 def require_cuda() -> torch.device:
     """Skip unless a CUDA card is present (decided when the test runs)."""
     if not torch.cuda.is_available():

@@ -5,9 +5,9 @@
 
 L = MB_SEQ (81,920) tokens, MB_HEADS (32) query heads over MB_KV (8) KV
 heads of 128, bf16, causal. K2 (ops/flash_attention.py:flash_attention_fwd)
-runs at each tile (query rows, keys) of MB_BLOCKS (default: the four of
-FLASH_TILES; the paths run (64, 64)), reading the KV heads in place where the
-TPU script repeated them to MHA. Each tile gives `blk_q{bq}_k{bk}_ms` and
+runs at each tile (query (row, head) pairs a block, keys a tile) of
+MB_BLOCKS (default: every tile of FLASH_TILES; the paths run FLASH_TILE),
+reading the KV heads in place where the TPU script repeated them to MHA. Each tile gives `blk_q{bq}_k{bk}_ms` and
 `blk_q{bq}_k{bk}_tfs` with the TPU script's count of operations,
 2 * 2 * Hq * D * L (L + 1) / 2. SDPA on the KV heads repeated to MHA (the
 flash backend; a yardstick the port never calls) gives `sdpa_ms` and

@@ -1,22 +1,26 @@
 // Attention forward for Hopper (sm_90a): TMA, an mbarrier ring and wgmma.
 // Instantiated by block_attn.cu (K9: head dim 128, GQA heads packed per
-// block, segment ids, row statistics, split keys) and vit_attn.cu (K6:
-// InternVideo2's head dim 88, v read through its own strides).
+// block, segment ids, row statistics, split keys), flash_fwd.cu (K2: K9's
+// causal mode with the row log-sum-exp for the backward), vit_attn.cu (K6:
+// InternVideo2's head dim 88, v read through its own strides) and
+// vit_attn_qkv.cu (K3: SigLIP's head dim 72 and DINOv2's 64, q, k and v read
+// in place from the fused qkv rows).
 //
 // What bounds these kernels on the H100 is the tensor cores: 4 * Lq * Lk * D
 // products per (batch, head) against a few bytes per row, hundreds of
 // operations per byte, so the design keeps the tensor cores fed:
 //
 // - A block is one producer warpgroup and NWG consumer warpgroups (2 for
-//   K9, 3 for K6). Each consumer warpgroup owns 64 query rows (the wgmma M
-//   tile) and walks the keys in tiles of BKV (128 for K9; 64 for K6, whose
-//   S, O and P must fit 160 registers a thread). S = Q K^T runs as wgmma
-//   m64n{BKV}k16 with Q and K read from shared memory; O += P V runs
-//   with P taken from S's accumulator registers, rounded to bf16 (as the
-//   plain versions round their probabilities), and V read from shared
-//   memory with the transpose bit. Softmax is f32 with a running row max
-//   (ex2.approx of pre-scaled logits); each thread keeps its own partial
-//   row sum and the four lanes of a row add theirs once at the end.
+//   K9 and K2, 3 for K6 and K3). Each consumer warpgroup owns 64 query rows
+//   (the wgmma M tile) and walks the keys in tiles of BKV (128 for K9 and
+//   K2; 64 for K6 and K3, whose S, O and P must fit 160 registers a thread).
+//   S = Q K^T runs as wgmma m64n{BKV}k16 with Q and K read from shared
+//   memory; O += P V runs with P taken from S's accumulator registers,
+//   rounded to bf16 (as the plain versions round their probabilities), and
+//   V read from shared memory with the transpose bit. Softmax is f32 with a
+//   running row max (ex2.approx of pre-scaled logits); each thread keeps its
+//   own partial row sum and the four lanes of a row add theirs once at the
+//   end.
 // - Inside a warpgroup, tile i's Q K^T is issued together with tile i-1's
 //   P V, and tile i's softmax runs while that P V is on the tensor cores;
 //   the block's consumer warpgroups interleave besides. The first tile is
@@ -33,22 +37,25 @@
 //   with two consumer warpgroups, 32/160 with three).
 // - The tensor maps are 4-D (head dim, heads, rows, batch) over the caller's
 //   strides, so q, k and v are read in place: K9's k and v as row ranges of
-//   a cache buffer, K6's v as a column slice of the fused qkv buffer. A box
-//   spans BOXW columns, the width of one swizzle atom (64 columns and 128-byte
-//   swizzle for D 128; 32 columns and 64-byte swizzle for hd 88, whose Q K^T
-//   depth of 96 takes three boxes): TMA writes each box swizzled, and the
-//   wgmma descriptors name the same swizzle. The columns past the head dim
-//   (88-95) and the rows past the tensor's end are zero-filled by TMA.
+//   a cache buffer, K6's v and K3's q, k and v as column bands of a fused
+//   qkv buffer. A box spans BOXW columns, the width of one swizzle atom (64
+//   columns and 128-byte swizzle for D 128 and hd 64; 32 columns and 64-byte
+//   swizzle for hd 88 and 72, whose Q K^T depths of 96 and 80 take three
+//   boxes): TMA writes each box swizzled, and the wgmma descriptors name the
+//   same swizzle. The columns past the head dim (88-95, 72-95) and the rows
+//   past the tensor's end are zero-filled by TMA; Q K^T runs over the head
+//   dim rounded up to 16, P V at N = head dim.
 // - GQA: a block serves `pack` query heads that share one KV head. The Q box
 //   is (BOXW columns, pack heads, 64 / pack rows), so the M tile holds
 //   (row, head) pairs in row-major order and each K/V tile is loaded once
 //   for the pack heads. A question of 12 rows fills 48 of the 64 M rows.
-// - A last key tile of at most kNarrow keys (K6's 1,025th key) runs as
-//   wgmma m64n16k16 and one P V step, not as a whole masked tile: 2% of
-//   K6's time at 16 clips (bench/attention_ab.py; PERF.md).
-// - Segment ids (K9) come by TMA with their K tile, from rows padded to a
-//   multiple of 4 ids (a box starts on a 16-byte boundary), and the mask is
-//   branch-free.
+// - A last key tile of at most NARROW keys runs as wgmma m64n{NARROW}k16 and
+//   NARROW / 16 P V steps, not as a whole masked tile: K6's 1,025th key
+//   (NARROW 16; 2% of its time at 16 clips, bench/attention_ab.py), K3's
+//   last 25 keys of 729 or 30 of 734 (NARROW 32).
+// - Segment ids (K9, K2) come by TMA with their K tile, from rows padded to
+//   a multiple of 4 ids (a box starts on a 16-byte boundary), and the mask
+//   is branch-free.
 // - Causal (Lq == Lk): the grid runs the last query tiles first (the longest
 //   key walks), a block stops at its own diagonal, a consumer skips tiles
 //   wholly above its rows, and only tiles that cross the diagonal are masked.
@@ -56,10 +63,11 @@
 //   split_tiles key tiles and writes its normalised o in f32 with its l and
 //   m to scratch; block_attn.cu's merge kernel then merges the splits in a
 //   fixed order.
+// - LSE (K2): the epilogue writes each row's log-sum-exp of the scaled
+//   logits, m * scale + log(l), to `l` in place of l and m (+inf for a row
+//   that saw no key, so that the backward's exp(s * scale - lse) is 0).
 //
-// A row that sees no key keeps l = 0, m = -inf and o = 0. The next users of
-// this tile are K3 (SigLIP, hd 72: a Q K^T depth of 80 in 32-column boxes,
-// heads in the fused qkv rows through the same strided maps).
+// A row that sees no key keeps l = 0, m = -inf and o = 0.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is looked up at run time
@@ -69,7 +77,7 @@
 namespace tv {
 namespace sm90 {
 
-constexpr int kNarrow = 16;  // a last tile of at most this many keys runs as N = 16
+constexpr int kNarrow = 16;  // the default NARROW: a last tile of at most 16 keys runs as N = 16
 constexpr int kStages = 2;   // K and V stages in the ring
 
 struct AttnParams {
@@ -77,7 +85,7 @@ struct AttnParams {
   CUtensorMap tseg;        // map over the keys' segment ids, if seg_kv is given
   __nv_bfloat16* o;        // (B, Lq, Hq, HD) bf16, unless o_part is given
   float* o_part;           // (n_split, B, Lq, Hq, HD) f32 normalised partials, or null
-  float* l;                // (n_split, B, Hq, Lq) row sums, or null
+  float* l;                // (n_split, B, Hq, Lq) row sums (LSE: log-sum-exps), or null
   float* m;                // (n_split, B, Hq, Lq) row maxima of the scaled logits, or null
   const int* seg_q;        // (B, Lq) segment ids of the rows, or null
   const int* seg_kv;       // (B, Lk rounded up to 4) ids of the keys; null iff seg_q is
@@ -246,6 +254,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 32 f32, 16 a thread) (+)= A (64 x 16, smem) * B (32 x 16, smem), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 16 f32, 8 a thread) (+)= A (64 x 16, smem) * B (16 x 16, smem), both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -299,6 +321,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[44], const uint32_t (&a)[4],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 72 f32, 36 a thread) += A (64 x 16, registers) * B (16 x 72, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -420,8 +478,10 @@ __device__ __forceinline__ void to_bf16(const float (&s)[NP * 8], uint32_t (&pa)
 }
 
 // grid (ceil(Lq * pack / (64 NWG)), Hq / pack, B * n_split), Shape::threads
-// threads, Shape::smem bytes of dynamic shared memory.
-template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL>
+// threads, Shape::smem bytes of dynamic shared memory. LSE: write the row
+// log-sum-exp to p.l (if given) in place of l and m. NARROW: the widest last
+// key tile that runs as one narrow step (16 or 32).
+template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE, int NARROW>
 __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     attn_sm90_kernel(const __grid_constant__ AttnParams p) {
   using S = Shape<HD, BOXW, NWG, BKV>;
@@ -518,7 +578,7 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     // softmax beside that P V: S and the pending P live in registers at once.
     // The first tile is peeled and a short last one runs apart, so that the
     // loop issues the same wgmma sequence every time.
-    const bool narrow_last = n_own > 0 && kv_end - (kv_begin + (n_own - 1) * BKV) <= kNarrow;
+    const bool narrow_last = n_own > 0 && kv_end - (kv_begin + (n_own - 1) * BKV) <= NARROW;
     const int n_full = n_own - (narrow_last ? 1 : 0);
     auto kv_of = [&](int i) { return kv_begin + i * BKV; };
     auto masked = [&](int i) {
@@ -565,27 +625,27 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
       pin(pa);
       mbar_arrive(&v_empty[pst]);
     }
-    if (narrow_last) {  // at most kNarrow keys: one 16-key step, not overlapped
+    if (narrow_last) {  // at most NARROW keys: one narrow step, not overlapped
       const int i = n_own - 1, st = i % kStages;
       const uint32_t parity = (i / kStages) & 1;
-      float s16[kNarrow / 2];
-      uint32_t p16[1][4];
+      float sn[NARROW / 2];
+      uint32_t pn[NARROW / 16][4];
       mbar_wait(&k_full[st], parity);
       __syncwarp();
-      issue_qk<HD, BOXW, BKV, kNarrow>(s16, q_addr, smem_u32(sK + st * S::KV_BYTES));
+      issue_qk<HD, BOXW, BKV, NARROW>(sn, q_addr, smem_u32(sK + st * S::KV_BYTES));
       wg_wait<0>();
-      pin(s16);
-      softmax_tile<kNarrow, CAUSAL>(s16, mr, lr, alpha, seg ? segk + st * BKV : nullptr,
-                                    kv_of(i), kv_end, true, ta, tb, sa, sb, p.scale_log2);
+      pin(sn);
+      softmax_tile<NARROW, CAUSAL>(sn, mr, lr, alpha, seg ? segk + st * BKV : nullptr,
+                                   kv_of(i), kv_end, true, ta, tb, sa, sb, p.scale_log2);
       mbar_arrive(&k_empty[st]);
       rescale(o, alpha);
-      to_bf16<1>(s16, p16);
+      to_bf16<NARROW / 16>(sn, pn);
       mbar_wait(&v_full[st], parity);
       __syncwarp();
-      issue_pv<HD, BOXW, BKV, kNarrow>(o, p16, smem_u32(sV + st * S::KV_BYTES));
+      issue_pv<HD, BOXW, BKV, NARROW>(o, pn, smem_u32(sV + st * S::KV_BYTES));
       wg_wait<0>();
       pin(o);
-      pin(p16);
+      pin(pn);
       mbar_arrive(&v_empty[st]);
     }
     for (int i = n_own; i < n_tiles; ++i) {  // causal: after every row of this warpgroup
@@ -612,8 +672,12 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
       const long long row = ((long long)split * p.B + b) * p.Lq + t;
       if (p.l != nullptr && (lane & 3) == 0) {
         const long long i = (((long long)split * p.B + b) * p.Hq + h) * p.Lq + t;
-        p.l[i] = lr[r];
-        p.m[i] = mr[r] == -INFINITY ? -INFINITY : mr[r] * p.scale;
+        if (LSE) {
+          p.l[i] = lr[r] > 0.f ? mr[r] * p.scale + logf(lr[r]) : INFINITY;
+        } else {
+          p.l[i] = lr[r];
+          p.m[i] = mr[r] == -INFINITY ? -INFINITY : mr[r] * p.scale;
+        }
       }
       if (p.o_part != nullptr) {
         float* dst = p.o_part + (row * p.Hq + h) * HD + cq;
@@ -694,10 +758,11 @@ inline bool encode_ids(CUtensorMap* map, const int* base, int ld, int B, int box
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL>
+template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE = false, int NARROW = kNarrow>
 int launch(const AttnParams& p, cudaStream_t stream) {
   using S = Shape<HD, BOXW, NWG, BKV>;
-  auto kernel = attn_sm90_kernel<HD, BOXW, NWG, BKV, CAUSAL>;
+  static_assert(NARROW % 16 == 0 && NARROW < BKV, "a narrow step is whole k-steps of P V");
+  auto kernel = attn_sm90_kernel<HD, BOXW, NWG, BKV, CAUSAL, LSE, NARROW>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::smem);
   if (err != cudaSuccess) return err;

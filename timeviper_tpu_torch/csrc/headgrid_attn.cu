@@ -26,9 +26,9 @@
 // block of 4 warps owns 64 query rows of one (frame, group of HPP heads)
 // and runs the group's heads one after the other; keys stream through
 // shared memory in tiles of 64, and both products run on mma.sync m16n8k16
-// (bf16 in, f32 accumulate) with the fragment helpers of common.cuh, as in
-// attn_tile.cuh. HPP and DO_EXP are template parameters. The kernel has its
-// own argument struct: growing attn_tile.cuh's AttnArgs slowed K2 and K3.
+// (bf16 in, f32 accumulate) with the fragment helpers of common.cuh. HPP and
+// DO_EXP are template parameters. The kernel has its own argument struct:
+// growing an argument struct shared with other kernels slowed them (PERF.md).
 //
 // What bounds it on the H100: the padded products, 4 * T^2 * 128 per (frame,
 // head), 1.1 TFLOP at 256 frames of 729 tokens and 16 heads, on the bf16

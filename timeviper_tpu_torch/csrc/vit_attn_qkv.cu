@@ -1,47 +1,57 @@
-// Whole-frame ViT attention read straight from the fused qkv projection.
+// Whole-frame ViT attention read straight from the fused qkv projection (K3).
 //
 // Replaces the TPU kernel timeviper_tpu/ops/vit_attention.py:
 // vit_attention_qkv (_vit_attn_qkv_kernel), reached from models/vit.py through
-// encoder_attention_qkv. Like it, the kernel reads the q, k and v column bands
-// of head h out of the (F, T, 3*H*hd) buffer (column order (3, H, hd)) and
-// writes (F, T, H*hd) for the out-projection, so no relayout touches device
-// memory. The TPU kernel used a clamped one-pass softmax without the row max;
-// this one subtracts the running max (attn_tile.cuh), which gives the same
-// result wherever logits stay below 75.
+// encoder_attention_qkv in every SigLIP (hd 72, T 729) and DINOv2-L (hd 64,
+// T 734) layer. Like it, the kernel reads the q, k and v column bands of head
+// h out of the (F, T, 3*H*hd) buffer (column order (3, H, hd)) and writes
+// (F, T, H*hd) for the out-projection, so no relayout touches device memory.
+// The TPU kernel used a clamped one-pass softmax without the row max; this
+// one subtracts the running max, which gives the same result wherever the
+// logits stay below 75.
 //
-// What bounds it on the H100: the T^2 * hd products per (frame, head), about
-// 0.15 GFLOP at SigLIP's T = 729, hd = 72, run on the bf16 tensor cores
-// through mma.sync (attn_tile.cuh). hd = 72 is no multiple of the MMA depth
-// 16, so Q and K are zero-padded to 80 columns in shared memory for Q K^T;
-// P V needs no padding (72 = 9 output tiles of 8). One block per 64 query
-// rows of one (frame, head) gives F * 16 * 12 blocks, enough to fill 132 SMs
-// at any frame count above one.
-#include "attn_tile.cuh"
+// What bounds it on the H100: the 4 * T^2 * hd products per (frame, head),
+// 0.15 GFLOP at SigLIP's T = 729, hd = 72, on the bf16 tensor cores. The
+// kernel is attn_sm90.cuh's (wgmma fed by a TMA ring from a producer warp).
+// Three 4-D maps (head dim, heads, rows, frame) over the one buffer, based at
+// columns 0, C and 2C (C = H*hd) with row stride 3C and head stride hd, read
+// q, k and v in place. hd 72 comes as three 32-column boxes (64-byte
+// swizzle; head stride 144 B and bases 2,304 B apart, multiples of 16 as TMA
+// needs) whose columns 72-95 TMA zero-fills, so Q K^T runs at depth 80 with
+// no copy and P V at N 72; hd 64 is one 64-column box (128-byte swizzle).
+// Three consumer warpgroups take 192 query rows a block (4 blocks a (frame,
+// head) at T 729 and 734) and walk the keys in tiles of 64, as K6 does; the
+// last 25 keys of 729 (30 of 734) run as one N 32 step, not a whole masked
+// tile.
+#include "attn_sm90.cuh"
 
+namespace {
+constexpr int kBKV = 64;    // keys a tile
+constexpr int kNWG = 3;     // consumer warpgroups, 64 query rows each
+constexpr int kNarrowQKV = 32;  // a last tile of at most 32 keys runs as N = 32
+}
+
+// block_rows: the query rows a block that the caller counts blocks in; a
+// launch for another tile is refused.
 extern "C" int tv_vit_attn_qkv(const void* qkv, void* out, int F, int T, int H, int hd,
-                               float scale, void* stream) {
-  const int C = H * hd;
-  tv::AttnArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(qkv);
-  a.k = a.q + C;
-  a.v = a.q + 2 * C;
-  a.o = static_cast<__nv_bfloat16*>(out);
-  a.seg = nullptr;
-  a.q_bs = (long long)T * 3 * C;
-  a.q_rs = 3 * C;
-  a.q_hs = hd;
-  a.k_bs = a.q_bs;
-  a.k_rs = a.q_rs;
-  a.k_hs = hd;
-  a.o_bs = (long long)T * C;
-  a.o_rs = C;
-  a.o_hs = hd;
-  a.Lq = T; a.Lk = T; a.Hq = H; a.Hkv = H;
-  a.scale = scale;
+                               int block_rows, float scale, void* stream) {
+  using namespace tv::sm90;
+  if (block_rows != kNWG * 64 || (hd != 72 && hd != 64) || F < 1 || T < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  const long long C = (long long)H * hd, rs = 3 * C, bs = (long long)T * rs;
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
+  const int boxw = hd == 64 ? 64 : 32;
+  AttnParams p{};
+  if (!(encode_map(&p.tq, base, hd, H, T, F, hd, rs, bs, boxw, 1, 64) &&
+        encode_map(&p.tk, base + C, hd, H, T, F, hd, rs, bs, boxw, 1, kBKV) &&
+        encode_map(&p.tv, base + 2 * C, hd, H, T, F, hd, rs, bs, boxw, 1, kBKV)))
+    return cudaErrorInvalidValue;
+  p.o = static_cast<__nv_bfloat16*>(out);  // a fresh contiguous (F, T, H, hd)
+  p.B = F; p.Lq = T; p.Lk = T; p.Hq = H; p.Hkv = H;
+  p.pack = 1; p.n_split = 1; p.split_tiles = (T + kBKV - 1) / kBKV;
+  p.scale = scale;
+  p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 72: return tv::launch_attn<72, false>(a, F, s);
-    case 64: return tv::launch_attn<64, false>(a, F, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return hd == 72 ? launch<72, 32, kNWG, kBKV, false, false, kNarrowQKV>(p, s)
+                  : launch<64, 64, kNWG, kBKV, false, false, kNarrowQKV>(p, s);
 }

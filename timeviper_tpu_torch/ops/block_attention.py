@@ -53,21 +53,38 @@ SPLIT_TARGET_BLOCKS = 256  # a fixed target, about two blocks per SM of an H100
 MIN_SPLIT_TILES = 4  # a split walks at least this many key tiles
 
 
-def block_attn_plan(B: int, Lq: int, Lk: int, Hq: int, Hkv: int,
-                    causal: bool = False) -> Tuple[int, int, int]:
-    """(pack, n_split, split_tiles) of a K9 launch, from the shapes alone.
-
-    pack: the query heads of one KV head that a block serves, the largest
-    power of two that divides Hq / Hkv and 64 (a warpgroup's 64 rows hold
-    64 / pack rows of pack heads). n_split: how many blocks share the keys of
-    one set of query rows, each walking split_tiles tiles of ATTN_BKV keys
-    (the last split may walk fewer, none walks none): more than 1 only when a
-    non-causal call would launch fewer than SPLIT_TARGET_BLOCKS blocks and has
-    at least 2 * MIN_SPLIT_TILES key tiles."""
+def gqa_pack(Hq: int, Hkv: int) -> int:
+    """Query heads of one KV head that a block of csrc/attn_sm90.cuh serves:
+    the largest power of two that divides Hq / Hkv and 64."""
     rep = Hq // Hkv
     pack = 1
     while pack < 64 and rep % (2 * pack) == 0:
         pack *= 2
+    return pack
+
+
+def pad_key_ids(seg_kv: torch.Tensor) -> torch.Tensor:
+    """Key segment ids (B, Lk) int32 as the kernels' TMA reads them: each row
+    padded with zeros to a multiple of 4 ids, from a 16-byte aligned base (a
+    box starts its row on a 16-byte boundary; the pad lies past Lk and is
+    masked by position)."""
+    pad = -seg_kv.shape[1] % 4
+    if pad or seg_kv.data_ptr() % 16:
+        seg_kv = torch.cat([seg_kv, seg_kv.new_zeros(seg_kv.shape[0], pad)], dim=1)
+    return seg_kv
+
+
+def block_attn_plan(B: int, Lq: int, Lk: int, Hq: int, Hkv: int,
+                    causal: bool = False) -> Tuple[int, int, int]:
+    """(pack, n_split, split_tiles) of a K9 launch, from the shapes alone.
+
+    pack: `gqa_pack` (a warpgroup's 64 rows hold 64 / pack rows of pack
+    heads). n_split: how many blocks share the keys of
+    one set of query rows, each walking split_tiles tiles of ATTN_BKV keys
+    (the last split may walk fewer, none walks none): more than 1 only when a
+    non-causal call would launch fewer than SPLIT_TARGET_BLOCKS blocks and has
+    at least 2 * MIN_SPLIT_TILES key tiles."""
+    pack = gqa_pack(Hq, Hkv)
     tiles = -(-Lk // ATTN_BKV)
     blocks = -(-Lq * pack // BLOCK_ROWS) * (Hq // pack) * B
     n_split = 1
@@ -155,9 +172,8 @@ def block_attn_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
     Lk, Hkv = k.shape[1], k.shape[2]
     _check(q, k, v, causal)
     sq, sk = fold_segments(B, Lq, Lk, valid_kv, valid_q, seg_q, seg_kv, q.device)
-    pad = -Lk % 4  # TMA reads the key ids from rows of whole 16-byte units
-    if sk is not None and (pad or sk.data_ptr() % 16):
-        sk = torch.cat([sk, sk.new_zeros(B, pad)], dim=1)
+    if sk is not None:
+        sk = pad_key_ids(sk)
     o = torch.empty_like(q)
     l = torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)

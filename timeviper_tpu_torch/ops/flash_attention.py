@@ -4,18 +4,21 @@ CUDA kernels.
 Counterpart of timeviper_tpu/ops/flash_pallas.py:flash_attention, which runs
 the attention layers of the Nemotron-H prefill and training step through
 JAX's bundled Pallas TPU kernel (whose VJP is two more kernels, dkv and dq).
-The forward lives in csrc/flash_fwd.cu and, under autograd, also writes the
-row log-sum-exp; the backward lives in csrc/flash_bwd.cu. The plain version
-is ops/attention.py:attention under a causal, segment-equality mask,
-differentiated by autograd.
+The forward lives in csrc/flash_fwd.cu (the causal mode of
+csrc/attn_sm90.cuh, K9's tile) and, under autograd, also writes the row
+log-sum-exp; the backward lives in csrc/flash_bwd.cu. The plain version is
+ops/attention.py:attention under a causal, segment-equality mask,
+differentiated by autograd; `flash_lse_plain` is the plain row log-sum-exp.
 
 `flash_attention` is the entry point: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernels or raises. Under autograd the CUDA path is
 `FlashAttnFn`, whose backward is `flash_attention_bwd` (K2-bwd's wrapper).
-The paths run K2's (64, 64) tile; `flash_attention_fwd(tile=)` runs the
+A tile is (query (row, head) pairs a block, keys a tile): a block packs
+`gqa_pack(Hq, Hkv)` query heads of one KV head (4 on the 9B: 128 pairs are
+32 tokens). The paths run FLASH_TILE; `flash_attention_fwd(tile=)` runs the
 forward at any tile of FLASH_TILES for the K2 microbenchmark
 (bench/microbench_flash.py, the counterpart of scripts/microbench_flash.py's
-block-size sweep).
+block-size sweep). tv_flash_fwd refuses a tile it does not instantiate.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ import torch
 
 from timeviper_tpu_torch.ops import _cuda
 from timeviper_tpu_torch.ops.attention import attention, make_attention_mask
+from timeviper_tpu_torch.ops.block_attention import gqa_pack, pad_key_ids
 
-
-FLASH_TILE = (64, 64)  # (query rows, keys) of the tile every path runs
-FLASH_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # csrc/flash_fwd.cu
+FLASH_TILE = (128, 128)  # (query (row, head) pairs a block, keys a tile) every path runs
+FLASH_TILES = ((128, 128), (128, 64), (192, 64))  # instantiated in csrc/flash_fwd.cu
 
 
 def flash_attention_plain(q, k, v, segment_ids=None):
@@ -39,6 +42,20 @@ def flash_attention_plain(q, k, v, segment_ids=None):
                                q_segment_ids=segment_ids,
                                kv_segment_ids=segment_ids, device=q.device)
     return attention(q, k, v, mask)
+
+
+def flash_lse_plain(q, k, segment_ids=None):
+    """The row log-sum-exp (B, Hq, Lq) f32 of the masked logits scaled by
+    1/sqrt(D), as K2 writes it for K2-bwd: m + log(l), +inf for a row that
+    sees no key."""
+    _, Lq, Hq, D = q.shape
+    Lk = k.shape[1]
+    mask = make_attention_mask(Lq, Lk, causal=True, q_segment_ids=segment_ids,
+                               kv_segment_ids=segment_ids, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.repeat_interleave(Hq // k.shape[2], 2).float()) / math.sqrt(D)
+    lse = torch.logsumexp(s.masked_fill(~mask.reshape(-1, 1, Lq, Lk), -math.inf), dim=-1)
+    return torch.where(torch.isneginf(lse), math.inf, lse)
 
 
 def flash_attention(
@@ -135,8 +152,9 @@ def _check(q, k, v, segment_ids):
 
 
 def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool, tile=FLASH_TILE):
-    """K2 on CUDA tensors at `tile` = (query rows, keys) of FLASH_TILES ->
-    (out, the row log-sum-exp (B, Hq, L) f32 that K2-bwd takes, or None)."""
+    """K2 on CUDA tensors at `tile` = (query (row, head) pairs a block, keys
+    a tile) of FLASH_TILES -> (out, the row log-sum-exp (B, Hq, L) f32 that
+    K2-bwd takes, or None)."""
     if tuple(tile) not in FLASH_TILES:
         raise ValueError(f"flash_attention kernel: tile {tile} is not one of {FLASH_TILES}")
     _check(q, k, v, segment_ids)
@@ -147,10 +165,11 @@ def flash_attention_fwd(q, k, v, segment_ids, with_lse: bool, tile=FLASH_TILE):
     out = torch.empty_like(q)
     lse = (torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    seg_kv = None if segment_ids is None else pad_key_ids(segment_ids)
     p = _cuda.ptr
     err = _cuda.lib().tv_flash_fwd(
-        p(q), p(k), p(v), p(segment_ids), p(out), p(lse), B, Lq, Lk, Hq, Hkv, D,
-        1.0 / math.sqrt(D), tile[0], tile[1], _cuda.stream_of(q))
+        p(q), p(k), p(v), p(segment_ids), p(seg_kv), p(out), p(lse), B, Lq, Lk, Hq, Hkv, D,
+        gqa_pack(Hq, Hkv), tile[0], tile[1], 1.0 / math.sqrt(D), _cuda.stream_of(q))
     _cuda.check(err, "tv_flash_fwd")
     flash_attention.launches += 1
     return out, lse

@@ -3,9 +3,9 @@
 K3, whole-frame ViT attention from the fused qkv layout, is the counterpart
 of timeviper_tpu/ops/vit_attention.py:vit_attention_qkv and its dispatcher
 encoder_attention_qkv, which every SigLIP and DINOv2 layer calls. The kernel
-lives in csrc/vit_attn_qkv.cu and `vit_attention_qkv` launches it; its plain
-version splits the heads and runs ops/attention.py:attention, as the JAX
-dispatcher does off the TPU.
+lives in csrc/vit_attn_qkv.cu and `vit_attention_qkv` launches it at any T
+and frame count, head dims 72 and 64; its plain version splits the heads
+and runs ops/attention.py:attention, as the JAX dispatcher does off the TPU.
 
 K6, whole-clip attention over separate (B, T, H, hd) q, k and v, is the
 counterpart of vit_attention and its dispatcher encoder_attention, which
@@ -29,9 +29,12 @@ from timeviper_tpu_torch.ops import _cuda
 from timeviper_tpu_torch.ops.attention import attention
 
 VIT_ATTN_HEAD_DIMS = (88,)  # instantiated in csrc/vit_attn.cu
-# query rows a block of that kernel (three consumer warpgroups of 64), which
-# tv_vit_attn checks: a clip's 1,025 rows take 6 blocks a head
+VIT_QKV_HEAD_DIMS = (64, 72)  # instantiated in csrc/vit_attn_qkv.cu
+# query rows a block of those kernels (three consumer warpgroups of 64), which
+# tv_vit_attn and tv_vit_attn_qkv check: a clip's 1,025 rows take 6 blocks a
+# head, a frame's 729 or 734 rows 4
 VIT_ATTN_BLOCK_ROWS = 192
+VIT_QKV_BLOCK_ROWS = 192
 
 
 def vit_attention_qkv_plain(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
@@ -50,11 +53,12 @@ def vit_attention_qkv(qkv: torch.Tensor, num_heads: int, head_dim: int) -> torch
                          "16-byte aligned bf16 CUDA tensor")
     if D3 != 3 * num_heads * head_dim:
         raise ValueError(f"vit_attention_qkv kernel: width {D3} != 3*{num_heads}*{head_dim}")
-    if head_dim not in (64, 72):
-        raise ValueError(f"vit_attention_qkv kernel: takes head dim 64 or 72, got {head_dim}")
+    if head_dim not in VIT_QKV_HEAD_DIMS:
+        raise ValueError(f"vit_attention_qkv kernel: takes head dim {VIT_QKV_HEAD_DIMS}, "
+                         f"got {head_dim}")
     out = torch.empty(B, T, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
     err = _cuda.lib().tv_vit_attn_qkv(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, head_dim,
+        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, head_dim, VIT_QKV_BLOCK_ROWS,
         head_dim ** -0.5, _cuda.stream_of(qkv))
     _cuda.check(err, "tv_vit_attn_qkv")
     vit_attention_qkv.launches += 1
