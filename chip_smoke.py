@@ -14,23 +14,27 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    TF32 off for matmuls and convolutions.
 2. build: compile csrc/*.cu (one nvcc per source, all started together) into
    one library; print the seconds and each kernel's registers and spills,
-   and for the Hopper attention kernels (K9, K2, K6, K3: csrc/attn_sm90.cuh)
-   their entry names and ptxas's notes.
+   and for the Hopper attention kernels (K9, K2, K6, K3, K10a on
+   csrc/attn_sm90.cuh, and K2-bwd on its pieces) their entry names, ptxas's
+   notes and K10a's and K2-bwd's dynamic shared memory a block.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat, and K9, K2, K6 and K3 bitwise-equal outputs (their
-   lines also give the launch plan, the achieved TFLOP/s and the share of
-   the bound). K2 runs with segment ids (its library yardstick SDPA with a
-   boolean mask, which takes SDPA's masked backend), without them (SDPA's
-   flash backend with is_causal), with its row log-sum-exp (held against
-   the plain one) and at each tile of the K2 microbenchmark's sweep; K2-bwd
-   takes that forward's log-sum-exp. K3 runs at SigLIP's shape and at
-   DINOv2-L's (hd 64, T 734); K10a at 8 frames for 1, 2 and 4 heads a
-   block, with the exp and without it. Each output's SHA-256 is printed, to
+   gradients on a repeat, and K9, K2, K2-bwd, K6, K3 and K10a the same
+   SHA-256 on a repeat (their lines also give the launch plan, the achieved
+   TFLOP/s and the share of the bound). K2 runs with segment ids (its
+   library yardstick SDPA with a boolean mask, which takes SDPA's masked
+   backend), without them (SDPA's flash backend with is_causal), with its
+   row log-sum-exp (held against the plain one) and at each tile of the K2
+   microbenchmark's sweep; K2-bwd takes that forward's log-sum-exp, with
+   segment ids and without, against SDPA's backward alone (the masked and
+   the flash backend; the forward runs once outside the timed call), and
+   its device time is split by kernel (dq, dkv). K3 runs at SigLIP's
+   shape and at DINOv2-L's (hd 64, T 734); K10a at 8 frames for 1, 2 and 4
+   heads a block, with the exp and without it. Each output's SHA-256 is printed, to
    compare the kernels' bits across runs and machines.
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
@@ -163,6 +167,7 @@ from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
     fused_mamba_decode_plain,
 )
 from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
+    FLASH_BWD_TILE,
     FLASH_TILE,
     FLASH_TILES,
     flash_attention,
@@ -173,6 +178,7 @@ from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_lse_plain,
 )
 from timeviper_tpu_torch.ops.headgrid_attention import (  # noqa: E402
+    HEADGRID_TILE,
     headgrid_attention,
     headgrid_attention_plain,
     pad_heads,
@@ -478,11 +484,33 @@ def phase_build() -> None:
     for line in _cuda.build_log.splitlines():
         if line.startswith("=="):
             sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu", "flash_fwd.cu",
-                                "vit_attn_qkv.cu")
+                                "vit_attn_qkv.cu", "headgrid_attn.cu", "flash_bwd.cu")
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or sm90 and ("entry function" in line or "warning" in line.lower()
                              or "(C75" in line)):  # ptxas's wgmma notes
             log(f"[build]   {line.strip()}")
+    lib = _cuda.lib()
+    log(f"[build] dynamic shared memory a block: K2-bwd dkv {lib.tv_flash_bwd_smem(0)} B, dq "
+        f"{lib.tv_flash_bwd_smem(1)} B (tile {FLASH_BWD_TILE}); K10a (tile {HEADGRID_TILE}) hpp "
+        f"1 {lib.tv_headgrid_smem(1)} B, hpp 2 and 4 {lib.tv_headgrid_smem(2)} B")
+
+
+def kernel_split(fn, iters: int = 5) -> str:
+    """Device time (ms) of one call by kernel name (torch.profiler), for a
+    call that launches several kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    return ", ".join(f"{key[:60]} {ms:.4f}" for key, ms in rows)
 
 
 def kernel_cases(g: torch.Generator):
@@ -560,13 +588,33 @@ def kernel_cases(g: torch.Generator):
            dict(variant="segmented, with the row log-sum-exp", main=False, repeat=True))
     do = randn(1, L, Hq, hd)
 
-    def lib_fwd_bwd():
-        leaves = [t.detach().requires_grad_() for t in lib_inputs]
-        return torch.autograd.grad(lib(*leaves), leaves, do.transpose(1, 2))
+    def sdpa_bwd(call, inputs):
+        """SDPA's backward alone: its forward runs once, with grad, here;
+        the call times autograd.grad through that graph."""
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out_l, g_l = call(*leaves), do.transpose(1, 2).contiguous()
+        return lambda: torch.autograd.grad(out_l, leaves, g_l, retain_graph=True)
 
-    yield ("flash_bwd", lambda: flash_attention_bwd(q, k, v, out, do, lse, seq),
-           lambda: flash_attention_bwd_plain(q, k, v, do, seq), lib_fwd_bwd,
-           (10 * Hq * hd * pairs, nbytes(q, k, v, out, do, lse, seq, q, k, v)))
+    # K2-bwd's launch plan: the dK/dV kernel's blocks and their query walk,
+    # the dQ kernel's blocks as K2's
+    kb, qt, rows_q, kt = FLASH_BWD_TILE
+    bwd_plan = (f"dkv {Hkv * -(-L // kb)} blocks of {kb} keys, each walking {Hq // Hkv} "
+                f"heads' {qt}-query tiles from its diagonal; dq "
+                f"{-(-L * pack // rows_q) * (Hq // pack)} blocks of {rows_q} (row, head) pairs "
+                f"({rows_q // pack} tokens x {pack} heads), {kt} keys a tile")
+    out_u, lse_u = flash_attention_fwd(q, k, v, None, with_lse=True)
+    for segmented in (True, False):
+        sq, o_, l_ = (seq, out, lse) if segmented else (None, out_u, lse_u)
+        yield ("flash_bwd", lambda sq=sq, o_=o_, l_=l_: flash_attention_bwd(q, k, v, o_, do, l_, sq),
+               lambda sq=sq: flash_attention_bwd_plain(q, k, v, do, sq),
+               sdpa_bwd(lib, lib_inputs) if segmented else sdpa_bwd(*sdpa(q, k, v, flash=True)),
+               (10 * Hq * hd * (pairs if segmented else L * (L + 1) // 2),
+                nbytes(q, k, v, o_, do, l_, sq, q, k, v)),
+               dict(variant="segmented; library: SDPA's backward alone, masked backend"
+                    if segmented else "unsegmented; library: SDPA flash backend's backward "
+                    "alone, is_causal", main=segmented, repeat=True, launch=bwd_plan,
+                    split=True))
+    del out_u, lse_u
     # K2 at each tile of the microbenchmark's sweep (phase 3b), same inputs
     for tile in FLASH_TILES:
         yield ("flash_fwd",
@@ -602,6 +650,7 @@ def kernel_cases(g: torch.Generator):
     def lib10():
         return torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=vhd ** -0.5)
 
+    rows10, keys10 = HEADGRID_TILE
     for hpp in (1, 2, 4):
         for do_exp in (True, False):
             yield ("headgrid_attn",
@@ -610,7 +659,9 @@ def kernel_cases(g: torch.Generator):
                    lib10 if do_exp else None,
                    (4 * F_ * nh * T * T * 128, nbytes(qkv) * 4 // 3),
                    dict(variant=f"hpp {hpp}, exp {'on' if do_exp else 'off'}",
-                        main=hpp == 2 and do_exp))
+                        main=hpp == 2 and do_exp, repeat=True,
+                        launch=f"{-(-T // rows10) * (nh // hpp) * F_} blocks of {rows10} rows x "
+                               f"{hpp} heads in turn, {keys10} keys a tile"))
     del qkv, lib_in
 
     # K6: one InternVideo2 layer over 16 clips (64 frames); q and k as the
@@ -774,6 +825,8 @@ def phase_kernels(g: torch.Generator) -> dict:
                      f"{bound_ms / ms:.1%} of the bound")
         if opt.get("repeat"):
             extra += "; a repeat gave the same SHA-256"
+        if opt.get("split"):
+            extra += f"; device ms by kernel: {kernel_split(kern)}"
         log(f"[kernels] {label}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib} ({how}), bound {bound_ms:.4f} ms ({bound_by}: "
             f"{flops:.3e} FLOP, {moved:.3e} B); output SHA-256 {digest[:16]}{extra}")

@@ -3,7 +3,7 @@ itself, scripts/microbench_vit_attn.py:_headgrid_kernel, run in Pallas
 interpret mode, for hpp 1, 2 and 4 and do_exp on and off. The script
 benchmarks when it is imported, so `pad_heads`, `_headgrid_kernel` and
 `headgrid_attention` are taken from its source with `ast` and run in a
-namespace of small shapes (B 2, T 40, H 16, hd 72 padded to 128) whose
+namespace of small shapes (B 2, T 40 and 65, H 16, hd 72 padded to 128) whose
 `pl.pallas_call` interprets; the script itself is left as it is. f32 inputs,
 so both sides' casts are exact: 1e-5 (sums in other orders)."""
 
@@ -31,7 +31,7 @@ B, T, H, HD = 2, 40, 16, 72
 
 
 @functools.lru_cache(maxsize=None)
-def _script():
+def _script(T=T):
     """The script's three functions, defined in a namespace of small shapes."""
     tree = ast.parse(SCRIPT.read_text())
     wanted = {"pad_heads", "_headgrid_kernel", "headgrid_attention"}
@@ -47,9 +47,9 @@ def _script():
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs():
+def _inputs(T=T):
     qkv = (rng(0).standard_normal((B, T, 3 * H * HD)) * 0.3).astype(np.float32)
-    padded = np.asarray(_script()["pad_heads"](jnp.asarray(qkv), 128))
+    padded = np.asarray(_script(T)["pad_heads"](jnp.asarray(qkv), 128))
     return qkv, padded
 
 
@@ -58,15 +58,17 @@ def test_pad_heads_matches_the_script():
     np.testing.assert_array_equal(n(pad_heads(t(qkv), H, HD)), padded)
 
 
+@pytest.mark.parametrize("seq", [T, 65])
 @pytest.mark.parametrize("do_exp", [True, False])
 @pytest.mark.parametrize("hpp", [1, 2, 4])
-def test_plain_version_matches_the_tpu_kernel(hpp, do_exp):
-    _, padded = _inputs()
-    want = jax.jit(functools.partial(_script()["headgrid_attention"], hd=128, hpp=hpp,
+def test_plain_version_matches_the_tpu_kernel(hpp, do_exp, seq):
+    """The plain version against the TPU kernel at T 40 and at T 65 (64 keys
+    and one more, the CUDA kernel's key tile whole and then ragged)."""
+    _, padded = _inputs(seq)
+    want = jax.jit(functools.partial(_script(seq)["headgrid_attention"], hd=128, hpp=hpp,
                                      do_exp=do_exp))(jnp.asarray(padded))
     got = headgrid_attention(t(padded), H, hpp, scale=1.0 / HD ** 0.5, do_exp=do_exp)
-    assert got.shape == (B, T, H * 128)
+    assert got.shape == (B, seq, H * 128)
     np.testing.assert_allclose(n(got), np.asarray(want, np.float64), rtol=1e-5, atol=1e-5)
     # the padded columns stay zero
-    assert not got.reshape(B, T, H, 128)[..., HD:].any()
-
+    assert not got.reshape(B, seq, H, 128)[..., HD:].any()

@@ -3,8 +3,9 @@
 `python -m timeviper_tpu_torch.bench.microbench_flash`. Each prints one JSON
 object whose keys line up with the TPU script's, plus the card, its power
 limit and the torch and CUDA versions; nothing runs at import.
-`python -m timeviper_tpu_torch.bench.attention_ab` times K6 and K9 for
-comparing two trees of the package on one card."""
+`python -m timeviper_tpu_torch.bench.attention_ab` times the attention
+kernels (K2, K2-bwd, K3, K6, K9, K10a) for comparing two trees of the package
+on one card."""
 
 from __future__ import annotations
 

@@ -4,7 +4,10 @@
 // causal mode with the row log-sum-exp for the backward), vit_attn.cu (K6:
 // InternVideo2's head dim 88, v read through its own strides) and
 // vit_attn_qkv.cu (K3: SigLIP's head dim 72 and DINOv2's 64, q, k and v read
-// in place from the fused qkv rows).
+// in place from the fused qkv rows) and headgrid_attn.cu (K10a: K3's reads at
+// head dim 128, several heads a block, the TPU kernel's softmax without a
+// row max). flash_bwd.cu (K2-bwd) issues its products with issue_qk and
+// issue_pv, roles swapped, in kernels of its own.
 //
 // What bounds these kernels on the H100 is the tensor cores: 4 * Lq * Lk * D
 // products per (batch, head) against a few bytes per row, hundreds of
@@ -67,6 +70,19 @@
 //   logits, m * scale + log(l), to `l` in place of l and m (+inf for a row
 //   that saw no key, so that the backward's exp(s * scale - lse) is 0).
 //
+// - Softmax policy (template parameter SM): kRunningMax as above; K10a's
+//   kNoMax (p = bf16(exp(min(s, 75))), l the sum of those p, nothing
+//   subtracted or rescaled: values reach e^75, which bf16 p and the f32 l and
+//   P V hold) and kLinear (p = bf16(0.01 s), l = 1). Both pre-scale q as the
+//   TPU kernel does, q' = bf16(q * bf16(scale)): each consumer warpgroup
+//   scales its own Q rows in shared memory after the Q barrier and fences
+//   them for wgmma. With no max a key that TMA zero-filled past Lk would give
+//   exp(0) = 1, so the last tile's mask (whole or narrow) keeps keys < Lk.
+// - Heads a block (template parameter HPP, K10a): the block walks HPP heads
+//   (groups of `pack`) in turn with one K/V ring that runs on across the head
+//   boundary, and two Q buffers, so the next head's Q and first K/V tiles
+//   load while this head's last tiles run.
+//
 // A row that sees no key keeps l = 0, m = -inf and o = 0.
 #pragma once
 
@@ -79,6 +95,8 @@ namespace sm90 {
 
 constexpr int kNarrow = 16;  // the default NARROW: a last tile of at most 16 keys runs as N = 16
 constexpr int kStages = 2;   // K and V stages in the ring
+
+enum class Softmax { kRunningMax, kNoMax, kLinear };
 
 struct AttnParams {
   CUtensorMap tq, tk, tv;  // 4-D maps (head dim, heads, rows, batch)
@@ -465,6 +483,34 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) 
   }
 }
 
+// K10a's probabilities of one tile in place, without a row max. kNoMax:
+// p = bf16(exp(min(s, 75))) of the pre-scaled logits, this thread's partial
+// row sums lr += p; kLinear: p = 0.01 s (rounded to bf16 by to_bf16). With
+// `mask`, keys at or past kv_end give p = 0 (TMA zero-fills them, and
+// exp(0) is 1).
+template <int NCOL, Softmax SM>
+__device__ __forceinline__ void probs_nomax(float (&s)[NCOL / 2], float (&lr)[2], int kv0,
+                                            int kv_end, bool mask) {
+  constexpr int NJ = NCOL / 8;
+  const int cq = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = !mask || kv0 + j * 8 + cq + (e & 1) < kv_end;
+      float x = s[4 * j + e];
+      if (SM == Softmax::kNoMax) {
+        x = __bfloat162float(__float2bfloat16(ex2(fminf(x, 75.f) * 1.4426950408889634f)));
+        x = ok ? x : 0.f;
+        lr[e >> 1] += x;
+      } else {
+        x = ok ? x * 0.01f : 0.f;
+      }
+      s[4 * j + e] = x;
+    }
+  }
+}
+
 // P rounded to bf16: S's accumulator layout is the register A operand's.
 template <int NP>
 __device__ __forceinline__ void to_bf16(const float (&s)[NP * 8], uint32_t (&pa)[NP][4]) {
@@ -477,31 +523,57 @@ __device__ __forceinline__ void to_bf16(const float (&s)[NP * 8], uint32_t (&pa)
   }
 }
 
-// grid (ceil(Lq * pack / (64 NWG)), Hq / pack, B * n_split), Shape::threads
-// threads, Shape::smem bytes of dynamic shared memory. LSE: write the row
-// log-sum-exp to p.l (if given) in place of l and m. NARROW: the widest last
-// key tile that runs as one narrow step (16 or 32).
-template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE, int NARROW>
+// K10a: this consumer warpgroup's Q rows in place, q' = bf16(q * bf16(scale))
+// (one rounding of the exact product, as the TPU kernel's bf16 multiply),
+// then fenced for wgmma, which reads shared memory through the async proxy,
+// and synchronised over the warpgroup's 128 threads (named barrier 1 + w).
+template <int BYTES>
+__device__ __forceinline__ void prescale_q(uint8_t* q, float scale, int w) {
+  const __nv_bfloat162 sc = __float2bfloat162_rn(__bfloat162float(__float2bfloat16(scale)));
+  uint4* v = reinterpret_cast<uint4*>(q);
+#pragma unroll 4
+  for (int i = threadIdx.x & 127; i < BYTES / 16; i += 128) {
+    uint4 x = v[i];
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __hmul2(h[k], sc);
+    v[i] = x;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // the id in a register makes ptxas reserve all 16 barriers, yet K10a ran
+  // 6-9% faster with it than with literal ids behind a branch on w (PERF.md)
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// grid (ceil(Lq * pack / (64 NWG)), Hq / (pack HPP), B * n_split),
+// Shape::threads threads, smem_bytes<...>() of dynamic shared memory. LSE:
+// write the row log-sum-exp to p.l (if given) in place of l and m. NARROW:
+// the widest last key tile that runs as one narrow step (16 or 32). SM: the
+// softmax policy; HPP: head groups a block walks in turn.
+template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE, int NARROW,
+          Softmax SM = Softmax::kRunningMax, int HPP = 1>
 __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     attn_sm90_kernel(const __grid_constant__ AttnParams p) {
   using S = Shape<HD, BOXW, NWG, BKV>;
+  constexpr bool kMax = SM == Softmax::kRunningMax;
+  constexpr int QBUF = HPP > 1 ? 2 : 1;  // Q buffers: the next head's Q loads early
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sQ = base;                              // [NWG][NBOX][64][BOXW]
-  uint8_t* sK = sQ + S::Q_BYTES;                   // [kStages][NBOX][BKV][BOXW]
+  uint8_t* sQ = base;                              // [QBUF][NWG][NBOX][64][BOXW]
+  uint8_t* sK = sQ + QBUF * S::Q_BYTES;            // [kStages][NBOX][BKV][BOXW]
   uint8_t* sV = sK + kStages * S::KV_BYTES;        // [kStages][NBOX][BKV][BOXW]
   int* segk = reinterpret_cast<int*>(sV + kStages * S::KV_BYTES);  // [kStages][BKV]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(segk + kStages * BKV);
-  uint64_t* k_full = q_full + 1;        // [kStages]: the stage's K (and ids) have landed
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(segk + kStages * BKV);  // [QBUF]
+  uint64_t* k_full = q_full + QBUF;      // [kStages]: the stage's K (and ids) have landed
   uint64_t* k_empty = k_full + kStages;  // [kStages]: every consumer is done with them
   uint64_t* v_full = k_empty + kStages;  // [kStages]: the same for V
   uint64_t* v_empty = v_full + kStages;
+  uint64_t* q_empty = v_empty + kStages;  // [QBUF], HPP > 1: a Q buffer is free again
 
   const int mt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // long rows first
-  const int g = blockIdx.y, b = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
+  const int b = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
   const int pack = p.pack, tok = 64 / pack;  // tokens a consumer warpgroup
   const int t0 = mt * NWG * tok;
-  const int hk = g * pack / (p.Hq / p.Hkv);
   const int kv_begin = split * p.split_tiles * BKV;
   int kv_end = min(p.Lk, kv_begin + p.split_tiles * BKV);
   if (CAUSAL) kv_end = min(kv_end, t0 + NWG * tok);
@@ -511,7 +583,8 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
 
   const int tid = threadIdx.x, wg = tid / 128;
   if (tid == 0) {
-    mbar_init(q_full, 1);
+#pragma unroll
+    for (int qb = 0; qb < QBUF; ++qb) mbar_init(&q_full[qb], 1);
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&k_full[st], 1);
@@ -519,6 +592,8 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
       mbar_init(&v_full[st], 1);
       mbar_init(&v_empty[st], n_active * 128);
     }
+    if (HPP > 1)
+      for (int qb = 0; qb < QBUF; ++qb) mbar_init(&q_empty[qb], n_active * 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -527,26 +602,33 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     // ---- producer: one thread keeps the ring full ----
     regs_dec<NWG == 2 ? 24 : 32>();
     if (tid != 0) return;
-    mbar_expect_tx(q_full, n_active * S::NBOX * S::Q_BOX);
-    for (int w = 0; w < n_active; ++w)
-      for (int c = 0; c < S::NBOX; ++c)
-        tma_load_4d(sQ + (w * S::NBOX + c) * S::Q_BOX, &p.tq, q_full, c * BOXW, g * pack,
-                    t0 + w * tok, b);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % kStages, kv0 = kv_begin + i * BKV;
-      const uint32_t free_parity = ((i / kStages) & 1) ^ 1;
-      mbar_wait(&k_empty[st], free_parity);
-      mbar_expect_tx(&k_full[st], S::KV_BYTES + (seg ? BKV * sizeof(int) : 0));
-      for (int c = 0; c < S::NBOX; ++c)
-        tma_load_4d(sK + st * S::KV_BYTES + c * S::KV_BOX, &p.tk, &k_full[st], c * BOXW, hk,
-                    kv0, b);
-      // the tile's key segment ids (those past Lk are masked by position)
-      if (seg) tma_load_2d(segk + st * BKV, &p.tseg, &k_full[st], kv0, b);
-      mbar_wait(&v_empty[st], free_parity);
-      mbar_expect_tx(&v_full[st], S::KV_BYTES);
-      for (int c = 0; c < S::NBOX; ++c)
-        tma_load_4d(sV + st * S::KV_BYTES + c * S::KV_BOX, &p.tv, &v_full[st], c * BOXW, hk,
-                    kv0, b);
+#pragma unroll 1
+    for (int hh = 0; hh < HPP; ++hh) {
+      const int g = blockIdx.y * HPP + hh, qb = hh % QBUF, it0 = hh * n_tiles;
+      const int hk = g * pack / (p.Hq / p.Hkv);
+      uint8_t* q_buf = sQ + qb * S::Q_BYTES;
+      if (HPP > 1) mbar_wait(&q_empty[qb], ((hh / QBUF) & 1) ^ 1);
+      mbar_expect_tx(&q_full[qb], n_active * S::NBOX * S::Q_BOX);
+      for (int w = 0; w < n_active; ++w)
+        for (int c = 0; c < S::NBOX; ++c)
+          tma_load_4d(q_buf + (w * S::NBOX + c) * S::Q_BOX, &p.tq, &q_full[qb], c * BOXW,
+                      g * pack, t0 + w * tok, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = (it0 + i) % kStages, kv0 = kv_begin + i * BKV;
+        const uint32_t free_parity = (((it0 + i) / kStages) & 1) ^ 1;
+        mbar_wait(&k_empty[st], free_parity);
+        mbar_expect_tx(&k_full[st], S::KV_BYTES + (seg ? BKV * sizeof(int) : 0));
+        for (int c = 0; c < S::NBOX; ++c)
+          tma_load_4d(sK + st * S::KV_BYTES + c * S::KV_BOX, &p.tk, &k_full[st], c * BOXW, hk,
+                      kv0, b);
+        // the tile's key segment ids (those past Lk are masked by position)
+        if (seg) tma_load_2d(segk + st * BKV, &p.tseg, &k_full[st], kv0, b);
+        mbar_wait(&v_empty[st], free_parity);
+        mbar_expect_tx(&v_full[st], S::KV_BYTES);
+        for (int c = 0; c < S::NBOX; ++c)
+          tma_load_4d(sV + st * S::KV_BYTES + c * S::KV_BOX, &p.tv, &v_full[st], c * BOXW, hk,
+                      kv0, b);
+      }
     }
   } else {
     // ---- consumers: 64 (row, head) pairs each ----
@@ -556,24 +638,13 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     const int lane = tid & 31, r_a = ((tid & 127) >> 5) * 16 + (lane >> 2);
     const int t_lo = t0 + w * tok, t_hi = min(p.Lq, t_lo + tok) - 1;
     const int ta = t_lo + r_a / pack, tb = t_lo + (r_a + 8) / pack;
-    const int ha = g * pack + r_a % pack, hb = g * pack + (r_a + 8) % pack;
     int sa = 0, sb = 0;
     if (p.seg_q != nullptr) {
       if (ta < p.Lq) sa = p.seg_q[(long long)b * p.Lq + ta];
       if (tb < p.Lq) sb = p.seg_q[(long long)b * p.Lq + tb];
     }
-    float o[S::ACC];
-#pragma unroll
-    for (int i = 0; i < S::ACC; ++i) o[i] = 0.f;
-    float mr[2] = {-INFINITY, -INFINITY}, lr[2] = {0.f, 0.f}, alpha[2];
-    float s[BKV / 2];
-    uint32_t pa[S::P_REGS][4];
-    const uint32_t q_addr = smem_u32(sQ + w * S::NBOX * S::Q_BOX);
     // causal: the tiles past this warpgroup's last row are only released
     const int n_own = CAUSAL ? min(n_tiles, (t_hi - kv_begin) / BKV + 1) : n_tiles;
-
-    mbar_wait(q_full, 0);
-    __syncwarp();
     // Tile i's Q K^T runs on the tensor cores beside tile i-1's P V, and its
     // softmax beside that P V: S and the pending P live in registers at once.
     // The first tile is peeled and a short last one runs apart, so that the
@@ -584,113 +655,148 @@ __global__ void __launch_bounds__(Shape<HD, BOXW, NWG, BKV>::threads, 1)
     auto masked = [&](int i) {
       return seg || kv_of(i) + BKV > kv_end || (CAUSAL && kv_of(i) + BKV - 1 > t_lo);
     };
-    if (n_full > 0) {
-      mbar_wait(&k_full[0], 0);
-      __syncwarp();
-      issue_qk<HD, BOXW, BKV, BKV>(s, q_addr, smem_u32(sK));
-      wg_wait<0>();
-      pin(s);
-      softmax_tile<BKV, CAUSAL>(s, mr, lr, alpha, seg ? segk : nullptr, kv_of(0), kv_end,
-                                masked(0), ta, tb, sa, sb, p.scale_log2);
-      mbar_arrive(&k_empty[0]);
-      to_bf16<S::P_REGS>(s, pa);
-    }
-    for (int i = 1; i < n_full; ++i) {
-      const int st = i % kStages, pst = (i - 1) % kStages;
-      mbar_wait(&k_full[st], (i / kStages) & 1);
-      __syncwarp();
-      issue_qk<HD, BOXW, BKV, BKV>(s, q_addr, smem_u32(sK + st * S::KV_BYTES));
-      mbar_wait(&v_full[pst], ((i - 1) / kStages) & 1);
-      __syncwarp();
-      issue_pv<HD, BOXW, BKV, BKV>(o, pa, smem_u32(sV + pst * S::KV_BYTES));
-      wg_wait<1>();
-      pin(s);
-      softmax_tile<BKV, CAUSAL>(s, mr, lr, alpha, seg ? segk + st * BKV : nullptr, kv_of(i),
-                                kv_end, masked(i), ta, tb, sa, sb, p.scale_log2);
-      mbar_arrive(&k_empty[st]);
-      wg_wait<0>();
-      pin(o);
-      pin(pa);
-      mbar_arrive(&v_empty[pst]);
-      rescale(o, alpha);
-      to_bf16<S::P_REGS>(s, pa);
-    }
-    if (n_full > 0) {
-      const int pst = (n_full - 1) % kStages;
-      mbar_wait(&v_full[pst], ((n_full - 1) / kStages) & 1);
-      __syncwarp();
-      issue_pv<HD, BOXW, BKV, BKV>(o, pa, smem_u32(sV + pst * S::KV_BYTES));
-      wg_wait<0>();
-      pin(o);
-      pin(pa);
-      mbar_arrive(&v_empty[pst]);
-    }
-    if (narrow_last) {  // at most NARROW keys: one narrow step, not overlapped
-      const int i = n_own - 1, st = i % kStages;
-      const uint32_t parity = (i / kStages) & 1;
-      float sn[NARROW / 2];
-      uint32_t pn[NARROW / 16][4];
-      mbar_wait(&k_full[st], parity);
-      __syncwarp();
-      issue_qk<HD, BOXW, BKV, NARROW>(sn, q_addr, smem_u32(sK + st * S::KV_BYTES));
-      wg_wait<0>();
-      pin(sn);
-      softmax_tile<NARROW, CAUSAL>(sn, mr, lr, alpha, seg ? segk + st * BKV : nullptr,
-                                   kv_of(i), kv_end, true, ta, tb, sa, sb, p.scale_log2);
-      mbar_arrive(&k_empty[st]);
-      rescale(o, alpha);
-      to_bf16<NARROW / 16>(sn, pn);
-      mbar_wait(&v_full[st], parity);
-      __syncwarp();
-      issue_pv<HD, BOXW, BKV, NARROW>(o, pn, smem_u32(sV + st * S::KV_BYTES));
-      wg_wait<0>();
-      pin(o);
-      pin(pn);
-      mbar_arrive(&v_empty[st]);
-    }
-    for (int i = n_own; i < n_tiles; ++i) {  // causal: after every row of this warpgroup
-      const int st = i % kStages;
-      const uint32_t parity = (i / kStages) & 1;
-      mbar_wait(&k_full[st], parity);
-      mbar_arrive(&k_empty[st]);
-      mbar_wait(&v_full[st], parity);
-      mbar_arrive(&v_empty[st]);
-    }
 
-    // ---- epilogue: normalise and write this thread's two rows ----
-    const int cq = (lane & 3) * 2;
+#pragma unroll 1
+    for (int hh = 0; hh < HPP; ++hh) {
+      const int g = blockIdx.y * HPP + hh, qb = hh % QBUF, it0 = hh * n_tiles;
+      const int ha = g * pack + r_a % pack, hb = g * pack + (r_a + 8) % pack;
+      float o[S::ACC];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 1);
-      lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 2);
-    }
+      for (int i = 0; i < S::ACC; ++i) o[i] = 0.f;
+      float mr[2] = {-INFINITY, -INFINITY}, lr[2] = {0.f, 0.f}, alpha[2];
+      float s[BKV / 2];
+      uint32_t pa[S::P_REGS][4];
+      uint8_t* q_buf = sQ + qb * S::Q_BYTES + w * S::NBOX * S::Q_BOX;
+      const uint32_t q_addr = smem_u32(q_buf);
+      // the softmax of tile i in place (s becomes P; kMax: mr, alpha move on)
+      const float sl2 = p.scale_log2;
+      auto softmax = [&](auto& sx, int i, int st, bool mask) {
+        constexpr int NC = sizeof(sx) / sizeof(float) * 2;
+        if constexpr (kMax)
+          softmax_tile<NC, CAUSAL>(sx, mr, lr, alpha, seg ? segk + st * BKV : nullptr, kv_of(i),
+                                   kv_end, mask, ta, tb, sa, sb, sl2);
+        else
+          probs_nomax<NC, SM>(sx, lr, kv_of(i), kv_end, mask);
+      };
+
+      mbar_wait(&q_full[qb], (hh / QBUF) & 1);
+      __syncwarp();
+      if constexpr (!kMax) prescale_q<S::NBOX * S::Q_BOX>(q_buf, p.scale, w);
+      if (n_full > 0) {
+        const int st = it0 % kStages;
+        mbar_wait(&k_full[st], (it0 / kStages) & 1);
+        __syncwarp();
+        issue_qk<HD, BOXW, BKV, BKV>(s, q_addr, smem_u32(sK + st * S::KV_BYTES));
+        wg_wait<0>();
+        pin(s);
+        softmax(s, 0, st, masked(0));
+        mbar_arrive(&k_empty[st]);
+        to_bf16<S::P_REGS>(s, pa);
+      }
+      for (int i = 1; i < n_full; ++i) {
+        const int st = (it0 + i) % kStages, pst = (it0 + i - 1) % kStages;
+        mbar_wait(&k_full[st], ((it0 + i) / kStages) & 1);
+        __syncwarp();
+        issue_qk<HD, BOXW, BKV, BKV>(s, q_addr, smem_u32(sK + st * S::KV_BYTES));
+        mbar_wait(&v_full[pst], ((it0 + i - 1) / kStages) & 1);
+        __syncwarp();
+        issue_pv<HD, BOXW, BKV, BKV>(o, pa, smem_u32(sV + pst * S::KV_BYTES));
+        wg_wait<1>();
+        pin(s);
+        softmax(s, i, st, masked(i));
+        mbar_arrive(&k_empty[st]);
+        wg_wait<0>();
+        pin(o);
+        pin(pa);
+        mbar_arrive(&v_empty[pst]);
+        if constexpr (kMax) rescale(o, alpha);
+        to_bf16<S::P_REGS>(s, pa);
+      }
+      if (n_full > 0) {
+        const int pst = (it0 + n_full - 1) % kStages;
+        mbar_wait(&v_full[pst], ((it0 + n_full - 1) / kStages) & 1);
+        __syncwarp();
+        issue_pv<HD, BOXW, BKV, BKV>(o, pa, smem_u32(sV + pst * S::KV_BYTES));
+        wg_wait<0>();
+        pin(o);
+        pin(pa);
+        mbar_arrive(&v_empty[pst]);
+      }
+      if (narrow_last) {  // at most NARROW keys: one narrow step, not overlapped
+        const int i = n_own - 1, st = (it0 + i) % kStages;
+        const uint32_t parity = ((it0 + i) / kStages) & 1;
+        float sn[NARROW / 2];
+        uint32_t pn[NARROW / 16][4];
+        mbar_wait(&k_full[st], parity);
+        __syncwarp();
+        issue_qk<HD, BOXW, BKV, NARROW>(sn, q_addr, smem_u32(sK + st * S::KV_BYTES));
+        wg_wait<0>();
+        pin(sn);
+        softmax(sn, i, st, true);
+        mbar_arrive(&k_empty[st]);
+        if constexpr (kMax) rescale(o, alpha);
+        to_bf16<NARROW / 16>(sn, pn);
+        mbar_wait(&v_full[st], parity);
+        __syncwarp();
+        issue_pv<HD, BOXW, BKV, NARROW>(o, pn, smem_u32(sV + st * S::KV_BYTES));
+        wg_wait<0>();
+        pin(o);
+        pin(pn);
+        mbar_arrive(&v_empty[st]);
+      }
+      for (int i = n_own; i < n_tiles; ++i) {  // causal: after every row of this warpgroup
+        const int st = (it0 + i) % kStages;
+        const uint32_t parity = ((it0 + i) / kStages) & 1;
+        mbar_wait(&k_full[st], parity);
+        mbar_arrive(&k_empty[st]);
+        mbar_wait(&v_full[st], parity);
+        mbar_arrive(&v_empty[st]);
+      }
+      if (HPP > 1) mbar_arrive(&q_empty[qb]);  // every wgmma that read this Q has run
+
+      // ---- epilogue: normalise and write this thread's two rows ----
+      const int cq = (lane & 3) * 2;
+      if constexpr (SM != Softmax::kLinear) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = r == 0 ? ta : tb, h = r == 0 ? ha : hb;
-      if (t >= p.Lq) continue;
-      const float inv = lr[r] > 0.f ? 1.f / lr[r] : 0.f;
-      const long long row = ((long long)split * p.B + b) * p.Lq + t;
-      if (p.l != nullptr && (lane & 3) == 0) {
-        const long long i = (((long long)split * p.B + b) * p.Hq + h) * p.Lq + t;
-        if (LSE) {
-          p.l[i] = lr[r] > 0.f ? mr[r] * p.scale + logf(lr[r]) : INFINITY;
-        } else {
-          p.l[i] = lr[r];
-          p.m[i] = mr[r] == -INFINITY ? -INFINITY : mr[r] * p.scale;
+        for (int r = 0; r < 2; ++r) {
+          lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 1);
+          lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 2);
         }
       }
-      if (p.o_part != nullptr) {
-        float* dst = p.o_part + (row * p.Hq + h) * HD + cq;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<float2*>(dst + 8 * j) =
-              make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-      } else {
-        __nv_bfloat16* dst = p.o + (row * p.Hq + h) * HD + cq;
+      for (int r = 0; r < 2; ++r) {
+        const int t = r == 0 ? ta : tb, h = r == 0 ? ha : hb;
+        if (t >= p.Lq) continue;
+        float inv;
+        if constexpr (kMax)
+          inv = lr[r] > 0.f ? 1.f / lr[r] : 0.f;
+        else if constexpr (SM == Softmax::kNoMax)
+          inv = 1.f / fmaxf(lr[r], 1e-30f);
+        else
+          inv = 1.f;
+        const long long row = ((long long)split * p.B + b) * p.Lq + t;
+        if (p.l != nullptr && (lane & 3) == 0) {
+          const long long i = (((long long)split * p.B + b) * p.Hq + h) * p.Lq + t;
+          if (LSE) {
+            p.l[i] = lr[r] > 0.f ? mr[r] * p.scale + logf(lr[r]) : INFINITY;
+          } else {
+            p.l[i] = lr[r];
+            p.m[i] = mr[r] == -INFINITY ? -INFINITY : mr[r] * p.scale;
+          }
+        }
+        if (p.o_part != nullptr) {
+          float* dst = p.o_part + (row * p.Hq + h) * HD + cq;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        } else {
+          __nv_bfloat16* dst = p.o + (row * p.Hq + h) * HD + cq;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        }
       }
     }
   }
@@ -758,17 +864,30 @@ inline bool encode_ids(CUtensorMap* map, const int* base, int ld, int B, int box
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE = false, int NARROW = kNarrow>
+// Dynamic shared memory of attn_sm90_kernel: a second Q buffer and three more
+// barriers when a block walks several heads.
+template <int HD, int BOXW, int NWG, int BKV, int HPP>
+constexpr size_t smem_bytes() {
+  using S = Shape<HD, BOXW, NWG, BKV>;
+  return S::smem + (HPP > 1 ? S::Q_BYTES + 8 * 3 : 0);
+}
+
+template <int HD, int BOXW, int NWG, int BKV, bool CAUSAL, bool LSE = false, int NARROW = kNarrow,
+          Softmax SM = Softmax::kRunningMax, int HPP = 1>
 int launch(const AttnParams& p, cudaStream_t stream) {
   using S = Shape<HD, BOXW, NWG, BKV>;
   static_assert(NARROW % 16 == 0 && NARROW < BKV, "a narrow step is whole k-steps of P V");
-  auto kernel = attn_sm90_kernel<HD, BOXW, NWG, BKV, CAUSAL, LSE, NARROW>;
+  static_assert(SM == Softmax::kRunningMax || !(CAUSAL || LSE),
+                "K10a's softmax takes no causal mask and writes no row statistics");
+  constexpr size_t smem = smem_bytes<HD, BOXW, NWG, BKV, HPP>();
+  auto kernel = attn_sm90_kernel<HD, BOXW, NWG, BKV, CAUSAL, LSE, NARROW, SM, HPP>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if ((p.Hq / p.pack) % HPP != 0) return cudaErrorInvalidValue;
   const int rows = NWG * 64 / p.pack;  // tokens a block
-  const dim3 grid((p.Lq + rows - 1) / rows, p.Hq / p.pack, p.B * p.n_split);
-  kernel<<<grid, S::threads, S::smem, stream>>>(p);
+  const dim3 grid((p.Lq + rows - 1) / rows, p.Hq / p.pack / HPP, p.B * p.n_split);
+  kernel<<<grid, S::threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -42,13 +42,15 @@ _SIGNATURES = {
     "tv_ssd_fwd": [_P] * 22 + [_I] * 11 + [_F, _F, _P],
     "tv_ssd_bwd": [_P] * 25 + [_I] * 8 + [_F, _F, _P],
     "tv_flash_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
-    "tv_flash_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "tv_flash_bwd": [_P] * 14 + [_I] * 10 + [_F, _P],
     "tv_block_attn": [_P] * 11 + [_I] * 6 + [_L] + [_I] * 6 + [_F, _P],
     "tv_vit_attn_qkv": [_P, _P] + [_I] * 5 + [_F, _P],
-    "tv_headgrid_attn": [_P, _P] + [_I] * 5 + [_F, _P],
+    "tv_headgrid_attn": [_P, _P] + [_I] * 7 + [_F, _P],
     "tv_vit_attn": [_P] * 4 + [_I] * 4 + [_L, _I] * 3 + [_I, _F, _P],
     "tv_layernorm": [_P] * 7 + [_I] * 2 + [_F, _P],
     "tv_decode_fused": [_P] * 15 + [_I] * 6 + [_L, _L, _F, _P],
+    "tv_flash_bwd_smem": [_I],
+    "tv_headgrid_smem": [_I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,7 +6,9 @@ the attention layers of the Nemotron-H prefill and training step through
 JAX's bundled Pallas TPU kernel (whose VJP is two more kernels, dkv and dq).
 The forward lives in csrc/flash_fwd.cu (the causal mode of
 csrc/attn_sm90.cuh, K9's tile) and, under autograd, also writes the row
-log-sum-exp; the backward lives in csrc/flash_bwd.cu. The plain version is
+log-sum-exp; the backward lives in csrc/flash_bwd.cu (a dQ kernel, which
+also writes each row's delta and scaled LSE, then a dK/dV kernel, on the
+same header's TMA ring and wgmma, at FLASH_BWD_TILE). The plain version is
 ops/attention.py:attention under a causal, segment-equality mask,
 differentiated by autograd; `flash_lse_plain` is the plain row log-sum-exp.
 
@@ -34,6 +36,10 @@ from timeviper_tpu_torch.ops.block_attention import gqa_pack, pad_key_ids
 
 FLASH_TILE = (128, 128)  # (query (row, head) pairs a block, keys a tile) every path runs
 FLASH_TILES = ((128, 128), (128, 64), (192, 64))  # instantiated in csrc/flash_fwd.cu
+# K2-bwd's tile, built in csrc/flash_bwd.cu (tv_flash_bwd refuses another):
+# (keys a dK/dV block, queries a tile of its stream, (row, head) pairs a dQ
+# block, keys a tile of its stream)
+FLASH_BWD_TILE = (128, 64, 128, 128)
 
 
 def flash_attention_plain(q, k, v, segment_ids=None):
@@ -109,17 +115,38 @@ def flash_attention_bwd(q, k, v, out, dout, lse, segment_ids=None):
     if not (lse.dtype == torch.float32 and lse.shape == (B, Hq, L) and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd kernel: lse must be contiguous f32 (B, Hq, L)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(B, Hq, L, dtype=torch.float32, device=q.device)
+    # the row log-sum-exp times log2(e) and rowsum(dO * O), rows padded to 4
+    lse2, delta = torch.empty(2, B, Hq, -(-L // 4) * 4, dtype=torch.float32,
+                              device=q.device).unbind(0)
+    seg_pad = tile_ids = None
+    if segment_ids is not None:
+        seg_pad, tile_ids = pad_key_ids(segment_ids), tile_segment_ids(segment_ids)
     p = _cuda.ptr
     err = _cuda.lib().tv_flash_bwd(
-        p(q), p(k), p(v), p(out), p(dout), p(lse), p(segment_ids), p(delta), p(dq), p(dk),
-        p(dv), B, L, Hq, Hkv, D, 1.0 / math.sqrt(D), _cuda.stream_of(q))
+        p(q), p(k), p(v), p(out), p(dout), p(lse), p(segment_ids), p(seg_pad), p(tile_ids),
+        p(lse2), p(delta), p(dq), p(dk), p(dv), B, L, Hq, Hkv, D, gqa_pack(Hq, Hkv),
+        *FLASH_BWD_TILE,
+        1.0 / math.sqrt(D), _cuda.stream_of(q))
     _cuda.check(err, "tv_flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+
+
+def tile_segment_ids(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(L / 64), 2) int32: the least and the greatest segment id of
+    each tile of 64 tokens, K2-bwd's query tile FLASH_BWD_TILE[1] (the last
+    tile padded with the row's last id; positions past L are masked by
+    position). K2-bwd skips the segment compare for a tile pair that carries
+    one id on both sides, and skips the pair outright where the two id ranges
+    are disjoint."""
+    B, L = segment_ids.shape
+    tile = FLASH_BWD_TILE[1]
+    pad = -L % tile
+    x = torch.cat([segment_ids, segment_ids[:, -1:].expand(B, pad)], 1).view(B, -1, tile)
+    return torch.stack([x.amin(-1), x.amax(-1)], -1).to(torch.int32).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, dout, segment_ids=None):

@@ -1,5 +1,6 @@
 """K10a: head-grid ViT attention at head dim 128, as a hand-written CUDA
-kernel (csrc/headgrid_attn.cu).
+kernel (csrc/headgrid_attn.cu: csrc/attn_sm90.cuh with the TPU kernel's
+softmax without a row max, `hpp` heads walked in turn by one block).
 
 Counterpart of scripts/microbench_vit_attn.py:headgrid_attention (the
 pallas_call of _headgrid_kernel), which probes SigLIP's attention (729
@@ -24,6 +25,9 @@ from timeviper_tpu_torch.ops import _cuda
 
 HD = 128  # the padded head dim the kernel takes
 HPP = (1, 2, 4)  # heads a program, instantiated in csrc/headgrid_attn.cu
+# (query rows a block, keys a tile) built in csrc/headgrid_attn.cu, which
+# refuses another
+HEADGRID_TILE = (192, 64)
 
 
 def pad_heads(qkv: torch.Tensor, num_heads: int, head_dim: int, hd_new: int = HD
@@ -75,8 +79,8 @@ def headgrid_attention(qkv: torch.Tensor, num_heads: int, hpp: int, scale: float
                          f"divide {num_heads} heads")
     out = torch.empty(B, T, num_heads * HD, dtype=qkv.dtype, device=qkv.device)
     err = _cuda.lib().tv_headgrid_attn(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, hpp, int(do_exp), scale,
-        _cuda.stream_of(qkv))
+        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, hpp, int(do_exp), *HEADGRID_TILE,
+        scale, _cuda.stream_of(qkv))
     _cuda.check(err, "tv_headgrid_attn")
     headgrid_attention.launches += 1
     return out
