@@ -15,17 +15,21 @@ Phases, each of which raises on failure (there is no fallback anywhere):
 2. build: compile csrc/*.cu (one nvcc per source, all started together) into
    one library; print the seconds and each kernel's registers and spills,
    and for the Hopper attention kernels (K9, K2, K6, K3, K10a on
-   csrc/attn_sm90.cuh, and K2-bwd on its pieces) their entry names, ptxas's
-   notes and K10a's and K2-bwd's dynamic shared memory a block.
+   csrc/attn_sm90.cuh, and K2-bwd and K4 on its pieces) their entry names,
+   ptxas's notes and K10a's, K2-bwd's and K4's dynamic shared memory a block.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat, and K9, K2, K2-bwd, K6, K3 and K10a the same
-   SHA-256 on a repeat (their lines also give the launch plan, the achieved
-   TFLOP/s and the share of the bound). K2 runs with segment ids (its
+   gradients on a repeat, and K1, K5, K9, K2, K2-bwd, K6, K3 and K10a the
+   same SHA-256 on a repeat (the attention kernels' and K4's lines also give
+   the launch plan, the achieved TFLOP/s and the share of the bound). K4 runs
+   at L 4,096 with segments and a final-state cotangent, and at the training
+   rows' 1,064 and 4,136 tokens, its device time split by pass; K5's line
+   gives its conv stage's device time and that stage's share of its bytes
+   bound. K2 runs with segment ids (its
    library yardstick SDPA with a boolean mask, which takes SDPA's masked
    backend), without them (SDPA's flash backend with is_causal), with its
    row log-sum-exp (held against the plain one) and at each tile of the K2
@@ -484,7 +488,8 @@ def phase_build() -> None:
     for line in _cuda.build_log.splitlines():
         if line.startswith("=="):
             sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu", "flash_fwd.cu",
-                                "vit_attn_qkv.cu", "headgrid_attn.cu", "flash_bwd.cu")
+                                "vit_attn_qkv.cu", "headgrid_attn.cu", "flash_bwd.cu",
+                                "ssd_bwd.cu")
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or sm90 and ("entry function" in line or "warning" in line.lower()
                              or "(C75" in line)):  # ptxas's wgmma notes
@@ -492,12 +497,13 @@ def phase_build() -> None:
     lib = _cuda.lib()
     log(f"[build] dynamic shared memory a block: K2-bwd dkv {lib.tv_flash_bwd_smem(0)} B, dq "
         f"{lib.tv_flash_bwd_smem(1)} B (tile {FLASH_BWD_TILE}); K10a (tile {HEADGRID_TILE}) hpp "
-        f"1 {lib.tv_headgrid_smem(1)} B, hpp 2 and 4 {lib.tv_headgrid_smem(2)} B")
+        f"1 {lib.tv_headgrid_smem(1)} B, hpp 2 and 4 {lib.tv_headgrid_smem(2)} B; K4 dc / db "
+        f"{lib.tv_ssd_bwd_smem()} B")
 
 
-def kernel_split(fn, iters: int = 5) -> str:
+def kernel_ms(fn, iters: int = 5) -> dict:
     """Device time (ms) of one call by kernel name (torch.profiler), for a
-    call that launches several kernels."""
+    call that launches several kernels; the largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -510,7 +516,11 @@ def kernel_split(fn, iters: int = 5) -> str:
     rows = sorted(((e.key, e.self_device_time_total / iters / 1e3) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    return ", ".join(f"{key[:60]} {ms:.4f}" for key, ms in rows)
+    return dict(rows)
+
+
+def kernel_split(fn, iters: int = 5) -> str:
+    return ", ".join(f"{key[:60]} {ms:.4f}" for key, ms in kernel_ms(fn, iters).items())
 
 
 def kernel_cases(g: torch.Generator):
@@ -543,18 +553,45 @@ def kernel_cases(g: torch.Generator):
     y, final = ssd_scan(x, dt, A, Bm, Cm, **ssd_kw)
     yield ("ssd_fwd", lambda: ssd_scan(x, dt, A, Bm, Cm, **ssd_kw),
            lambda: ssd_chunked(x, dt, A, Bm, Cm, **ssd_kw), None,
-           (ssd_flops(L, H, P, G, N, cs), nbytes(x, dt, Bm, Cm, seq, y, final)))
+           (ssd_flops(L, H, P, G, N, cs), nbytes(x, dt, Bm, Cm, seq, y, final)),
+           dict(repeat=True))
 
-    dy = randn(1, L, H, P)
-    dfin = torch.randn(1, H, P, N, generator=g, device=DEV)
-    _, _, states = ssd_scan_fwd(x, dt, A, Bm, Cm, cs, D, dtb, (0.0, float("inf")), seq, None)
-    args = (x, dt, A, Bm, Cm, D, dtb, seq)
-    outs = ssd_scan_bwd(*args, states, dy, dfin, cs)
-    yield ("ssd_bwd", lambda: ssd_scan_bwd(*args, states, dy, dfin, cs),
-           lambda: ssd_scan_bwd_plain(*args, dy, dfin, cs), None,
-           (ssd_flops(L, H, P, G, N, cs, backward=True),
-            nbytes(x, dt, Bm, Cm, seq, states, dy, dfin, *outs)))
-    del states, outs
+    # K4 on the same layer with a final-state cotangent (the main case), then
+    # at the LoRA training rows' lengths (64 and 256 frames: ragged last
+    # chunks, no segment ids, no final-state cotangent)
+    from timeviper_tpu_torch.ops.ssd_kernel import bwd_head_slices
+
+    n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+    g4 = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    for L4 in (L, 1064, 4136):
+        main = L4 == L
+        # the training shapes draw from a generator of their own, so that the
+        # other kernels' inputs (and their printed SHA-256) stay as they were
+        r4 = randn if main else (lambda *shape, scale=1.0: (torch.randn(
+            *shape, generator=g4, device=DEV) * scale).to(torch.bfloat16))
+        x4, dt4, B4, C4 = ((x, dt, Bm, Cm) if main else
+                           (r4(1, L4, H, P), r4(1, L4, H, scale=0.5),
+                            r4(1, L4, G, N), r4(1, L4, G, N)))
+        seq4 = seq if main else None
+        dy = r4(1, L4, H, P)
+        dfin = torch.randn(1, H, P, N, generator=g, device=DEV) if main else None
+        _, _, states = ssd_scan_fwd(x4, dt4, A, B4, C4, cs, D, dtb, (0.0, float("inf")), seq4,
+                                    None)
+        args = (x4, dt4, A, B4, C4, D, dtb, seq4)
+        outs = ssd_scan_bwd(*args, states, dy, dfin, cs)
+        nc, T = -(-L4 // cs), cs // 64
+        S = bwd_head_slices(nc, cs, G, H // G, 1, n_sm)
+        plan = (f"dc and db {nc * T * G * S} blocks each of 2 warpgroups, a 64-row tile of "
+                f"a chunk, a group and a slice of {H // G // S} heads (S {S}), "
+                f"{_cuda.lib().tv_ssd_bwd_smem()} B of shared memory")
+        yield ("ssd_bwd", lambda args=args, states=states, dy=dy, dfin=dfin:
+               ssd_scan_bwd(*args, states, dy, dfin, cs),
+               lambda args=args, dy=dy, dfin=dfin: ssd_scan_bwd_plain(*args, dy, dfin, cs), None,
+               (ssd_flops(L4, H, P, G, N, cs, backward=True),
+                nbytes(x4, dt4, B4, C4, seq4, states, dy, dfin, *outs)),
+               dict(variant="segmented, final-state cotangent, L 4096" if main else
+                    f"training row, L {L4}", main=main, launch=plan, split=True))
+        del states, outs, args, dy
 
     # K2 / K2-bwd: one attention layer of the 9B at L = 4096, same segments
     # (the main case: the paths pass ids, -1 for left pads); then without
@@ -689,10 +726,13 @@ def kernel_cases(g: torch.Generator):
     conv = {"wx": f32(di, 4, scale=0.3), "bx": f32(di, scale=0.1), "wB": f32(gn, 4, scale=0.3),
             "bB": f32(gn, scale=0.1), "wC": f32(gn, 4, scale=0.3), "bC": f32(gn, scale=0.1)}
     y, final = ssd_conv_scan_fused(xr, dtr, A, Br, Cr, conv, **ssd_kw)
+    # its conv stage reads the raw streams and writes the convolved ones once
+    conv_bytes = 2 * nbytes(xr, Br, Cr) + nbytes(seq, *conv.values())
     yield ("ssd_conv_fwd", lambda: ssd_conv_scan_fused(xr, dtr, A, Br, Cr, conv, **ssd_kw),
            lambda: ssd_conv_scan_fused_plain(xr, dtr, A, Br, Cr, conv, **ssd_kw), None,
            (ssd_flops(L, H, P, G, N, cs),
-            nbytes(xr, dtr, Br, Cr, seq, y, final, *conv.values())))
+            nbytes(xr, dtr, Br, Cr, seq, y, final, *conv.values())),
+           dict(repeat=True, stage=("conv_kernel", conv_bytes)))
     del proj, xr, Br, Cr, dtr, y, final
 
     # K7: one decode step of a 9B Mamba layer at batch 1 and 8; xr and the
@@ -827,6 +867,12 @@ def phase_kernels(g: torch.Generator) -> dict:
             extra += "; a repeat gave the same SHA-256"
         if opt.get("split"):
             extra += f"; device ms by kernel: {kernel_split(kern)}"
+        if "stage" in opt:  # one kernel of the call against its own bytes bound
+            stage, stage_bytes = opt["stage"]
+            stage_ms = sum(v for k, v in kernel_ms(kern).items() if stage in k)
+            stage_bound = stage_bytes / PEAK_BYTES * 1e3
+            extra += (f"; {stage} {stage_ms:.4f} ms device time, {stage_bound / stage_ms:.1%} "
+                      f"of its bytes bound ({stage_bytes:.3e} B, {stage_bound:.4f} ms)")
         log(f"[kernels] {label}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib} ({how}), bound {bound_ms:.4f} ms ({bound_by}: "
             f"{flops:.3e} FLOP, {moved:.3e} B); output SHA-256 {digest[:16]}{extra}")
@@ -1455,6 +1501,13 @@ def profile_call(label: str, fn, top: int = 25) -> None:
         f"({100 * busy / wall_us:.1f}%), {sum(r[2] for r in rows)} device launches")
     for key, us, count in rows[:top]:
         log(f"[profile]   {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
+    # the SSD kernels' passes together, by their argument structs' names
+    for what, tags in (("K4 (csrc/ssd_bwd.cu), all passes", ("BwdArgs",)),
+                       ("K1 / K5 (csrc/ssd_fwd.cu), all passes", ("SsdArgs", "ConvArgs"))):
+        mine = [r for r in rows if any(tag in r[0] for tag in tags)]
+        if mine:
+            log(f"[profile]   {sum(r[1] for r in mine) / 1e3:9.2f} ms {sum(r[2] for r in mine):6d}x"
+                f"  {what}")
 
 
 def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> None:

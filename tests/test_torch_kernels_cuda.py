@@ -411,6 +411,13 @@ def test_kernels_raise_on_what_they_do_not_take():
         block_attn_lse(q, q[:, :4], q[:, :4], causal=True)  # causal takes Lq == Lk
     with pytest.raises(ValueError):
         block_attn_lse(q, q[:, :, :2], q[:, :, :2].contiguous())  # k and v strides differ
+    # K4 takes chunks of at most 256 rows (four 64-row tiles staged a block)
+    args, D, dtb, _, seq, dy, _ = _ssd_case(5, 1, 512, 8, 2, None, 512, dev)
+    from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan_fwd
+
+    _, _, states = ssd_scan_fwd(*args.values(), 512, D, dtb, (0.0, float("inf")), seq, None)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd_scan_bwd(*args.values(), D, dtb, seq, states, dy, None, 512)
 
 
 def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):
@@ -426,14 +433,22 @@ def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):
     return args, D, dtb, h0, seq, dy, dfin
 
 
-@pytest.mark.parametrize("L,packed,init", [(300, None, True), (300, (37, 170), False),
-                                           (256, (64, 128), False)])
-def test_ssd_backward_kernel_matches_plain(L, packed, init):
-    """K4 through SSDScanFn: a ragged tail (L = 300, chunks of 64), a -1 pad
-    with a boundary inside chunks or both on chunk edges, a final-state
-    cotangent, and an initial state; bitwise repeatable."""
+@pytest.mark.parametrize("L,packed,init,H,G,cs", [
+    (300, None, True, 16, 4, 64), (300, (37, 170), False, 16, 4, 64),
+    (256, (64, 128), False, 16, 4, 64),
+    (600, (37, 450), False, 32, 2, 256),  # the 9B's 16 heads a group and chunks of 256
+    (300, (13, 140), False, 4, 4, 64),    # H == G: one head a group
+    (512, (64, 128), False, 16, 4, 256),  # whole tile pairs masked by the segments
+    (300, (37, 170), True, 16, 4, 128),   # chunks of two tiles
+])
+def test_ssd_backward_kernel_matches_plain(L, packed, init, H, G, cs):
+    """K4 through SSDScanFn: a ragged tail (L = 300, chunks of 64 or 128; L
+    600, chunks of 256), a -1 pad with a boundary inside chunks or both on chunk
+    and tile edges (leaving tile pairs with no pair of one segment), a
+    final-state cotangent, an initial state, one head a group and the 9B's
+    16 (their heads split over slices); bitwise repeatable."""
     dev = require_cuda()
-    B, H, G, cs = 2, 16, 4, 64
+    B = 2
     args, D, dtb, h0, seq, dy, dfin = _ssd_case(4, B, L, H, G, packed, cs, dev, init)
 
     def kernel_grads():
@@ -556,13 +571,18 @@ def test_decode_fused_kernel_matches_plain(B, G, H, P):
     _close(got[2], want[2], 1e-5)
 
 
-@pytest.mark.parametrize("packed", [None, (37, 170)])
+@pytest.mark.parametrize("packed", [None, (37, 170), (66, 128), (129, 195), "rows"])
 def test_conv_scan_kernel_matches_plain(packed):
     """K5 on raw streams that are column slices of one in-projection output
-    (strided rows), a ragged tail, a -1 pad and a boundary inside a chunk."""
+    (strided rows), a ragged tail, a -1 pad and a boundary inside a chunk;
+    boundaries 1-3 rows after a 64-row tile edge and on a chunk edge (the
+    conv stage's halo across a tile, a chunk and a segment); B 2 with a
+    different pad per row; bitwise repeatable."""
     dev = require_cuda()
     r = rng(9)
     B, L, H, P, G, N, cs = 1, 300, 16, 64, 4, 128, 128
+    if packed == "rows":
+        B = 2
     di, gn = H * P, G * N
     proj = t(r.standard_normal((B, L, 2 * di + 2 * gn + H), np.float32)).to(dev, torch.bfloat16)
     x = proj[..., di:2 * di].reshape(B, L, H, P)
@@ -573,7 +593,10 @@ def test_conv_scan_kernel_matches_plain(packed):
     conv = {"wx": f32(di, 4, k=0.3), "bx": f32(di, k=0.1), "wB": f32(gn, 4, k=0.3),
             "bB": f32(gn, k=0.1), "wC": f32(gn, 4, k=0.3), "bC": None}
     A = -torch.exp(f32(H))
-    seq = t(packed_seq(B, L, *packed)).to(dev) if packed else None
+    if packed == "rows":
+        seq = t(row_pads(B, L, [5, 70])).to(dev)
+    else:
+        seq = t(packed_seq(B, L, *packed)).to(dev) if packed else None
     kw = dict(chunk_size=cs, D=f32(H), dt_bias=f32(H, k=0.1), seq_idx=seq)
     before = ssd_conv_scan_fused.launches
     y, st = ssd_conv_scan_fused(x, dt, A, Bm, Cm, conv, **kw)
@@ -581,6 +604,8 @@ def test_conv_scan_kernel_matches_plain(packed):
     yp, sp = ssd_conv_scan_fused_plain(x, dt, A, Bm, Cm, conv, **kw)
     _close(y, yp, 1e-2)
     _close(st, sp, 1e-2)
+    y2, st2 = ssd_conv_scan_fused(x, dt, A, Bm, Cm, conv, **kw)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 @pytest.mark.parametrize("M", [1, 16, 33])

@@ -13,47 +13,84 @@
 // sequential walk:
 //   1. dt:        processed dt, chunk-local cumsum of dt*A, the chunk carry
 //                 (the forward's pass 1, recomputed);
-//   2. cb:        C.B^T per (chunk, group), the lower-triangle tiles;
+//   2. cb:        C.B^T per (chunk, group), the lower-triangle 64 x 64 tiles,
+//                 written twice in the register order in which the dc and db
+//                 threads read them (rows i or rows j): value k of thread t
+//                 at float4 k * 128 + t, so a warp's load (and store) is 512
+//                 contiguous bytes;
 //   3. contrib:   what each chunk adds to the cotangent of its inbound state,
 //                 sum_i w_out_i dy_i^T C_i (P x N), per (chunk, head);
 //   4. dstate:    a reverse walk over the nc chunks, one thread per state
 //                 element: dh_in(c) = carry_c dh_out(c) + contrib_c, seeded
-//                 with the final-state cotangent. It leaves dh_out(c), the
-//                 cotangent of chunk c's end state, and d initial state.
-//   5. dc / db:   one block per (chunk, group, 64-row tile) that loops over
-//                 the group's heads as the TPU kernel does, so dC (rows i)
-//                 and dB (rows j) are summed over the heads inside the block
-//                 with no atomics. dc computes dM = dy.xdt^T on the i rows,
-//                 dCB and dC; db the transposed tiles on the j rows, dB, dxdt,
-//                 dx and the per-position pieces of the dt gradient.
-//   6. dtfinal:   per (chunk, head): the suffix sum of the cumsum cotangent,
+//                 with the final-state cotangent. It leaves d initial state,
+//                 bf16 copies of dh_out(c) and of the inbound state h_in(c)
+//                 for the products of pass 5, and per-block partial sums of
+//                 dh_out(c) . h_in(c) for the cumsum cotangent of pass 6;
+//   5. dc / db:   the products, one block per (chunk, 64-row tile, group,
+//                 slice of the group's heads), below;
+//   6. reduce:    where the heads were split over S > 1 slices, dC and dB as
+//                 the sum of the slices' partials, slice 0 first;
+//   7. dtfinal:   per (chunk, head): the suffix sum of the cumsum cotangent,
 //                 ddt_raw (softplus' sigmoid and the dt_limit clip mask, 0 on
 //                 the ragged tail), and per-chunk partials of dA, d dt_bias
 //                 and dD that the wrapper sums (a tiny torch.sum, as the JAX
 //                 wrapper's jnp.sum over its per-program partials).
-// Every sum has a fixed order, so the gradients are bitwise repeatable.
+// Every sum has a fixed order and there are no atomics, so the gradients are
+// bitwise repeatable.
 //
 // What bounds it: about 2.3x the forward's products (dM, M^T dy, dCB B,
-// dCB^T C per head and chunk, plus the P x N cross terms), on the bf16
-// tensor cores (mma.sync m16n8k16) with bf16 operands and f32 sums as in the
-// TPU kernel; then the scalar work that builds the masked decay tiles and the
-// f32 scratch traffic (inbound states and their cotangents, 4 MB a chunk at
-// the 9B's 128 heads). Segment ids reset the state exactly as the forward
-// and the TPU kernel do: cont, keep_last, no_boundary and the previous
-// chunk's last id (clamped at chunk 0).
-#include "common.cuh"
+// dCB^T C per head and chunk pair, plus the P x N cross terms), 0.10 ms at
+// the 9B's L 4,096 on the bf16 tensor cores, against ~0.15 GB of reads and
+// writes (0.05 ms). The products are small (64 x 64 x 64 a tile pair and
+// head) and wrapped in scalar work: the masked decay tile, an exp a pair and
+// head, and the row sums of the cumsum cotangent. The design of pass 5 does
+// this about it:
+// - A block is two consumer warpgroups that take the slice's heads in turn
+//   (heads 0, 2, .. and 1, 3, ..), each with its own ring, 1 block an SM
+//   (223 KB of shared memory). Its dC (dc) or dB (db) rows are summed over
+//   its heads in registers, then warpgroup 1's sum is added to warpgroup
+//   0's through shared memory: a fixed order, no atomics.
+// - What the group's heads share is staged once a block: C of the block's
+//   own rows and B of every walked tile (dc), B of the own rows and C of
+//   every walked tile (db), 16 KB a tile, by 16-byte cp.async.
+// - What is per head streams through a ring of 16-byte cp.async: a head
+//   slot (the bf16 state h_in or dh_out, the own rows of dy or x, the head's
+//   cumsum and dt) and walk slots (x or dy of one walked tile), two of each,
+//   so the next unit's copies run under this unit's products. No loads of
+//   fewer than 16 bytes.
+// - Every 64-row product is one wgmma sequence (attn_sm90.cuh's issue_qk /
+//   issue_pv): dM = dy_i x_j^T (64 x 64 x 64), dC += dCB B_j and dB +=
+//   dCB^T C_i (64 x 128 x 64, dCB from registers), dxdt += M^T dy_i, the
+//   y_off = C_i h_in^T and B_j dh^T products (64 x 64 x 128), and dC +=
+//   (w_out dy) h_in, dB += (w_st xdt) dh. Operand tiles lie in shared
+//   memory in the 128-byte swizzle that TMA would write and the wgmma
+//   descriptors name.
+// - The decay tile is ex2 of (acs_i - acs_j) log2(e) per pair, never
+//   exp(acs_i) exp(-acs_j), which overflows f32 within a chunk at the 9B's A.
+//   dt_j scales dM's columns (dc) or rows (db) in f32 after the product.
+// - Parallelism: grid (nc * T, G * S, B); at L 4,096 and S 1, 512 blocks of
+//   8 warps in 3.9 waves, the longest walks (dc's last tile row, db's
+//   first) launched first; the wrapper raises S (2, 4) where the grid would
+//   give fewer than 3 waves (the 1,064-token training rows).
+// Segment ids reset the state exactly as the forward and the TPU kernel do:
+// cont, keep_last, no_boundary and the previous chunk's last id (clamped at
+// chunk 0).
+#include "attn_sm90.cuh"
 
 namespace {
 
+using namespace tv::sm90;
 using tv::bf;
 using tv::to_bf;
 
 constexpr int kP = 64;
 constexpr int kN = 128;
 constexpr int kTile = 64;
+constexpr int kMaxT = 4;  // tiles a chunk: chunks of at most 256 rows
 constexpr int kLDN = kN + 8;
 constexpr int kLDP = kP + 8;
 constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const __nv_bfloat16* x;   // (B, L, H, P)
@@ -76,12 +113,17 @@ struct BwdArgs {
   float* dtp;               // (B, H, Lp)
   float* acs;               // (B, H, Lp)
   float* carry;             // (B, H, nc)
-  float* cb;                // (B, nc, G, cs, cs)
-  float* dstates;           // (B, nc, H, P, N): contributions, then dh_out
+  float* cb;                // (B, nc, G, 2, T, T, 8 x 128 x 4): C.B^T tiles in dc's and db's order
+  float* dstates;           // (B, nc, H, P, N): the chunks' contributions
+  __nv_bfloat16* hin_bf;    // (B, nc, H, P, N): h_in(c) in bf16
+  __nv_bfloat16* dh_bf;     // (B, nc, H, P, N): dh_out(c) in bf16
+  float* vpart;             // (B, nc, H, P*N/128): partial sums of dh_out . h_in
+  float* slices;            // (2, S, B, L, G, N): dC and dB partials per head slice (S > 1)
   float* da;                // (B, H, Lp) cotangent of the cumsum, before the suffix sum
   float* ubuf;              // (B, H, Lp) the u_j term (its chunk sum feeds the last row)
   float* ddt1;              // (B, H, Lp) sum_p dxdt x
-  int B, L, H, G, cs, nc, Lp;
+  float* dyx;               // (B, H, Lp) sum_p dy x (the rows' terms of dD)
+  int B, L, H, G, cs, nc, Lp, S;
   int clamp;
   float dt_lo, dt_hi;
 };
@@ -118,6 +160,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
+// v[i] * scale rounded to bf16, eight of them in one 16-byte word.
+__device__ __forceinline__ uint4 scale8(uint4 raw, float scale) {
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  return make_uint4(tv::pack_bf16(bf(v[0]) * scale, bf(v[1]) * scale),
+                    tv::pack_bf16(bf(v[2]) * scale, bf(v[3]) * scale),
+                    tv::pack_bf16(bf(v[4]) * scale, bf(v[5]) * scale),
+                    tv::pack_bf16(bf(v[6]) * scale, bf(v[7]) * scale));
+}
+
 // Pass 1. grid (nc, H, B), block cs threads (the forward's pass 1).
 __global__ void dt_kernel(BwdArgs a) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
@@ -140,6 +191,25 @@ __global__ void dt_kernel(BwdArgs a) {
   }
 }
 
+// The 32 accumulator values thread t (of a warpgroup) holds of a 64 x 64
+// tile: rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 k + 2 (t % 4) (+ 1);
+// value 4 k + 2 half + e is (row + 8 half, column + e).
+__device__ __forceinline__ int frag_row(int t, int idx) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((idx >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int t, int idx) {
+  return 8 * (idx >> 2) + 2 * (t & 3) + (idx & 1);
+}
+
+// Offset (floats) of the C.B^T tile (it, jt) of (b, c, g) in order o (0:
+// dc's, rows i; 1: db's, rows j).
+__device__ __forceinline__ size_t cb_tile(const BwdArgs& a, int b, int c, int g, int o, int it,
+                                          int jt) {
+  const int T = a.cs / kTile;
+  return ((((size_t)b * a.nc + c) * a.G + g) * 2 + o) * T * T * 4096 +
+         (size_t)(it * T + jt) * 4096;
+}
+
 // Pass 2. grid (nc * T * T, G, B), 128 threads; tiles above the diagonal exit.
 __global__ void __launch_bounds__(kThreads) cb_kernel(BwdArgs a) {
   const int T = a.cs / kTile;
@@ -149,6 +219,9 @@ __global__ void __launch_bounds__(kThreads) cb_kernel(BwdArgs a) {
   const int g = blockIdx.y, b = blockIdx.z;
   __shared__ __align__(16) __nv_bfloat16 Cs[kTile][kLDN];
   __shared__ __align__(16) __nv_bfloat16 Bs[kTile][kLDN];
+  // the product tile, over Cs once it is read
+  float (*tile)[kTile + 1] = reinterpret_cast<float (*)[kTile + 1]>(&Cs[0][0]);
+  static_assert(sizeof(float) * kTile * (kTile + 1) <= sizeof(Cs), "the tile fits in Cs");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int i0 = c * a.cs + it * kTile, j0 = c * a.cs + jt * kTile;
   for (int e = tid; e < kTile * kN / 8; e += kThreads) {
@@ -173,15 +246,26 @@ __global__ void __launch_bounds__(kThreads) cb_kernel(BwdArgs a) {
       tv::mma_16816(acc[nt], af, tv::ld32(p), tv::ld32(p + 8));
     }
   }
-  float* out = a.cb + (((size_t)b * a.nc + c) * a.G + g) * a.cs * a.cs;
+  __syncthreads();  // Cs and Bs are read
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = it * kTile + r0 + 8 * half, j = jt * kTile + nt * 8 + cq;
-      *reinterpret_cast<float2*>(out + (size_t)i * a.cs + j) =
-          make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+    for (int q = 0; q < 4; ++q) tile[r0 + 8 * (q >> 1)][nt * 8 + cq + (q & 1)] = acc[nt][q];
+  __syncthreads();
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    float4* out = reinterpret_cast<float4*>(a.cb + cb_tile(a, b, c, g, o, it, jt)) + tid;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = frag_row(tid, 4 * k + e), col = frag_col(tid, 4 * k + e);
+        v[e] = o == 0 ? tile[r][col] : tile[col][r];
+      }
+      out[k * kThreads] = make_float4(v[0], v[1], v[2], v[3]);
     }
+  }
 }
 
 // Pass 3. grid (nc, H, B), 128 threads. dstates[b,c,h,p,n] = sum_i w_i dy[i,p]
@@ -201,11 +285,11 @@ __global__ void __launch_bounds__(kThreads) contrib_kernel(BwdArgs a) {
   float acc[kN / 8][4] = {};
   for (int i0 = 0; i0 < a.cs; i0 += kTile) {
     __syncthreads();
-    for (int e = tid; e < kTile * kP; e += kThreads) {
-      const int i = e / kP, p = e % kP, pos = c * a.cs + i0 + i;
-      Ys[i][p] = to_bf(pos < a.L ? bf(a.dy[(((size_t)b * a.L + pos) * a.H + h) * kP + p]) *
-                                       w[i0 + i]
-                                 : 0.f);
+    for (int e = tid; e < kTile * kP / 8; e += kThreads) {
+      const int i = e / (kP / 8), p = (e % (kP / 8)) * 8, pos = c * a.cs + i0 + i;
+      const uint4 raw = tv::ld_row8(a.dy + (((size_t)b * a.L + pos) * a.H + h) * kP + p,
+                                    pos < a.L);
+      *reinterpret_cast<uint4*>(&Ys[i][p]) = scale8(raw, w[i0 + i]);
     }
     for (int e = tid; e < kTile * kN / 8; e += kThreads) {
       const int i = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = c * a.cs + i0 + i;
@@ -238,479 +322,465 @@ __global__ void __launch_bounds__(kThreads) contrib_kernel(BwdArgs a) {
 }
 
 // Pass 4. grid (P*N / 128, H, B): one thread per state element walks the
-// chunks in reverse, replacing each chunk's contribution with dh_out(c).
+// chunks in reverse: dh_out(c) is the carried value, written in bf16 with
+// h_in(c) beside it, and its product with h_in(c) summed over the block's
+// 128 elements (vpart, block x of P*N/128).
 __global__ void __launch_bounds__(kThreads) dstate_kernel(BwdArgs a) {
   constexpr int kUnroll = 8;
+  __shared__ float red[kUnroll][kThreads / 32];
   const int e = blockIdx.x * kThreads + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t hstride = (size_t)a.H * kP * kN;
   const size_t own = ((size_t)b * a.H + h) * kP * kN + e;
   float s = a.dfinal ? a.dfinal[own] : 0.f;
-  float* st = a.dstates + (size_t)b * a.nc * hstride + (size_t)h * kP * kN + e;
+  const size_t base = (size_t)b * a.nc * hstride + (size_t)h * kP * kN + e;
   const float* carry = a.carry + ((size_t)b * a.H + h) * a.nc;
   for (int c0 = a.nc - 1; c0 >= 0; c0 -= kUnroll) {
-    float local[kUnroll], decay[kUnroll];
+    float local[kUnroll], decay[kUnroll], hin[kUnroll], prod[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (c0 - u >= 0) {
-        local[u] = st[(c0 - u) * hstride];
+        local[u] = a.dstates[base + (c0 - u) * hstride];
+        hin[u] = a.states[base + (c0 - u) * hstride];
         decay[u] = carry[c0 - u];
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
+      prod[u] = 0.f;
       if (c0 - u >= 0) {
-        st[(c0 - u) * hstride] = s;
+        const size_t o = base + (c0 - u) * hstride;
+        a.dh_bf[o] = to_bf(s);
+        a.hin_bf[o] = to_bf(hin[u]);
+        prod[u] = s * hin[u];
         s = s * decay[u] + local[u];
       }
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float v = prod[u];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) red[u][warp] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < kUnroll && c0 - (int)threadIdx.x >= 0) {
+      float v = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) v += red[threadIdx.x][w];
+      a.vpart[(((size_t)b * a.nc + c0 - threadIdx.x) * a.H + h) * gridDim.x + blockIdx.x] = v;
+    }
+    __syncthreads();
   }
   a.dinit[own] = s;
 }
 
-// Shared-memory carving of the dc / db kernels (16-byte aligned pieces).
-struct TileSmem {
-  __nv_bfloat16* own_n;   // [64][kLDN] group rows of the block's own tile (C for dc, B for db)
-  __nv_bfloat16* state;   // [64 (p)][kLDN] h_in (dc) or dh_out (db) of the head, bf16
-  __nv_bfloat16* own_p;   // [64][kLDP] dy rows (dc) or xdt rows (db) of the head
-  __nv_bfloat16* walk_p;  // [64][kLDP] xdt rows (dc) or dy rows (db) of the walked tile
-  __nv_bfloat16* walk_n;  // [64][kLDN] B rows (dc) or C rows (db) of the walked tile
-  float* own_acs;         // [64]
-  float* own_w;           // [64] w_out (dc) or w_st (db)
-  float* own_dtp;         // [64]
-  float* walk_acs;        // [64]
-  int* own_seg;           // [64]
-  int* walk_seg;          // [64]
-  static constexpr size_t bytes =
-      sizeof(__nv_bfloat16) * (3 * kTile * kLDN + 2 * kTile * kLDP) +
-      sizeof(float) * 4 * kTile + sizeof(int) * 2 * kTile;
-  __device__ explicit TileSmem(unsigned char* raw) {
-    own_n = reinterpret_cast<__nv_bfloat16*>(raw);
-    state = own_n + kTile * kLDN;
-    own_p = state + kTile * kLDN;
-    walk_p = own_p + kTile * kLDP;
-    walk_n = walk_p + kTile * kLDP;
-    own_acs = reinterpret_cast<float*>(walk_n + kTile * kLDN);
-    own_w = own_acs + kTile;
-    own_dtp = own_w + kTile;
-    walk_acs = own_dtp + kTile;
-    own_seg = reinterpret_cast<int*>(walk_acs + kTile);
-    walk_seg = own_seg + kTile;
-  }
-};
+// ---- pass 5: the dc and db kernels ----
 
-// 64 rows of a group stream [.][N] (B or C) into a [64][kLDN] tile.
-__device__ __forceinline__ void load_group_rows(const BwdArgs& a, const __nv_bfloat16* src,
-                                                __nv_bfloat16* dst, int b, int g, int pos0) {
-  for (int e = threadIdx.x; e < kTile * kN / 8; e += kThreads) {
-    const int r = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = pos0 + r;
-    *reinterpret_cast<uint4*>(dst + r * kLDN + n) =
-        tv::ld_row8(src + (((size_t)b * a.L + pos) * a.G + g) * kN + n, pos < a.L);
-  }
+constexpr int kBox = 64 * 128;     // 64 rows of 64 bf16 columns, 128-byte swizzled
+constexpr int kNTile = 2 * kBox;   // 64 rows of N = 128 columns: two boxes
+constexpr int kVec = 256 * 4;      // a head's cumsum or dt over a chunk of <= 256 rows
+constexpr int kHeadSlot = kNTile + kBox + 2 * kVec;  // state, own rows, acs, dtp
+constexpr int kWGBytes = 2 * kHeadSlot + 2 * kBox;   // two head slots, two walk slots
+constexpr int kWalkThreads = 256;  // two consumer warpgroups
+constexpr size_t kWalkSmem =
+    1024 + (1 + kMaxT) * kNTile + 2 * kWGBytes + 256 * sizeof(int);
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// 64 rows of head h of a [.][H][P] stream, times an optional per-row f32
-// weight (dtp for xdt), into a [64][kLDP] bf16 tile.
-__device__ __forceinline__ void load_head_rows(const BwdArgs& a, const __nv_bfloat16* src,
-                                               __nv_bfloat16* dst, int b, int h, int pos0,
-                                               const float* row_w) {
-  for (int e = threadIdx.x; e < kTile * kP; e += kThreads) {
-    const int r = e / kP, p = e % kP, pos = pos0 + r;
-    float v = 0.f;
-    if (pos < a.L) {
-      v = bf(src[(((size_t)b * a.L + pos) * a.H + h) * kP + p]);
-      if (row_w) v *= row_w[r];
-    }
-    dst[r * kLDP + p] = to_bf(v);
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for all of this thread's copies (committed or not), and make them
+// visible to wgmma (the async proxy).
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 64 rows of COLS bf16 columns (row r at src + r * ld; rows >= valid read
+// zero, from the valid address `any`) into 128-byte swizzled boxes of 64
+// columns at dst, box k at dst + k kBox: the layout TMA's 128-byte swizzle
+// gives. NT threads, thread t.
+template <int COLS, int NT>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* src, size_t ld,
+                                          int valid, int t, const __nv_bfloat16* any) {
+  constexpr int CH = COLS / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int e = t; e < 64 * CH; e += NT) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r < valid;
+    cp16(dst + (c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+         ok ? src + (size_t)r * ld + c * 8 : any, ok);
   }
 }
 
-// A (P x N) f32 state of one (chunk, head) into a [64][kLDN] bf16 tile.
-__device__ __forceinline__ void load_state(const float* src, __nv_bfloat16* dst) {
-  for (int e = threadIdx.x; e < kP * kN / 4; e += kThreads) {
-    const int p = e / (kN / 4), n = (e % (kN / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(src + p * kN + n);
-    *reinterpret_cast<uint2*>(dst + p * kLDN + n) =
-        make_uint2(tv::pack_bf16(v.x, v.y), tv::pack_bf16(v.z, v.w));
+// n floats (a multiple of 4) from src to dst by 16-byte copies, 128 threads.
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int n, int t) {
+  for (int e = t; e < n / 4; e += 128) cp16(dst + 4 * e, src + 4 * e, true);
+}
+
+// Two bf16 values at (row r, column c), c even, of a swizzled box.
+__device__ __forceinline__ float2 ld_sw(const uint8_t* box, int r, int c) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(box + r * 128 +
+                                                        ((((c >> 3) ^ (r & 7))) << 4) +
+                                                        (c & 7) * 2);
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The register A operand (rows ra, ra + 8 of 16 x 64) of a swizzled [64][64]
+// box, row r scaled by w[r] in f32 before the bf16 rounding.
+__device__ __forceinline__ void scaled_a(uint32_t (&pa)[4][4], const uint8_t* box, int ra,
+                                         float w0, float w1) {
+  const int cq = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float2 v0 = ld_sw(box, ra, 16 * kk + cq), v1 = ld_sw(box, ra + 8, 16 * kk + cq);
+    const float2 v2 = ld_sw(box, ra, 16 * kk + 8 + cq), v3 = ld_sw(box, ra + 8, 16 * kk + 8 + cq);
+    pa[kk][0] = tv::pack_bf16(v0.x * w0, v0.y * w0);
+    pa[kk][1] = tv::pack_bf16(v1.x * w1, v1.y * w1);
+    pa[kk][2] = tv::pack_bf16(v2.x * w0, v2.y * w0);
+    pa[kk][3] = tv::pack_bf16(v3.x * w1, v3.y * w1);
   }
 }
 
-// A fragment of rows (r, r + 8) x cols (16 kk + cq ...) of a [.][ld] bf16
-// tile, each row scaled by its f32 weight before the bf16 rounding.
-__device__ __forceinline__ void scaled_afrag(uint32_t (&af)[4], const __nv_bfloat16* t, int ld,
-                                             int r, int col, float w0, float w1) {
-  const __nv_bfloat16* p0 = t + r * ld + col;
-  const __nv_bfloat16* p1 = p0 + 8 * ld;
-  af[0] = tv::pack_bf16(bf(p0[0]) * w0, bf(p0[1]) * w0);
-  af[1] = tv::pack_bf16(bf(p1[0]) * w1, bf(p1[1]) * w1);
-  af[2] = tv::pack_bf16(bf(p0[8]) * w0, bf(p0[9]) * w0);
-  af[3] = tv::pack_bf16(bf(p1[8]) * w1, bf(p1[9]) * w1);
+__device__ __forceinline__ void wg_bar(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-__device__ __forceinline__ void afrag(uint32_t (&af)[4], const __nv_bfloat16* t, int ld, int r,
-                                      int col) {
-  const __nv_bfloat16* p = t + r * ld + col;
-  af[0] = tv::ld32(p);
-  af[1] = tv::ld32(p + 8 * ld);
-  af[2] = tv::ld32(p + 8);
-  af[3] = tv::ld32(p + 8 * ld + 8);
-}
-
-// Pass 5a. grid (nc * T, G, B), 128 threads, TileSmem::bytes of dynamic smem.
-// The block owns rows i of one 64-row tile of chunk c and walks the group's
-// heads; warp w owns rows 16w..16w+15. Per head:
+// Pass 5. DB false: dc, DB true: db. grid (nc * T, G * S, B), 256 threads,
+// kWalkSmem bytes. blockIdx.x = k nc + c: the block's own tile is T-1-k
+// (dc) or k (db), so the longest walks start first. Warpgroup wg takes the
+// heads wg, wg + 2, .. of the block's slice; for each head a unit of the
+// head's data, then one unit per walked tile.
+//
+// dc, rows i of tile it, walking j <= it; per head:
 //   t_i   = w_out_i dy_i . (C_i h_in^T)                       (the y_off term)
 //   dC_i += (w_out_i dy_i) h_in + sum_{j<=i} dCB[i,j] B_j
-//   dCB[i,j] = [j <= i, same segment] exp(acs_i - acs_j) dy_i . xdt_j
+//   dCB[i,j] = [j <= i, same segment] exp(acs_i - acs_j) dt_j (dy_i . x_j)
 //   da_i  = sum_j dCB[i,j] CB[i,j] + t_i
-__global__ void __launch_bounds__(kThreads) dc_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileSmem sm(smem_raw);
-  const int T = a.cs / kTile;
-  const int c = blockIdx.x / T, it = blockIdx.x % T, g = blockIdx.y, b = blockIdx.z;
-  const int R = a.H / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i0 = it * kTile, pos_i = c * a.cs + i0;
-  const int rl = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
-  const int sprev = seg_prev(a, b, c);
-  load_group_rows(a, a.Cm, sm.own_n, b, g, pos_i);
-  if (tid < kTile) sm.own_seg[tid] = seg_at(a, b, pos_i + tid);
-  const float* cbm = a.cb + (((size_t)b * a.nc + c) * a.G + g) * a.cs * a.cs;
-  const float* cb_rows[2] = {cbm + (size_t)(i0 + rl) * a.cs, cbm + (size_t)(i0 + rl + 8) * a.cs};
-
-  float accC[kN / 8][4] = {};
-  for (int hh = 0; hh < R; ++hh) {
-    const int h = g * R + hh;
-    const size_t hrow = ((size_t)b * a.H + h) * a.Lp + (size_t)c * a.cs;
-    __syncthreads();  // the previous head's tiles are no longer read
-    load_state(a.states + (((size_t)b * a.nc + c) * a.H + h) * kP * kN, sm.state);
-    load_head_rows(a, a.dy, sm.own_p, b, h, pos_i, nullptr);
-    if (tid < kTile) {
-      const float v = a.acs[hrow + i0 + tid];
-      sm.own_acs[tid] = v;
-      sm.own_w[tid] = sm.own_seg[tid] == sprev ? expf(v) : 0.f;
-    }
-    __syncthreads();
-    const float w0 = sm.own_w[rl], w1 = sm.own_w[rl + 8];
-
-    // y_off = C_i h_in^T (16 x P per warp), then t_i = w_out_i dy_i . y_off_i
-    float tpart[2] = {0.f, 0.f};
-    {
-      float yo[kP / 8][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks) {
-        uint32_t af[4];
-        afrag(af, sm.own_n, kLDN, rl, ks * 16 + cq);
-#pragma unroll
-        for (int nt = 0; nt < kP / 8; ++nt) {
-          const __nv_bfloat16* p = sm.state + (nt * 8 + (lane >> 2)) * kLDN + ks * 16 + cq;
-          tv::mma_16816(yo[nt], af, tv::ld32(p), tv::ld32(p + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kP / 8; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int half = q >> 1, p = nt * 8 + cq + (q & 1);
-          tpart[half] += bf(sm.own_p[(rl + 8 * half) * kLDP + p]) * yo[nt][q];
-        }
-    }
-    const float t0 = w0 * quad_sum(tpart[0]), t1 = w1 * quad_sum(tpart[1]);
-
-    // dC += (w_out dy) h_in
-#pragma unroll
-    for (int kk = 0; kk < kP / 16; ++kk) {
-      uint32_t af[4];
-      scaled_afrag(af, sm.own_p, kLDP, rl, kk * 16 + cq, w0, w1);
-      const __nv_bfloat16* srow = sm.state + (kk * 16 + (lane & 15)) * kLDN;
-#pragma unroll
-      for (int nt = 0; nt < kN / 8; ++nt) {
-        uint32_t b0, b1;
-        tv::ldsm_x2_trans(b0, b1, srow + nt * 8);
-        tv::mma_16816(accC[nt], af, b0, b1);
-      }
-    }
-
-    float rowE[2] = {0.f, 0.f};
-    for (int jt = 0; jt <= it; ++jt) {
-      const int j0 = jt * kTile, pos_j = c * a.cs + j0;
-      __syncthreads();  // the previous walked tile is no longer read
-      if (tid < kTile) {
-        sm.walk_acs[tid] = a.acs[hrow + j0 + tid];
-        sm.walk_seg[tid] = seg_at(a, b, pos_j + tid);
-        sm.own_dtp[tid] = a.dtp[hrow + j0 + tid];  // dtp of the walked rows
-      }
-      __syncthreads();
-      load_head_rows(a, a.x, sm.walk_p, b, h, pos_j, sm.own_dtp);
-      load_group_rows(a, a.Bm, sm.walk_n, b, g, pos_j);
-      __syncthreads();
-
-      // dM = dy_i . xdt_j (16 x 64 per warp)
-      float dm[kTile / 8][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < kP / 16; ++ks) {
-        uint32_t af[4];
-        afrag(af, sm.own_p, kLDP, rl, ks * 16 + cq);
-#pragma unroll
-        for (int nt = 0; nt < kTile / 8; ++nt) {
-          const __nv_bfloat16* p = sm.walk_p + (nt * 8 + (lane >> 2)) * kLDP + ks * 16 + cq;
-          tv::mma_16816(dm[nt], af, tv::ld32(p), tv::ld32(p + 8));
-        }
-      }
-      // dCB = mask * decay * dM; rowE += dCB * CB
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int half = q >> 1, il = rl + 8 * half, jl = nt * 8 + cq + (q & 1);
-          const bool ok = j0 + jl <= i0 + il && sm.walk_seg[jl] == sm.own_seg[il];
-          const float v = ok ? dm[nt][q] * expf(sm.own_acs[il] - sm.walk_acs[jl]) : 0.f;
-          if (ok) rowE[half] += v * cb_rows[half][j0 + jl];
-          dm[nt][q] = v;
-        }
-      // dC += dCB B_j
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t pa[4] = {tv::pack_bf16(dm[2 * kk][0], dm[2 * kk][1]),
-                                tv::pack_bf16(dm[2 * kk][2], dm[2 * kk][3]),
-                                tv::pack_bf16(dm[2 * kk + 1][0], dm[2 * kk + 1][1]),
-                                tv::pack_bf16(dm[2 * kk + 1][2], dm[2 * kk + 1][3])};
-        const __nv_bfloat16* brow = sm.walk_n + (kk * 16 + (lane & 15)) * kLDN;
-#pragma unroll
-        for (int nt = 0; nt < kN / 8; ++nt) {
-          uint32_t b0, b1;
-          tv::ldsm_x2_trans(b0, b1, brow + nt * 8);
-          tv::mma_16816(accC[nt], pa, b0, b1);
-        }
-      }
-    }
-    const float e0 = quad_sum(rowE[0]), e1 = quad_sum(rowE[1]);
-    if ((lane & 3) == 0) {
-      a.da[hrow + i0 + rl] = e0 + t0;
-      a.da[hrow + i0 + rl + 8] = e1 + t1;
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int pos = pos_i + rl + 8 * half;
-    if (pos >= a.L) continue;
-    float* out = a.dC + (((size_t)b * a.L + pos) * a.G + g) * kN;
-#pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-      *reinterpret_cast<float2*>(out + nt * 8 + cq) =
-          make_float2(accC[nt][2 * half], accC[nt][2 * half + 1]);
-  }
-}
-
-// Pass 5b. grid (nc * T, G, B), 128 threads, TileSmem::bytes of dynamic smem.
-// The block owns rows j of one 64-row tile of chunk c and walks the group's
-// heads; per head, over the tiles i >= j:
-//   dxdt_j = w_st_j (dh_out B_j) + sum_{i>=j} M[i,j] dy_i
+// db, rows j of tile jt, walking i from the last tile down to jt; per head:
+//   dxdt_j = w_st_j (dh_out B_j) + sum_{i>=j} M[i,j] dy_i,  M = CB exp(acs_i - acs_j) (masked)
 //   u_j    = xdt_j . (w_st_j dh_out B_j)
 //   dB_j  += (w_st_j xdt_j) dh_out + sum_{i>=j} dCB[i,j] C_i
 //   da_j  -= sum_i dCB[i,j] CB[i,j] + u_j
-//   dx_j   = dxdt_j dtp_j + D dy_j;  ddt1_j = dxdt_j . x_j
-__global__ void __launch_bounds__(kThreads) db_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileSmem sm(smem_raw);
-  const int T = a.cs / kTile;
-  const int c = blockIdx.x / T, jt = blockIdx.x % T, g = blockIdx.y, b = blockIdx.z;
-  const int R = a.H / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j0 = jt * kTile, pos_j = c * a.cs + j0;
-  const int rl = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
-  const int seg_last = seg_at(a, b, c * a.cs + a.cs - 1);
-  load_group_rows(a, a.Bm, sm.own_n, b, g, pos_j);
-  if (tid < kTile) sm.own_seg[tid] = seg_at(a, b, pos_j + tid);
-  const float* cbm = a.cb + (((size_t)b * a.nc + c) * a.G + g) * a.cs * a.cs;
+//   dx_j   = dxdt_j dtp_j + D dy_j;  ddt1_j = dxdt_j . x_j;  dyx_j = dy_j . x_j
+template <bool DB>
+__global__ void __launch_bounds__(kWalkThreads, 1) walk_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* own_n = align1024(smem_raw);       // [64][128] group rows of the own tile
+  uint8_t* grp_n = own_n + kNTile;            // [T][64][128] group rows of the walked tiles
+  uint8_t* wg_base = grp_n + kMaxT * kNTile;  // per warpgroup: head slots, walk slots
+  int* seg = reinterpret_cast<int*>(wg_base + 2 * kWGBytes);  // [cs] the chunk's ids
 
-  float accB[kN / 8][4] = {};
-  for (int hh = 0; hh < R; ++hh) {
-    const int h = g * R + hh;
-    const size_t hrow = ((size_t)b * a.H + h) * a.Lp + (size_t)c * a.cs;
-    __syncthreads();
-    load_state(a.dstates + (((size_t)b * a.nc + c) * a.H + h) * kP * kN, sm.state);
-    if (tid < kTile) {
-      const float v = a.acs[hrow + j0 + tid];
-      sm.own_acs[tid] = v;
-      sm.own_dtp[tid] = a.dtp[hrow + j0 + tid];
-      sm.own_w[tid] = sm.own_seg[tid] == seg_last ? expf(a.acs[hrow + a.cs - 1] - v) : 0.f;
+  const int T = a.cs / kTile, R = a.H / a.G, Rs = R / a.S;
+  const int c = blockIdx.x % a.nc, k = blockIdx.x / a.nc;
+  const int own = DB ? k : T - 1 - k;
+  const int g = blockIdx.y / a.S, sl = blockIdx.y % a.S, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, tw = tid & 127;
+  const int lane = tid & 31, ra = 16 * (tw >> 5) + (lane >> 2), cq = (lane & 3) * 2;
+  const int pos0 = c * a.cs, pos_own = pos0 + own * kTile;
+  const int first = DB ? own : 0, last = DB ? T - 1 : own;  // walked tiles
+  const int nwalk = last - first + 1;
+  const __nv_bfloat16* own_src = DB ? a.Bm : a.Cm;
+  const __nv_bfloat16* walk_src = DB ? a.Cm : a.Bm;
+  const size_t gld = (size_t)a.G * kN;
+  const size_t grow = ((size_t)b * a.L + pos0) * a.G + g;  // row pos0 of group g
+
+  // the group's rows, once a block
+  load_tile<kN, kWalkThreads>(own_n, own_src + (grow + (size_t)own * kTile * a.G) * kN, gld,
+                              a.L - pos_own, tid, own_src);
+  for (int t = first; t <= last; ++t)
+    load_tile<kN, kWalkThreads>(grp_n + t * kNTile,
+                                walk_src + (grow + (size_t)t * kTile * a.G) * kN, gld,
+                                a.L - pos0 - t * kTile, tid, walk_src);
+  for (int t = tid; t < a.cs; t += kWalkThreads) seg[t] = seg_at(a, b, pos0 + t);
+
+  uint8_t* mine = wg_base + wg * kWGBytes;
+  const int nheads = (Rs - wg + 1) / 2;  // heads wg, wg + 2, .. of the slice
+  const int units = nheads * (1 + nwalk);
+  const __nv_bfloat16* hx = DB ? a.x : a.dy;     // own rows of the head: x (db), dy (dc)
+  const __nv_bfloat16* wx = DB ? a.dy : a.x;     // walked rows: dy (db), x (dc)
+  const __nv_bfloat16* st_src = DB ? a.dh_bf : a.hin_bf;
+  const size_t hld = (size_t)a.H * kP;
+
+  auto head_of = [&](int hk) { return g * R + sl * Rs + wg + 2 * hk; };
+  auto head_slot = [&](int hk) { return mine + (hk & 1) * kHeadSlot; };
+  // the walked tile of step q of a head: dc j = q, db i from the last tile down
+  auto walk_tile = [&](int q) { return DB ? last - q : q; };
+  auto issue = [&](int u) {
+    const int hk = u / (1 + nwalk), q = u % (1 + nwalk) - 1, h = head_of(hk);
+    if (q < 0) {
+      uint8_t* hs = head_slot(hk);
+      load_tile<kN, 128>(hs, st_src + (((size_t)b * a.nc + c) * a.H + h) * kP * kN, kN, kP, tw,
+                         st_src);
+      load_tile<kP, 128>(hs + kNTile, hx + (((size_t)b * a.L + pos_own) * a.H + h) * kP, hld,
+                         a.L - pos_own, tw, hx);
+      const size_t hrow = ((size_t)b * a.H + h) * a.Lp + (size_t)pos0;
+      load_vec(reinterpret_cast<float*>(hs + kNTile + kBox), a.acs + hrow, a.cs, tw);
+      load_vec(reinterpret_cast<float*>(hs + kNTile + kBox + kVec), a.dtp + hrow, a.cs, tw);
+    } else {
+      const int t = walk_tile(q), w0 = pos0 + t * kTile;
+      load_tile<kP, 128>(mine + 2 * kHeadSlot + ((hk * nwalk + q) & 1) * kBox,
+                         wx + (((size_t)b * a.L + w0) * a.H + h) * kP, hld, a.L - w0, tw, wx);
     }
-    __syncthreads();
-    load_head_rows(a, a.x, sm.own_p, b, h, pos_j, sm.own_dtp);
-    __syncthreads();
-    const float w0 = sm.own_w[rl], w1 = sm.own_w[rl + 8];
+    cp_commit();
+  };
 
-    // dxdt = w_st (B_j dh^T) to start; u_j from it
-    float accX[kP / 8][4] = {};
+  if (units > 0) issue(0);
+  cp_wait_all();
+  __syncthreads();
+
+  float acc[64];  // dC (dc) or dB (db) rows of the own tile, this warpgroup's heads
 #pragma unroll
-    for (int ks = 0; ks < kN / 16; ++ks) {
-      uint32_t af[4];
-      afrag(af, sm.own_n, kLDN, rl, ks * 16 + cq);
-#pragma unroll
-      for (int nt = 0; nt < kP / 8; ++nt) {
-        const __nv_bfloat16* p = sm.state + (nt * 8 + (lane >> 2)) * kLDN + ks * 16 + cq;
-        tv::mma_16816(accX[nt], af, tv::ld32(p), tv::ld32(p + 8));
-      }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int seg_r[2] = {seg[own * kTile + ra], seg[own * kTile + ra + 8]};
+  const int seg_ref = DB ? seg_at(a, b, pos0 + a.cs - 1) : seg_prev(a, b, c);
+  const uint32_t own_addr = smem_u32(own_n);
+  // per head, carried across its units
+  float acs_r[2], dtp_r[2], wrow[2], part[2], tu[2];
+  float ax[32];  // db: dxdt of the own rows
+
+  for (int u = 0; u < units; ++u) {
+    if (u > 0) {
+      cp_wait_all();
+      wg_bar(wg);
     }
-    float upart[2] = {0.f, 0.f};
+    if (u + 1 < units) issue(u + 1);
+    const int hk = u / (1 + nwalk), q = u % (1 + nwalk) - 1, h = head_of(hk);
+    uint8_t* hs = head_slot(hk);
+    const uint32_t st_addr = smem_u32(hs), hx_addr = smem_u32(hs + kNTile);
+    const float* acs = reinterpret_cast<const float*>(hs + kNTile + kBox);
+    const float* dtp = acs + kVec / 4;
+    if (q < 0) {
+      // ---- the head's unit ----
 #pragma unroll
-    for (int nt = 0; nt < kP / 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int half = q >> 1, p = nt * 8 + cq + (q & 1);
-        accX[nt][q] *= half ? w1 : w0;
-        upart[half] += bf(sm.own_p[(rl + 8 * half) * kLDP + p]) * accX[nt][q];
+      for (int r = 0; r < 2; ++r) {
+        const int i = own * kTile + ra + 8 * r;
+        acs_r[r] = acs[i];
+        dtp_r[r] = dtp[i];
+        wrow[r] = seg_r[r] == seg_ref ? expf(DB ? acs[a.cs - 1] - acs[i] : acs[i]) : 0.f;
+        part[r] = 0.f;
       }
-    const float u0 = quad_sum(upart[0]), u1 = quad_sum(upart[1]);
-
-    // dB += (w_st xdt) dh
+      float yo[32];
+      // dc: y_off = C_i h_in^T; db: B_j dh^T
+      issue_qk<kN, 64, 64, 64>(yo, own_addr, st_addr);
+      uint32_t pa[4][4];
+      // dc: (w_out dy_i); db: (w_st dt_j x_j)
+      scaled_a(pa, hs + kNTile, ra, DB ? wrow[0] * dtp_r[0] : wrow[0],
+               DB ? wrow[1] * dtp_r[1] : wrow[1]);
+      issue_pv<kN, 64, 64, 64>(acc, pa, st_addr);  // dC += (w_out dy) h_in; dB += (w_st xdt) dh
+      wg_wait<1>();
+      pin(yo);
+      float tp[2] = {0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < kP / 16; ++kk) {
-      uint32_t af[4];
-      scaled_afrag(af, sm.own_p, kLDP, rl, kk * 16 + cq, w0, w1);
-      const __nv_bfloat16* srow = sm.state + (kk * 16 + (lane & 15)) * kLDN;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int nt = 0; nt < kN / 8; ++nt) {
-        uint32_t b0, b1;
-        tv::ldsm_x2_trans(b0, b1, srow + nt * 8);
-        tv::mma_16816(accB[nt], af, b0, b1);
-      }
-    }
-
-    float colE[2] = {0.f, 0.f};
-    for (int it = jt; it < T; ++it) {
-      const int i0 = it * kTile, pos_i = c * a.cs + i0;
-      __syncthreads();
-      load_head_rows(a, a.dy, sm.walk_p, b, h, pos_i, nullptr);
-      load_group_rows(a, a.Cm, sm.walk_n, b, g, pos_i);
-      if (tid < kTile) {
-        sm.walk_acs[tid] = a.acs[hrow + i0 + tid];
-        sm.walk_seg[tid] = seg_at(a, b, pos_i + tid);
-      }
-      __syncthreads();
-
-      // dM^T = xdt_j . dy_i (16 x 64 per warp)
-      float dm[kTile / 8][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < kP / 16; ++ks) {
-        uint32_t af[4];
-        afrag(af, sm.own_p, kLDP, rl, ks * 16 + cq);
-#pragma unroll
-        for (int nt = 0; nt < kTile / 8; ++nt) {
-          const __nv_bfloat16* p = sm.walk_p + (nt * 8 + (lane >> 2)) * kLDP + ks * 16 + cq;
-          tv::mma_16816(dm[nt], af, tv::ld32(p), tv::ld32(p + 8));
-        }
-      }
-      // M^T and dCB^T, rounded to bf16 pairs in the A layout as they are made
-      uint32_t mpk[kTile / 8][2], dpk[kTile / 8][2];
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        float mv[4], dv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int half = q >> 1, jl = rl + 8 * half, il = nt * 8 + cq + (q & 1);
-          const bool ok = i0 + il >= j0 + jl && sm.walk_seg[il] == sm.own_seg[jl];
-          float m = 0.f, d = 0.f;
-          if (ok) {
-            const float lh = expf(sm.walk_acs[il] - sm.own_acs[jl]);
-            const float cbv = cbm[(size_t)(i0 + il) * a.cs + j0 + jl];
-            m = cbv * lh;
-            d = dm[nt][q] * lh;
-            colE[half] += d * cbv;
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = ld_sw(hs + kNTile, ra + 8 * r, 8 * j + cq);
+          if (DB) {
+            yo[4 * j + 2 * r] *= wrow[r];
+            yo[4 * j + 2 * r + 1] *= wrow[r];
+            tp[r] += (v.x * yo[4 * j + 2 * r] + v.y * yo[4 * j + 2 * r + 1]) * dtp_r[r];
+          } else {
+            tp[r] += v.x * yo[4 * j + 2 * r] + v.y * yo[4 * j + 2 * r + 1];
           }
-          mv[q] = m;
-          dv[q] = d;
         }
-        mpk[nt][0] = tv::pack_bf16(mv[0], mv[1]);
-        mpk[nt][1] = tv::pack_bf16(mv[2], mv[3]);
-        dpk[nt][0] = tv::pack_bf16(dv[0], dv[1]);
-        dpk[nt][1] = tv::pack_bf16(dv[2], dv[3]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) tu[r] = DB ? quad_sum(tp[r]) : wrow[r] * quad_sum(tp[r]);
+      if (DB) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ax[i] = yo[i];
       }
+      wg_wait<0>();
+      pin(acc);
+      pin(pa);
+      continue;
+    }
+    // ---- a walked tile ----
+    const int t = walk_tile(q);
+    const uint32_t w_addr = smem_u32(mine + 2 * kHeadSlot + ((hk * nwalk + q) & 1) * kBox);
+    const int it = DB ? t : own, jt = DB ? own : t;
+    float s[32];
+    // dc: dM = dy_i x_j^T (rows i); db: dM^T = x_j dy_i^T (rows j)
+    issue_qk<kP, 64, 64, 64>(s, hx_addr, w_addr);
+    float cbv[32];
+    {
+      const float4* src =
+          reinterpret_cast<const float4*>(a.cb + cb_tile(a, b, c, g, DB ? 1 : 0, it, jt)) + tw;
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t ma[4] = {mpk[2 * kk][0], mpk[2 * kk][1], mpk[2 * kk + 1][0],
-                                mpk[2 * kk + 1][1]};
-        const uint32_t da_[4] = {dpk[2 * kk][0], dpk[2 * kk][1], dpk[2 * kk + 1][0],
-                                 dpk[2 * kk + 1][1]};
-        const __nv_bfloat16* yrow = sm.walk_p + (kk * 16 + (lane & 15)) * kLDP;
-#pragma unroll
-        for (int nt = 0; nt < kP / 8; ++nt) {
-          uint32_t b0, b1;
-          tv::ldsm_x2_trans(b0, b1, yrow + nt * 8);
-          tv::mma_16816(accX[nt], ma, b0, b1);
-        }
-        const __nv_bfloat16* crow = sm.walk_n + (kk * 16 + (lane & 15)) * kLDN;
-#pragma unroll
-        for (int nt = 0; nt < kN / 8; ++nt) {
-          uint32_t b0, b1;
-          tv::ldsm_x2_trans(b0, b1, crow + nt * 8);
-          tv::mma_16816(accB[nt], da_, b0, b1);
-        }
+      for (int e = 0; e < 8; ++e) {
+        const float4 v = __ldg(src + e * kThreads);
+        cbv[4 * e] = v.x;
+        cbv[4 * e + 1] = v.y;
+        cbv[4 * e + 2] = v.z;
+        cbv[4 * e + 3] = v.w;
       }
     }
-    const float e0 = quad_sum(colE[0]), e1 = quad_sum(colE[1]);
-
-    // this head's dx, ddt1, da and u for rows j
+    wg_wait<0>();
+    pin(s);
+    uint32_t pm[4][4], pd[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = t * kTile + 8 * j + cq;  // chunk row of the thread's columns
+      const float2 ac = *reinterpret_cast<const float2*>(acs + col);
+      const float2 dc = *reinterpret_cast<const float2*>(dtp + col);
+      const int2 sc = *reinterpret_cast<const int2*>(seg + col);
+      float mv[4], dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, idx = 4 * j + e;
+        const float acol = (e & 1) ? ac.y : ac.x;
+        const int scol = (e & 1) ? sc.y : sc.x;
+        const int rowp = own * kTile + ra + 8 * r, colp = col + (e & 1);
+        // dc: rows i, columns j; db: rows j, columns i
+        const bool ok = (DB ? colp >= rowp : colp <= rowp) && scol == seg_r[r];
+        const float l =
+            ok ? ex2((DB ? acol - acs_r[r] : acs_r[r] - acol) * kLog2e) : 0.f;
+        const float d = s[idx] * (DB ? dtp_r[r] : ((e & 1) ? dc.y : dc.x)) * l;
+        part[r] += d * cbv[idx];
+        dv[e] = d;
+        mv[e] = cbv[idx] * l;
+      }
+      pd[j >> 1][(j & 1) * 2] = tv::pack_bf16(dv[0], dv[1]);
+      pd[j >> 1][(j & 1) * 2 + 1] = tv::pack_bf16(dv[2], dv[3]);
+      pm[j >> 1][(j & 1) * 2] = tv::pack_bf16(mv[0], mv[1]);
+      pm[j >> 1][(j & 1) * 2 + 1] = tv::pack_bf16(mv[2], mv[3]);
+    }
+    // dc: dC += dCB B_j; db: dB += dCB^T C_i
+    issue_pv<kN, 64, 64, 64>(acc, pd, smem_u32(grp_n + t * kNTile));
+    if (DB) issue_pv<kP, 64, 64, 64>(ax, pm, w_addr);  // dxdt += M^T dy_i
+    wg_wait<0>();
+    pin(acc);
+    if (DB) pin(ax);
+    pin(pd);
+    if (DB) pin(pm);
+    if (q < nwalk - 1) continue;
+    // ---- the head's last walked tile: its per-row results ----
+    const size_t hrow = ((size_t)b * a.H + h) * a.Lp + (size_t)pos_own;
+    float e2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) e2[r] = quad_sum(part[r]);
+    if (!DB) {
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) a.da[hrow + ra + 8 * r] = e2[r] + tu[r];
+      }
+      continue;
+    }
+    // db: the walk slot holds dy of the own rows (the diagonal tile comes last)
+    const uint8_t* dy_own = mine + 2 * kHeadSlot + ((hk * nwalk + q) & 1) * kBox;
     const float Dh = a.D ? a.D[h] : 0.f;
-    float xd[2] = {0.f, 0.f};
+    float xd[2] = {0.f, 0.f}, yx[2] = {0.f, 0.f};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int jl = rl + 8 * half, pos = pos_j + jl;
-      if (pos >= a.L) continue;
-      const float dtp = sm.own_dtp[jl];
-      const size_t row = (((size_t)b * a.L + pos) * a.H + h) * kP;
+    for (int r = 0; r < 2; ++r) {
+      const int pos = pos_own + ra + 8 * r;
+      __nv_bfloat16* dxrow = a.dx + (((size_t)b * a.L + pos) * a.H + h) * kP;
 #pragma unroll
-      for (int nt = 0; nt < kP / 8; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int p = nt * 8 + cq + u;
-          const float v = accX[nt][2 * half + u];
-          xd[half] += v * bf(a.x[row + p]);
-          a.dx[row + p] = to_bf(v * dtp + Dh * bf(a.dy[row + p]));
-        }
+      for (int j = 0; j < 8; ++j) {
+        const float2 xv = ld_sw(hs + kNTile, ra + 8 * r, 8 * j + cq);
+        const float2 yv = ld_sw(dy_own, ra + 8 * r, 8 * j + cq);
+        const float v0 = ax[4 * j + 2 * r], v1 = ax[4 * j + 2 * r + 1];
+        xd[r] += v0 * xv.x + v1 * xv.y;
+        yx[r] += yv.x * xv.x + yv.y * xv.y;
+        if (pos < a.L)
+          *reinterpret_cast<__nv_bfloat162*>(dxrow + 8 * j + cq) = __floats2bfloat162_rn(
+              v0 * dtp_r[r] + Dh * yv.x, v1 * dtp_r[r] + Dh * yv.y);
+      }
     }
-    const float x0 = quad_sum(xd[0]), x1 = quad_sum(xd[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xd[r] = quad_sum(xd[r]);
+      yx[r] = quad_sum(yx[r]);
+    }
     if ((lane & 3) == 0) {
-      a.da[hrow + j0 + rl] -= e0 + u0;
-      a.da[hrow + j0 + rl + 8] -= e1 + u1;
-      a.ubuf[hrow + j0 + rl] = u0;
-      a.ubuf[hrow + j0 + rl + 8] = u1;
-      a.ddt1[hrow + j0 + rl] = x0;
-      a.ddt1[hrow + j0 + rl + 8] = x1;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t o = hrow + ra + 8 * r;
+        a.da[o] -= e2[r] + tu[r];
+        a.ubuf[o] = tu[r];
+        a.ddt1[o] = xd[r];
+        a.dyx[o] = yx[r];
+      }
     }
   }
+
+  // warpgroup 1's sum into warpgroup 0's, then the rows out (a slice's
+  // partial where S > 1)
+  __syncthreads();
+  float4* xch = reinterpret_cast<float4*>(wg_base);  // [16][128] float4
+  if (wg == 1) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int pos = pos_j + rl + 8 * half;
+    for (int e = 0; e < 16; ++e)
+      xch[e * 128 + tw] = make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float4 v = xch[e * 128 + tw];
+    acc[4 * e] += v.x;
+    acc[4 * e + 1] += v.y;
+    acc[4 * e + 2] += v.z;
+    acc[4 * e + 3] += v.w;
+  }
+  float* out = a.S > 1 ? a.slices + ((size_t)(DB ? a.S : 0) + sl) * a.B * a.L * a.G * kN
+                       : (DB ? a.dB : a.dC);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = pos_own + ra + 8 * r;
     if (pos >= a.L) continue;
-    float* out = a.dB + (((size_t)b * a.L + pos) * a.G + g) * kN;
+    float* row = out + (((size_t)b * a.L + pos) * a.G + g) * kN;
 #pragma unroll
-    for (int nt = 0; nt < kN / 8; ++nt)
-      *reinterpret_cast<float2*>(out + nt * 8 + cq) =
-          make_float2(accB[nt][2 * half], accB[nt][2 * half + 1]);
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + cq) = make_float2(acc[4 * j + 2 * r],
+                                                                 acc[4 * j + 2 * r + 1]);
   }
 }
 
-// Pass 6. grid (nc, H, B), block cs threads: thread t is row t of the chunk.
+// Pass 6 (S > 1). grid (ceil(n / 4 / 128), 2), 128 threads: dC (y 0) or dB
+// (y 1) = the slices' partials summed, slice 0 first; n = B L G N.
+__global__ void __launch_bounds__(kThreads) reduce_kernel(BwdArgs a) {
+  const size_t n = (size_t)a.B * a.L * a.G * kN;
+  const size_t e = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (e >= n) return;
+  const float* src = a.slices + (size_t)blockIdx.y * a.S * n + e;
+  float4 s = *reinterpret_cast<const float4*>(src);
+  for (int k = 1; k < a.S; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(src + k * n);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<float4*>((blockIdx.y ? a.dB : a.dC) + e) = s;
+}
+
+// Pass 7. grid (nc, H, B), block cs threads: thread t is row t of the chunk.
 //   da_last += sum_j u_j + carry * sum_{p,n} dh_out h_in
 //   ddA_t = sum_{i >= t} da_i;  ddt_raw_t = (ddt1_t + ddA_t A) sigmoid(dt_raw) [clip]
 // and the chunk's partial sums of dA = ddA . dtp, d dt_bias = sum ddt_raw and
-// dD = sum dy . x.
+// dD = sum dy . x (its rows' terms from db).
 __global__ void dtfinal_kernel(BwdArgs a) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
   const int pos = c * a.cs + t;
   const size_t hrow = ((size_t)b * a.H + h) * a.Lp + (size_t)c * a.cs;
-  const size_t sofs = (((size_t)b * a.nc + c) * a.H + h) * kP * kN;
-  float vpart = 0.f;
-  for (int e = t; e < kP * kN; e += a.cs) vpart += a.dstates[sofs + e] * a.states[sofs + e];
-  const float v = block_sum(vpart) * a.carry[((size_t)b * a.H + h) * a.nc + c];
+  constexpr int kParts = kP * kN / kThreads;
+  const float* vp = a.vpart + (((size_t)b * a.nc + c) * a.H + h) * kParts;
+  const float v = block_sum(t < kParts ? vp[t] : 0.f) * a.carry[((size_t)b * a.H + h) * a.nc + c];
   const float usum = block_sum(a.ubuf[hrow + t]);
   float da = a.da[hrow + t];
   if (t == a.cs - 1) da += usum + v;
   const float total = block_sum(da);
   const float ddA = total - tv::block_inclusive_scan(da) + da;  // suffix sum
   const float dtp = a.dtp[hrow + t];
-  float raw_grad = 0.f, dD = 0.f;
+  float raw_grad = 0.f;
   if (pos < a.L) {
     const size_t row = ((size_t)b * a.L + pos) * a.H + h;
     float r = bf(a.dt[row]);
@@ -721,11 +791,10 @@ __global__ void dtfinal_kernel(BwdArgs a) {
       if (!(sp > a.dt_lo && sp < a.dt_hi)) raw_grad = 0.f;
     }
     a.ddt[row] = raw_grad;
-    for (int p = 0; p < kP; ++p) dD += bf(a.dy[row * kP + p]) * bf(a.x[row * kP + p]);
   }
   const float dA = block_sum(ddA * dtp);
   const float dbias = block_sum(raw_grad);
-  const float dDs = block_sum(dD);
+  const float dDs = block_sum(a.dyx[hrow + t]);  // 0 on the ragged tail (x reads 0 there)
   if (t == 0) {
     const size_t o = ((size_t)b * a.nc + c) * a.H + h, plane = (size_t)a.B * a.nc * a.H;
     a.part[o] = dA;
@@ -740,10 +809,13 @@ extern "C" int tv_ssd_bwd(const void* x, const void* dt, const void* A, const vo
                           const void* D, const void* Bm, const void* Cm, const void* seq,
                           const void* states, const void* dy, const void* dfinal, void* dx,
                           void* ddt, void* dB, void* dC, void* dinit, void* part, void* dtp,
-                          void* acs, void* carry, void* cb, void* dstates, void* da, void* ubuf,
-                          void* ddt1, int B, int L, int H, int P, int G, int N, int cs, int clamp,
-                          float dt_lo, float dt_hi, void* stream) {
-  if (P != kP || N != kN || cs % kTile != 0 || cs > 1024 || H % G != 0)
+                          void* acs, void* carry, void* cb, void* dstates, void* hin_bf,
+                          void* dh_bf, void* vpart, void* slices, void* da, void* ubuf,
+                          void* ddt1, void* dyx, int B, int L, int H, int P, int G, int N,
+                          int cs, int S,
+                          int clamp, float dt_lo, float dt_hi, void* stream) {
+  if (P != kP || N != kN || cs % kTile != 0 || cs > kMaxT * kTile || H % G != 0 || S < 1 ||
+      (H / G) % S != 0 || (S > 1 && slices == nullptr))
     return cudaErrorInvalidValue;
   BwdArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -768,22 +840,26 @@ extern "C" int tv_ssd_bwd(const void* x, const void* dt, const void* A, const vo
   a.carry = static_cast<float*>(carry);
   a.cb = static_cast<float*>(cb);
   a.dstates = static_cast<float*>(dstates);
+  a.hin_bf = static_cast<__nv_bfloat16*>(hin_bf);
+  a.dh_bf = static_cast<__nv_bfloat16*>(dh_bf);
+  a.vpart = static_cast<float*>(vpart);
+  a.slices = static_cast<float*>(slices);
   a.da = static_cast<float*>(da);
   a.ubuf = static_cast<float*>(ubuf);
   a.ddt1 = static_cast<float*>(ddt1);
-  a.B = B; a.L = L; a.H = H; a.G = G; a.cs = cs;
+  a.dyx = static_cast<float*>(dyx);
+  a.B = B; a.L = L; a.H = H; a.G = G; a.cs = cs; a.S = S;
   a.nc = (L + cs - 1) / cs;
   a.Lp = a.nc * cs;
   a.clamp = clamp; a.dt_lo = dt_lo; a.dt_hi = dt_hi;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = cs / kTile;
-  const int smem = (int)TileSmem::bytes;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(dc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(walk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kWalkSmem)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(walk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kWalkSmem)) != cudaSuccess)
     return err;
   dt_kernel<<<dim3(a.nc, H, B), cs, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -793,10 +869,18 @@ extern "C" int tv_ssd_bwd(const void* x, const void* dt, const void* A, const vo
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dstate_kernel<<<dim3(kP * kN / kThreads, H, B), kThreads, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dc_kernel<<<dim3(a.nc * T, G, B), kThreads, smem, s>>>(a);
+  walk_kernel<false><<<dim3(a.nc * T, G * S, B), kWalkThreads, kWalkSmem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  db_kernel<<<dim3(a.nc * T, G, B), kThreads, smem, s>>>(a);
+  walk_kernel<true><<<dim3(a.nc * T, G * S, B), kWalkThreads, kWalkSmem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (S > 1) {
+    const size_t n4 = (size_t)B * L * G * kN / 4;
+    reduce_kernel<<<dim3((unsigned)((n4 + kThreads - 1) / kThreads), 2), kThreads, 0, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   dtfinal_kernel<<<dim3(a.nc, H, B), cs, 0, s>>>(a);
   return cudaGetLastError();
 }
+
+// Dynamic shared memory of a dc / db block, for the build log.
+extern "C" int tv_ssd_bwd_smem() { return (int)kWalkSmem; }

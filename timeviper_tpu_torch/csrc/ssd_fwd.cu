@@ -28,21 +28,29 @@
 // exactly as the TPU kernel does. x, dt, B and C may be column slices of one
 // wider in-projection output: their rows are `sx`, `sdt`, `sbc` apart.
 //
-// K5 is the same five passes with the Mamba layer's depthwise causal conv
-// fused in. It replaces the `fuse_conv` mode of the same TPU kernel
-// (timeviper_tpu/ops/ssd_pallas.py:_ssd_kernel via ssd_conv_scan_fused :981),
-// which carries a halo of 3 raw rows across its in-order chunk walk. Here no
-// pass walks chunks in order, so every loader that reads x, B or C (chunk_cb,
-// chunk_state and chunk_scan) convolves the raw stream itself, eight
-// channels at a time: it reads the 3 raw rows before each row straight from
-// device memory (they are L1/L2 hits: the neighbouring rows are read by the
-// same block), applies taps, bias and SiLU in f32 and rounds to bf16, as the
-// TPU kernel does (ssd_pallas.py:155-183). A tap before row 0 or in another
-// segment than the row's reads zero (_tap_mask, :137-147). chunk_scan keeps
-// its own rows' x for the D*x term. The convolved streams never reach device
-// memory: that round trip (2 x 18,560 bf16 per token of the 9B) is what the
-// fusion saves; the price is 4 raw reads per convolved element, and the conv
-// of B and C redone for every head of a group.
+// K5 is the same five passes after a conv stage: it replaces the `fuse_conv`
+// mode of the same TPU kernel (timeviper_tpu/ops/ssd_pallas.py:_ssd_kernel
+// via ssd_conv_scan_fused :981), which carries a halo of 3 raw rows across
+// its in-order chunk walk. Here the passes read x, B and C many times over
+// (chunk_scan reads x 2.5 times a row on average at 4 tiles a chunk, B and C
+// are read once per head of a group), so a loader that convolved what it
+// read would convolve each raw element 3.5 (x) to 18.5 (B, C) times. Instead
+// conv_kernel convolves every raw element exactly once into bf16 scratch
+// that the wrapper allocates, and the five passes read that. What bounds
+// the conv stage is bytes: the raw streams read once (plus a 3-row halo per
+// 32 rows, from L2) and the convolved ones written once, 20,480 bf16 a token
+// of the 9B, ~0.05 ms at L 4,096 against 3.35 TB/s; the convolved B and C
+// (17 MB) stay in the 50 MB L2 for the passes. Next to the bytes it runs an
+// exp and a division a channel (SiLU), so it keeps many loads in flight: a
+// thread owns 8 channels of one stream (16-byte loads and stores, a warp 512
+// contiguous bytes of a row) and walks 32 rows, loading the next 4 rows
+// while it convolves these, with the 3 raw rows before each held in
+// registers (96 registers, 5 blocks an SM: batches of 8 rows took 128 and
+// ran 23% slower); the tile's segment ids sit in shared memory, read from
+// device memory once. Taps, bias and SiLU run in f32 in the TPU kernel's
+// order (ssd_pallas.py:155-183) and the result is rounded to bf16, as the
+// TPU kernel does; a tap before row 0 or in another segment than the row's
+// reads zero (_tap_mask, :137-147).
 #include "common.cuh"
 
 namespace {
@@ -67,15 +75,6 @@ struct SsdArgs {
   const __nv_bfloat16* Cm;  // (B, L, G, N)
   const int* seq;           // (B, L) or null
   const float* init;        // (B, H, P, N) or null
-  // K5: conv taps (channels, 4) and biases (channels,) f32 of x (channel
-  // h*P + p), B and C (channel g*N + n); a null tap array = no conv (K1),
-  // a null bias = zero bias
-  const float* wx;
-  const float* bx;
-  const float* wB;
-  const float* bB;
-  const float* wC;
-  const float* bC;
   __nv_bfloat16* y;         // (B, L, H, P)
   float* final_state;       // (B, H, P, N)
   float* dtp;               // (B, H, Lp) processed dt
@@ -103,8 +102,6 @@ __device__ __forceinline__ int seg_prev(const SsdArgs& a, int b, int c) {
   return c == 0 ? seg_at(a, b, 0) : seg_at(a, b, c * a.cs - 1);
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-
 // v[i] * scale rounded to bf16, eight of them in one 16-byte word.
 __device__ __forceinline__ uint4 pack8(const float (&v)[8], float scale) {
   return make_uint4(tv::pack_bf16(v[0] * scale, v[1] * scale),
@@ -113,73 +110,164 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8], float scale) {
                     tv::pack_bf16(v[6] * scale, v[7] * scale));
 }
 
-// K5's conv of eight channels ch0..ch0+7 at row pos < L: `col` points at row
-// 0 of channel ch0, rows `ld` apart, 16-byte aligned. Tap j reads row pos - j
-// with weight w[3 - j], in the order of the TPU kernel's sum; then bias and
-// SiLU in f32. The caller rounds the result to bf16, as the TPU kernel does.
-__device__ __forceinline__ void conv8(const SsdArgs& a, int b, int pos,
-                                      const __nv_bfloat16* col, size_t ld, const float* w,
-                                      const float* bias, int ch0, float (&out)[8]) {
-  const int s = seg_at(a, b, pos);
-  const float4* w4 = reinterpret_cast<const float4*>(w) + ch0;
-  {
-    const uint4 raw = *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
-    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = bf(v[i]) * w4[i].w;
-  }
-#pragma unroll
-  for (int j = 1; j < 4; ++j) {
-    const int r = pos - j;
-    const bool on = r >= 0 && seg_at(a, b, r) == s;
-    const uint4 raw = on ? *reinterpret_cast<const uint4*>(col + (size_t)r * ld)
-                         : make_uint4(0u, 0u, 0u, 0u);
-    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float wt = j == 1 ? w4[i].z : (j == 2 ? w4[i].y : w4[i].x);
-      out[i] += bf(v[i]) * wt;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = silu(out[i] + (bias ? bias[ch0 + i] : 0.f));
-}
-
-// Eight channels p0..p0+7 of x at row pos of head h as the scan reads them,
-// raw (K1) or convolved and rounded to bf16 (K5); zero past the end.
+// Eight channels p0..p0+7 of x at row pos of head h; zero past the end.
 __device__ __forceinline__ void x_row8(const SsdArgs& a, int b, int pos, int h, int p0,
                                        float (&v)[8]) {
-  if (pos >= a.L) {
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  if (pos < a.L)
+    raw = *reinterpret_cast<const uint4*>(a.x + ((size_t)b * a.L + pos) * a.sx + h * kP + p0);
+  const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    return;
-  }
-  const size_t ld = a.sx;
-  const __nv_bfloat16* col = a.x + (size_t)b * a.L * ld + (size_t)h * kP + p0;
-  if (a.wx == nullptr) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
-    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = bf(r[i]);
-    return;
-  }
-  conv8(a, b, pos, col, ld, a.wx, a.bx, h * kP + p0, v);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = bf(to_bf(v[i]));
+  for (int i = 0; i < 8; ++i) v[i] = bf(r[i]);
 }
 
-// Eight channels n..n+7 of B or C (`m`, taps `w`, bias `bias`) at row pos of
-// group g, raw (w null) or convolved; zero past the end.
-__device__ __forceinline__ uint4 bc_row8(const SsdArgs& a, const __nv_bfloat16* m,
-                                         const float* w, const float* bias, int b, int pos,
-                                         int g, int n) {
-  const size_t ld = a.sbc;
-  const __nv_bfloat16* col = m + (size_t)b * a.L * ld + (size_t)g * kN + n;
+// Eight channels n..n+7 of B or C (`m`) at row pos of group g; zero past the end.
+__device__ __forceinline__ uint4 bc_row8(const SsdArgs& a, const __nv_bfloat16* m, int b,
+                                         int pos, int g, int n) {
   if (pos >= a.L) return make_uint4(0u, 0u, 0u, 0u);
-  if (w == nullptr) return *reinterpret_cast<const uint4*>(col + (size_t)pos * ld);
-  float v[8];
-  conv8(a, b, pos, col, ld, w, bias, g * kN + n, v);
-  return pack8(v, 1.f);
+  return *reinterpret_cast<const uint4*>(m + ((size_t)b * a.L + pos) * a.sbc + g * kN + n);
+}
+
+// K5's conv stage. One raw stream (x, B or C) of `ch` channels, rows `ld`
+// elements apart, into a contiguous (B, L, ch) bf16 stream.
+struct ConvStream {
+  const __nv_bfloat16* raw;
+  __nv_bfloat16* out;
+  const float* w;     // (ch, 4) taps
+  const float* bias;  // (ch,) or null
+  int ch, ld;
+};
+
+struct ConvArgs {
+  ConvStream s[3];  // x, B, C
+  const int* seq;   // (B, L) or null
+  int L;
+  int blocks0, blocks1;  // channel blocks of x, and of x and B together
+};
+
+__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
+
+constexpr int kConvRows = 32;  // rows a conv block walks
+constexpr int kConvBatch = 4;  // rows loaded together, the next batch under this one's math
+
+// One row of 8 channels: SiLU(raw w[3] + sum_j (tap j on ? win[3 - j] : 0)
+// w[3 - j] + bias), tap j = 0 first and each later tap one fused
+// multiply-add, as written out (not left to the compiler's contraction);
+// rounded to bf16 into dst.
+__device__ __forceinline__ void conv_row(uint4 raw, const float (&win)[3][8],
+                                         const float4 (*w_s)[kThreads],
+                                         const float (*b_s)[kThreads], bool on1, bool on2,
+                                         bool on3, __nv_bfloat16* dst) {
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* v0 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  float out[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 w4 = w_s[i][tid];
+    float o = __fmul_rn(bf(v0[i]), w4.w);
+    o = __fmaf_rn(on1 ? win[2][i] : 0.f, w4.z, o);
+    o = __fmaf_rn(on2 ? win[1][i] : 0.f, w4.y, o);
+    o = __fmaf_rn(on3 ? win[0][i] : 0.f, w4.x, o);
+    out[i] = silu(o + b_s[i][tid]);
+  }
+  *reinterpret_cast<uint4*>(dst) = pack8(out, 1.f);
+}
+
+// The window moves down one row: raw becomes row pos - 1.
+__device__ __forceinline__ void shift_in(float (&win)[3][8], uint4 raw) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    win[0][i] = win[1][i];
+    win[1][i] = win[2][i];
+    win[2][i] = bf(reinterpret_cast<const __nv_bfloat16*>(&raw)[i]);
+  }
+}
+
+// grid (ceil(L / 32), channel blocks of all three streams, B), 128 threads:
+// thread t of a block owns channels 8 t .. 8 t + 7 of its stream's block and
+// walks its rows (conv_row); a tap before row 0 or in another segment reads
+// zero. A batch of rows whose taps all lie in their own segment, the common
+// case, runs without the masks.
+__global__ void __launch_bounds__(kThreads) conv_kernel(const __grid_constant__ ConvArgs a) {
+  __shared__ int seg[kConvRows + 3];
+  // each thread's taps and biases, [channel][thread]: in shared memory
+  // rather than 40 registers, for more blocks an SM
+  __shared__ float4 w_s[8][kThreads];
+  __shared__ float b_s[8][kThreads];
+  const int r0 = blockIdx.x * kConvRows, b = blockIdx.z;
+  const int by = blockIdx.y;
+  const int si = by < a.blocks0 ? 0 : (by < a.blocks1 ? 1 : 2);
+  const ConvStream& st = a.s[si];
+  const int ch0 = ((by - (si == 0 ? 0 : (si == 1 ? a.blocks0 : a.blocks1))) * kThreads +
+                   threadIdx.x) * 8;
+  for (int t = threadIdx.x; t < kConvRows + 3; t += kThreads) {
+    int pos = min(max(r0 - 3 + t, 0), a.L - 1);
+    seg[t] = a.seq ? a.seq[(size_t)b * a.L + pos] : 0;
+  }
+  const int tid = threadIdx.x;
+  if (ch0 < st.ch) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      w_s[i][tid] = reinterpret_cast<const float4*>(st.w)[ch0 + i];
+      b_s[i][tid] = st.bias ? st.bias[ch0 + i] : 0.f;
+    }
+  }
+  __syncthreads();
+  if (ch0 >= st.ch) return;
+  const __nv_bfloat16* col = st.raw + (size_t)b * a.L * st.ld + ch0;
+  __nv_bfloat16* dst = st.out + (size_t)b * a.L * st.ch + ch0;
+  const int rows = min(kConvRows, a.L - r0);
+  auto load = [&](int q) {
+    return q < rows ? *reinterpret_cast<const uint4*>(col + (size_t)(r0 + q) * st.ld)
+                    : make_uint4(0u, 0u, 0u, 0u);
+  };
+  // win[k]: raw row pos - 3 + k for the next row pos, in f32
+  float win[3][8];
+  uint4 cur[kConvBatch], nxt[kConvBatch];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint4 raw = r0 - 3 + k >= 0
+                          ? *reinterpret_cast<const uint4*>(col + (size_t)(r0 - 3 + k) * st.ld)
+                          : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) win[k][i] = bf(reinterpret_cast<const __nv_bfloat16*>(&raw)[i]);
+  }
+#pragma unroll
+  for (int u = 0; u < kConvBatch; ++u) cur[u] = load(u);
+  // a loop over the batches, not unrolled: one batch's code already holds 32
+  // exps and divisions
+#pragma unroll 1
+  for (int q0 = 0; q0 < rows; q0 += kConvBatch) {
+#pragma unroll
+    for (int u = 0; u < kConvBatch; ++u) nxt[u] = load(q0 + kConvBatch + u);
+    // every tap of the batch's rows in the rows' own segment (the common
+    // case: no masks), uniform over the block
+    bool whole = r0 + q0 >= 3;
+    for (int q = q0; q < q0 + kConvBatch + 3 && q < rows + 3; ++q)
+      whole = whole && seg[q] == seg[q0];
+    if (whole) {
+#pragma unroll
+      for (int u = 0; u < kConvBatch; ++u) {
+        const int q = q0 + u;
+        if (q < rows) conv_row(cur[u], win, w_s, b_s, true, true, true,
+                               dst + (size_t)(r0 + q) * st.ch);
+        shift_in(win, cur[u]);
+      }
+    } else {  // one row's code in a loop, its raw row again from the cache
+#pragma unroll 1
+      for (int u = 0; u < kConvBatch; ++u) {
+        const int q = q0 + u, pos = r0 + q, s = seg[q + 3];
+        const uint4 raw = load(q);
+        if (q < rows)
+          conv_row(raw, win, w_s, b_s, pos >= 1 && seg[q + 2] == s,
+                   pos >= 2 && seg[q + 1] == s, pos >= 3 && seg[q] == s,
+                   dst + (size_t)pos * st.ch);
+        shift_in(win, raw);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kConvBatch; ++u) cur[u] = nxt[u];
+  }
 }
 
 // Pass 1. grid (nc, H, B), block cs threads.
@@ -221,8 +309,8 @@ __global__ void __launch_bounds__(kThreads) chunk_cb_kernel(SsdArgs a) {
   for (int e = tid; e < kTile * kN / 8; e += kThreads) {
     const int r = e / (kN / 8), n = (e % (kN / 8)) * 8;
     const int pi = i0 + r, pj = j0 + r;
-    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, a.wC, a.bC, b, pi, g, n);
-    *reinterpret_cast<uint4*>(&Bs[r][n]) = bc_row8(a, a.Bm, a.wB, a.bB, b, pj, g, n);
+    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, b, pi, g, n);
+    *reinterpret_cast<uint4*>(&Bs[r][n]) = bc_row8(a, a.Bm, b, pj, g, n);
   }
   __syncthreads();
   const int r0 = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
@@ -280,7 +368,7 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(SsdArgs a) {
     }
     for (int e = tid; e < kTile * kN / 8; e += kThreads) {
       const int j = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = c * a.cs + j0 + j;
-      *reinterpret_cast<uint4*>(&Bs[j][n]) = bc_row8(a, a.Bm, a.wB, a.bB, b, pos, g, n);
+      *reinterpret_cast<uint4*>(&Bs[j][n]) = bc_row8(a, a.Bm, b, pos, g, n);
     }
     __syncthreads();
 #pragma unroll
@@ -368,7 +456,7 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
   const float* sin = a.states + (((size_t)b * a.nc + c) * a.H + h) * kP * kN;
   for (int e = tid; e < kTile * kN / 8; e += kThreads) {
     const int r = e / (kN / 8), n = (e % (kN / 8)) * 8, pos = c * a.cs + i0 + r;
-    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, a.wC, a.bC, b, pos, g, n);
+    *reinterpret_cast<uint4*>(&Cs[r][n]) = bc_row8(a, a.Cm, b, pos, g, n);
   }
   for (int e = tid; e < kP * kN / 4; e += kThreads) {
     const int p = e / (kN / 4), n = (e % (kN / 4)) * 4;
@@ -467,16 +555,46 @@ __global__ void __launch_bounds__(kThreads) chunk_scan_kernel(SsdArgs a) {
 extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const void* dt_bias,
                           const void* D, const void* Bm, const void* Cm, const void* seq,
                           const void* init, const void* wx, const void* bx, const void* wB,
-                          const void* bB, const void* wC, const void* bC, void* y,
-                          void* final_state, void* dtp, void* acs,
+                          const void* bB, const void* wC, const void* bC, void* xc, void* Bc,
+                          void* Cc, void* y, void* final_state, void* dtp, void* acs,
                           void* carry, void* states, void* cb, int B, int L, int H, int P,
                           int G, int N, int cs, int sx, int sdt, int sbc, int clamp,
                           float dt_lo, float dt_hi, void* stream) {
   if (P != kP || N != kN || cs % kTile != 0 || cs > 1024 || H % G != 0)
     return cudaErrorInvalidValue;
-  if ((wx == nullptr) != (wB == nullptr) || (wx == nullptr) != (wC == nullptr))
-    return cudaErrorInvalidValue;  // K5 convolves all three streams or none
+  if ((wx == nullptr) != (wB == nullptr) || (wx == nullptr) != (wC == nullptr) ||
+      (wx != nullptr && (xc == nullptr || Bc == nullptr || Cc == nullptr)))
+    return cudaErrorInvalidValue;  // K5 convolves all three streams into scratch, or none
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   SsdArgs a;
+  if (wx != nullptr) {  // K5: the conv stage, then K1's passes on its output
+    ConvArgs ca;
+    const void* raw[3] = {x, Bm, Cm};
+    void* out[3] = {xc, Bc, Cc};
+    const void* w[3] = {wx, wB, wC};
+    const void* bias[3] = {bx, bB, bC};
+    const int ch[3] = {H * P, G * N, G * N}, ld[3] = {sx, sbc, sbc};
+    int blocks[3];
+    for (int i = 0; i < 3; ++i) {
+      ca.s[i] = ConvStream{static_cast<const __nv_bfloat16*>(raw[i]),
+                           static_cast<__nv_bfloat16*>(out[i]), static_cast<const float*>(w[i]),
+                           static_cast<const float*>(bias[i]), ch[i], ld[i]};
+      blocks[i] = (ch[i] / 8 + kThreads - 1) / kThreads;
+    }
+    ca.seq = static_cast<const int*>(seq);
+    ca.L = L;
+    ca.blocks0 = blocks[0];
+    ca.blocks1 = blocks[0] + blocks[1];
+    conv_kernel<<<dim3((L + kConvRows - 1) / kConvRows, ca.blocks1 + blocks[2], B), kThreads, 0,
+                  s>>>(ca);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    x = xc;
+    Bm = Bc;
+    Cm = Cc;
+    sx = H * P;
+    sbc = G * N;
+  }
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.dt = static_cast<const __nv_bfloat16*>(dt);
   a.A = static_cast<const float*>(A);
@@ -486,12 +604,6 @@ extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const vo
   a.Cm = static_cast<const __nv_bfloat16*>(Cm);
   a.seq = static_cast<const int*>(seq);
   a.init = static_cast<const float*>(init);
-  a.wx = static_cast<const float*>(wx);
-  a.bx = static_cast<const float*>(bx);
-  a.wB = static_cast<const float*>(wB);
-  a.bB = static_cast<const float*>(bB);
-  a.wC = static_cast<const float*>(wC);
-  a.bC = static_cast<const float*>(bC);
   a.y = static_cast<__nv_bfloat16*>(y);
   a.final_state = static_cast<float*>(final_state);
   a.dtp = static_cast<float*>(dtp);
@@ -504,9 +616,7 @@ extern "C" int tv_ssd_fwd(const void* x, const void* dt, const void* A, const vo
   a.nc = (L + cs - 1) / cs;
   a.Lp = a.nc * cs;
   a.clamp = clamp; a.dt_lo = dt_lo; a.dt_hi = dt_hi;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = cs / kTile;
-  cudaError_t err;
   dt_cumsum_kernel<<<dim3(a.nc, H, B), cs, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   chunk_cb_kernel<<<dim3(a.nc * T * T, G, B), kThreads, 0, s>>>(a);

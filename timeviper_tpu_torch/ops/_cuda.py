@@ -39,8 +39,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "tv_ssd_fwd": [_P] * 22 + [_I] * 11 + [_F, _F, _P],
-    "tv_ssd_bwd": [_P] * 25 + [_I] * 8 + [_F, _F, _P],
+    "tv_ssd_fwd": [_P] * 25 + [_I] * 11 + [_F, _F, _P],
+    "tv_ssd_bwd": [_P] * 30 + [_I] * 9 + [_F, _F, _P],
     "tv_flash_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
     "tv_flash_bwd": [_P] * 14 + [_I] * 10 + [_F, _P],
     "tv_block_attn": [_P] * 11 + [_I] * 6 + [_L] + [_I] * 6 + [_F, _P],
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "tv_decode_fused": [_P] * 15 + [_I] * 6 + [_L, _L, _F, _P],
     "tv_flash_bwd_smem": [_I],
     "tv_headgrid_smem": [_I],
+    "tv_ssd_bwd_smem": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -16,8 +16,9 @@ backward is K4. `ssd_scan_bwd` is K4's own wrapper and
 `ssd_conv_scan_fused` is K5, the counterpart of
 timeviper_tpu/ops/ssd_pallas.py:ssd_conv_scan_fused (:981, the `fuse_conv`
 mode of _ssd_kernel): it takes the RAW in-projection streams x, B and C and
-applies the depthwise causal conv (K = 4) + bias + SiLU inside K1's tile
-loaders (csrc/ssd_fwd.cu). Its plain version, `ssd_conv_scan_fused_plain`,
+applies the depthwise causal conv (K = 4) + bias + SiLU in a conv stage
+that convolves each raw element once into bf16 scratch, then runs K1's
+passes on it (csrc/ssd_fwd.cu). Its plain version, `ssd_conv_scan_fused_plain`,
 is ops/conv.py:causal_conv1d three times, then ssd_chunked. Inference only.
 """
 
@@ -266,6 +267,10 @@ def _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_stat
             else _conv_args(conv_params, H, P, G, N, x.device))
     nc = -(-L // cs)
     f32 = dict(dtype=torch.float32, device=x.device)
+    # K5's conv stage writes the convolved streams here, contiguous
+    conv_out = ([None] * 3 if conv_params is None else
+                [torch.empty(Bsz, L, ch, dtype=torch.bfloat16, device=x.device)
+                 for ch in (H * P, G * N, G * N)])
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     final = torch.empty(Bsz, H, P, N, **f32)
     dtp = torch.empty(Bsz, H, nc * cs, **f32)
@@ -277,15 +282,27 @@ def _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_stat
     p = _cuda.ptr
     err = _cuda.lib().tv_ssd_fwd(
         p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx),
-        p(initial_state), *(p(c) for c in conv), p(y), p(final), p(dtp), p(acs), p(carry),
-        p(states), p(cb), Bsz, L, H, P, G, N, cs, sx, sdt, sbc, clamp, lo, hi,
-        _cuda.stream_of(x))
+        p(initial_state), *(p(c) for c in conv), *(p(c) for c in conv_out), p(y), p(final),
+        p(dtp), p(acs), p(carry), p(states), p(cb), Bsz, L, H, P, G, N, cs, sx, sdt, sbc,
+        clamp, lo, hi, _cuda.stream_of(x))
     _cuda.check(err, "tv_ssd_fwd")
     return y, final, states
 
 
+def bwd_head_slices(nc: int, cs: int, G: int, R: int, Bsz: int, n_sm: int) -> int:
+    """How many slices K4's dc / db kernels split a group's R heads into: 1
+    unless their grid, nc * (cs / 64) * G * Bsz blocks of one block an SM,
+    would fill fewer than 3 waves of `n_sm` SMs; then doubled while it
+    would, keeping at least 2 heads a slice (one for each warpgroup)."""
+    blocks, S = nc * (cs // 64) * G * Bsz, 1
+    while blocks * S < 3 * n_sm and R % (4 * S) == 0:
+        S *= 2
+    return S
+
+
 def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt_limit):
     Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)[:6]
+    _require(cs <= 256, f"the backward takes chunks of at most 256 rows, got {cs}")
     nc = -(-L // cs)
     _f32_state(states, (Bsz, nc, H, P, N), "states")
     _f32_state(dfinal, (Bsz, H, P, N), "dfinal")
@@ -294,23 +311,29 @@ def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     Lp = nc * cs
+    S = bwd_head_slices(nc, cs, G, H // G, Bsz,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     dx = torch.empty_like(x)
     ddt = torch.empty(Bsz, L, H, **f32)
     dB = torch.empty(Bsz, L, G, N, **f32)
     dC = torch.empty(Bsz, L, G, N, **f32)
     dinit = torch.empty(Bsz, H, P, N, **f32)
     part = torch.empty(3, Bsz, nc, H, **f32)  # per chunk: dA, d dt_bias, dD
-    dtp, acs, da, ubuf, ddt1 = (torch.empty(Bsz, H, Lp, **f32) for _ in range(5))
+    dtp, acs, da, ubuf, ddt1, dyx = (torch.empty(Bsz, H, Lp, **f32) for _ in range(6))
     carry = torch.empty(Bsz, H, nc, **f32)
-    cb = torch.empty(Bsz, nc, G, cs, cs, **f32)
+    cb = torch.empty(Bsz, nc, G, 2, cs, cs, **f32)  # C.B^T tiles in two register orders
     dstates = torch.empty(Bsz, nc, H, P, N, **f32)
+    hin_bf, dh_bf = (torch.empty(Bsz, nc, H, P, N, dtype=torch.bfloat16, device=dev)
+                     for _ in range(2))
+    vpart = torch.empty(Bsz, nc, H, P * N // 128, **f32)
+    slices = torch.empty(2, S, Bsz, L, G, N, **f32) if S > 1 else None
     clamp, lo, hi = _clamp_args(dt_limit)
     p = _cuda.ptr
     err = _cuda.lib().tv_ssd_bwd(
         p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx), p(states), p(dy),
         p(dfinal), p(dx), p(ddt), p(dB), p(dC), p(dinit), p(part), p(dtp), p(acs),
-        p(carry), p(cb), p(dstates), p(da), p(ubuf), p(ddt1),
-        Bsz, L, H, P, G, N, cs, clamp, lo, hi, _cuda.stream_of(x))
+        p(carry), p(cb), p(dstates), p(hin_bf), p(dh_bf), p(vpart), p(slices), p(da), p(ubuf),
+        p(ddt1), p(dyx), Bsz, L, H, P, G, N, cs, S, clamp, lo, hi, _cuda.stream_of(x))
     _cuda.check(err, "tv_ssd_bwd")
     ssd_scan_bwd.launches += 1
     sums = part.sum(dim=(1, 2))  # the tiny sum over batch and chunks
