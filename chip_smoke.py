@@ -14,18 +14,21 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    TF32 off for matmuls and convolutions.
 2. build: compile csrc/*.cu (one nvcc per source, all started together) into
    one library; print the seconds and each kernel's registers and spills,
-   and for the Hopper attention kernels (K9, K2, K6, K3, K10a on
-   csrc/attn_sm90.cuh, and K2-bwd and K4 on its pieces) their entry names,
-   ptxas's notes and K10a's, K2-bwd's and K4's dynamic shared memory a block.
+   and for the Hopper kernels (K9, K2, K6, K3, K10a on csrc/attn_sm90.cuh,
+   K2-bwd, K4 and K1 on its pieces, and K7) their entry names, ptxas's notes
+   and K10a's, K2-bwd's, K4's and K1's dynamic shared memory a block.
 3. kernels: each hand-written kernel against its plain PyTorch version at the
    main paths' shapes, in bf16, with its max error, its time, the plain
    version's, one PyTorch library call's where one computes the same function
    (a yardstick the port never calls) and its bound on the card; K7 and K8,
    calls of microseconds, are timed by their profiler device time with the
    L2 flushed. The backward kernels (K4, K2-bwd) also give bitwise-equal
-   gradients on a repeat, and K1, K5, K9, K2, K2-bwd, K6, K3 and K10a the
-   same SHA-256 on a repeat (the attention kernels' and K4's lines also give
-   the launch plan, the achieved TFLOP/s and the share of the bound). K4 runs
+   gradients on a repeat, and K1, K5, K7, K9, K2, K2-bwd, K6, K3 and K10a the
+   same SHA-256 on a repeat (the attention kernels', K4's, K1's and K7's
+   lines also give the launch plan, the achieved TFLOP/s and the share of the
+   bound). K1 runs at L 4,096 with segments and at L 8,192 with the 256-frame
+   prefill's left pad, its device time split by pass; K7 at batch 1 and 8,
+   its plan the blocks, the cluster and the state bytes in flight. K4 runs
    at L 4,096 with segments and a final-state cotangent, and at the training
    rows' 1,064 and 4,136 tokens, its device time split by pass; K5's line
    gives its conv stage's device time and that stage's share of its bytes
@@ -145,7 +148,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
-from timeviper_tpu_torch.bench import microbench_flash, microbench_vit_attn  # noqa: E402
+from timeviper_tpu_torch.bench import device_ms, microbench_flash, microbench_vit_attn  # noqa: E402
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
@@ -191,6 +194,9 @@ from timeviper_tpu_torch.ops.int8_linear import Int8Linear  # noqa: E402
 from timeviper_tpu_torch.ops.layernorm import fused_ln, fused_ln_plain  # noqa: E402
 from timeviper_tpu_torch.ops.ssd import _process_dt, ssd_chunked  # noqa: E402
 from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
+    fwd_blocks,
+    fwd_plan,
+    kernel_chunk,
     ssd_conv_scan_fused,
     ssd_conv_scan_fused_plain,
     ssd_scan,
@@ -316,30 +322,6 @@ def timed_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time (ms) of one call, summed over the kernels it launches
-    (torch.profiler), with the 50 MB L2 flushed before each call as the main
-    path leaves it: for calls of a few microseconds, where CUDA events around
-    a loop would time the host's launches instead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    flush = torch.empty(64 << 20, dtype=torch.int8, device=DEV)
-
-    def total_us(body) -> float:
-        body()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush.zero_()
-                body()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-
-    return (total_us(fn) - total_us(lambda: None)) / iters / 1e3
-
-
 def compare(name: str, got, want) -> float:
     """Max abs error of the kernel output(s) against the plain one(s); raises
     past the kernel's tolerance (relative to the plain result's largest
@@ -424,6 +406,20 @@ def ssd_flops(L, H, P, G, N, cs, backward=False) -> float:
     return nc * (G * cs * cs * N + H * cs * cs * P + 4 * H * cs * P * N)
 
 
+def k1_plan(L: int, G: int, R: int, cs: int) -> str:
+    """K1's launch at one batch row of L rows: its two product kernels'
+    blocks (chunk_scan's tiles that start before L), warpgroups, head slices
+    and shared memory a block."""
+    kc = kernel_chunk(cs)
+    n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+    s_state, s_scan = fwd_plan(1, L, G, R, kc, n_sm)
+    (scan_t, scan_smem), (state_t, state_smem) = fwd_blocks()
+    return (f"chunk_scan {-(-L // 64) * G * s_scan} blocks of {scan_t // 128} warpgroups "
+            f"(head slices {s_scan}), {scan_smem} B of shared memory a block; chunk_state "
+            f"{-(-L // kc) * G * s_state} blocks of {state_t // 128} warpgroups (head slices "
+            f"{s_state}), {state_smem} B")
+
+
 def sdpa(q, k, v, seq=None, causal=True, flash=False):
     """torch's scaled_dot_product_attention, the library yardstick (timed
     here, called nowhere in the port), on (B, L, H, D) inputs: the KV heads
@@ -489,7 +485,7 @@ def phase_build() -> None:
         if line.startswith("=="):
             sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu", "flash_fwd.cu",
                                 "vit_attn_qkv.cu", "headgrid_attn.cu", "flash_bwd.cu",
-                                "ssd_bwd.cu")
+                                "ssd_bwd.cu", "ssd_fwd.cu", "decode_fused.cu")
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or sm90 and ("entry function" in line or "warning" in line.lower()
                              or "(C75" in line)):  # ptxas's wgmma notes
@@ -498,7 +494,8 @@ def phase_build() -> None:
     log(f"[build] dynamic shared memory a block: K2-bwd dkv {lib.tv_flash_bwd_smem(0)} B, dq "
         f"{lib.tv_flash_bwd_smem(1)} B (tile {FLASH_BWD_TILE}); K10a (tile {HEADGRID_TILE}) hpp "
         f"1 {lib.tv_headgrid_smem(1)} B, hpp 2 and 4 {lib.tv_headgrid_smem(2)} B; K4 dc / db "
-        f"{lib.tv_ssd_bwd_smem()} B")
+        f"{lib.tv_ssd_bwd_smem()} B; K1 chunk_scan / chunk_state "
+        f"{' / '.join(f'{smem} B ({threads} threads)' for threads, smem in fwd_blocks())}")
 
 
 def kernel_ms(fn, iters: int = 5) -> dict:
@@ -554,7 +551,24 @@ def kernel_cases(g: torch.Generator):
     yield ("ssd_fwd", lambda: ssd_scan(x, dt, A, Bm, Cm, **ssd_kw),
            lambda: ssd_chunked(x, dt, A, Bm, Cm, **ssd_kw), None,
            (ssd_flops(L, H, P, G, N, cs), nbytes(x, dt, Bm, Cm, seq, y, final)),
-           dict(repeat=True))
+           dict(variant=f"segmented, L {L}", repeat=True, split=True,
+                launch=k1_plan(L, G, H // G, cs)))
+    # K1 at L 8,192 with the Generator's left pad of 8,192 - 4,136 rows (the
+    # 256-frame prefill's bucket), from a generator of its own so that the
+    # other kernels' inputs (and their printed SHA-256) stay as they were
+    g8 = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    L8 = 8192
+    r8 = lambda *shape, scale=1.0: (torch.randn(  # noqa: E731
+        *shape, generator=g8, device=DEV) * scale).to(torch.bfloat16)
+    x8, dt8, B8, C8 = r8(1, L8, H, P), r8(1, L8, H, scale=0.5), r8(1, L8, G, N), r8(1, L8, G, N)
+    kw8 = dict(ssd_kw, seq_idx=segments(L8, L8 - 4136, L8))
+    y8, final8 = ssd_scan(x8, dt8, A, B8, C8, **kw8)
+    yield ("ssd_fwd", lambda: ssd_scan(x8, dt8, A, B8, C8, **kw8),
+           lambda: ssd_chunked(x8, dt8, A, B8, C8, **kw8), None,
+           (ssd_flops(L8, H, P, G, N, cs), nbytes(x8, dt8, B8, C8, kw8["seq_idx"], y8, final8)),
+           dict(variant=f"L {L8}, a left pad of {L8 - 4136} rows", main=False, repeat=True,
+                split=True, launch=k1_plan(L8, G, H // G, cs)))
+    del x8, dt8, B8, C8, y8, final8, kw8
 
     # K4 on the same layer with a final-state cotangent (the main case), then
     # at the LoRA training rows' lengths (64 and 256 frames: ragged last
@@ -576,7 +590,7 @@ def kernel_cases(g: torch.Generator):
         dy = r4(1, L4, H, P)
         dfin = torch.randn(1, H, P, N, generator=g, device=DEV) if main else None
         _, _, states = ssd_scan_fwd(x4, dt4, A, B4, C4, cs, D, dtb, (0.0, float("inf")), seq4,
-                                    None)
+                                    None, keep_states=True)
         args = (x4, dt4, A, B4, C4, D, dtb, seq4)
         outs = ssd_scan_bwd(*args, states, dy, dfin, cs)
         nc, T = -(-L4 // cs), cs // 64
@@ -747,10 +761,15 @@ def kernel_cases(g: torch.Generator):
                D, 1 + f32(di, scale=0.1))
         dkw = dict(n_groups=G, head_dim=P, eps=1e-5)
         out = fused_mamba_decode(*dec, **dkw)
+        # csrc/decode_fused.cu's fixed plan: 128 channels a block, a group a cluster
+        cluster = di // G // 128
+        plan = (f"{G * bsz * cluster} blocks of 128 channels in clusters of {cluster}, "
+                f"{128 * min(N, 128) * 4} B of state in flight a block")
         yield ("decode_fused", lambda dec=dec: fused_mamba_decode(*dec, **dkw),
                lambda dec=dec: fused_mamba_decode_plain(*dec, **dkw), None,
                (6 * bsz * di * N, nbytes(*dec, *out)),
-               dict(variant=f"B {bsz}", main=bsz == 1, peak=PEAK_F32_FLOPS, device=True))
+               dict(variant=f"B {bsz}", main=bsz == 1, peak=PEAK_F32_FLOPS, device=True,
+                    repeat=True, launch=plan))
         del out
 
     # K8: the tower's norm over 8 frames x 729 rows x 1152, all four variants;
@@ -1264,7 +1283,8 @@ def phase_long_video(model, arch, kernel_results: dict) -> None:
         log(f"[long video] ssd_fwd on clip 2's first Mamba layer "
             f"{[tuple(a.shape) for a in cap1.args]} from a carried state (|h0| max "
             f"{h0.abs().max().item():.3e}): max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{timed_ms(lambda: ssd_chunked(*cap1.args, **cap1.kwargs), iters=2):.4f} ms")
+            f"{timed_ms(lambda: ssd_chunked(*cap1.args, **cap1.kwargs), iters=2):.4f} ms; "
+            f"device ms by kernel: {kernel_split(lambda: ssd_scan(*cap1.args, **cap1.kwargs))}")
         kernel_results["ssd_fwd"]["max_abs_err"] = max(kernel_results["ssd_fwd"]["max_abs_err"],
                                                        err)
     torch.cuda.empty_cache()

@@ -60,7 +60,10 @@ from timeviper_tpu_torch.ops.block_attention import (
     block_attn_lse_plain,
     block_attn_plan,
 )
-from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_plain
+from timeviper_tpu_torch.ops.decode_fused import (
+    fused_mamba_decode,
+    fused_mamba_decode_plain,
+)
 from timeviper_tpu_torch.ops.flash_attention import (
     FLASH_TILES,
     flash_attention,
@@ -80,11 +83,13 @@ from timeviper_tpu_torch.ops.ssd import ssd_chunked
 from timeviper_tpu_torch.ops.int8_linear import Int8Linear, apply_linear_w8a8
 from timeviper_tpu_torch.ops.layernorm import fused_ln, fused_ln_plain
 from timeviper_tpu_torch.ops.ssd_kernel import (
+    kernel_chunk,
     ssd_conv_scan_fused,
     ssd_conv_scan_fused_plain,
     ssd_scan,
     ssd_scan_bwd,
     ssd_scan_bwd_plain,
+    ssd_scan_fwd,
 )
 from timeviper_tpu_torch.ops.vit_attention import (
     vit_attention,
@@ -106,36 +111,56 @@ def _close(got, want, rel, floor=1.0):
     assert err <= rel * max(want.abs().max().item(), floor), err
 
 
-@pytest.mark.parametrize("packed", [None, (37, 170), (64, 128)])
-def test_ssd_kernel_matches_plain(packed):
-    """Ragged tail (L = 300, chunks of 64), a -1 pad plus one boundary, both
-    inside chunks or both on chunk edges, and a carried initial state. With
-    no packing, also a question's continuation: 12 rows (one ragged chunk of
-    256) at the 9B's heads and groups from a carried state."""
+@pytest.mark.parametrize("B,L,H,G,cs,packed,init", [
+    (2, 300, 16, 4, 64, None, True),         # ragged tail, chunks of 64, a carried state
+    (2, 300, 16, 4, 64, (37, 170), True),    # a -1 pad and a boundary inside chunks
+    (2, 300, 16, 4, 64, (64, 128), True),    # both on chunk edges
+    (1, 12, 128, 8, 256, None, True),        # a question's 12 rows at the 9B's widths
+    (1, 600, 32, 2, 256, (37, 450), False),  # the 9B's 16 heads a group, chunks of 256
+    (2, 300, 4, 4, 64, (13, 140), False),    # H == G: one head a group
+    (2, 512, 16, 4, 256, (64, 128), False),  # tile pairs masked whole by the segments
+    (1, 700, 16, 4, 512, (37, 450), True),   # chunks of 512
+    (1, 1100, 16, 4, 1024, None, False),     # chunks of 1,024
+    (2, 200, 16, 4, 128, (5, 70), True),     # chunks of two tiles, B 2
+])
+def test_ssd_kernel_matches_plain(B, L, H, G, cs, packed, init):
+    """K1 against ssd_chunked: y and the final state, a bitwise repeat, and
+    the f32 inbound states the training forward keeps for K4 against the
+    plain final state of each chunk's prefix (chunks of kernel_chunk(cs)
+    rows). The 9B's A (down to -128) at its widths, -exp(N(0, 1)) else."""
     dev = require_cuda()
     r = rng(3)
-    B, L, H, P, G, N, cs = 2, 300, 16, 64, 4, 128, 64
+    P, N = 64, 128
     bf = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev, torch.bfloat16)  # noqa: E731
     x, dt, Bm, Cm = bf(B, L, H, P), bf(B, L, H, k=0.5), bf(B, L, G, N), bf(B, L, G, N)
-    A = t(-np.exp(r.standard_normal(H).astype(np.float32))).to(dev)
+    if H == 128:
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    else:
+        A = t(-np.exp(r.standard_normal(H).astype(np.float32))).to(dev)
     D, dtb = (t(r.standard_normal(H).astype(np.float32)).to(dev) for _ in range(2))
-    h0 = t(r.standard_normal((B, H, P, N), np.float32)).to(dev)
+    h0 = t(r.standard_normal((B, H, P, N), np.float32)).to(dev) if init else None
     seq = t(packed_seq(B, L, *packed)).to(dev) if packed else None
     kw = dict(chunk_size=cs, D=D, dt_bias=dtb, seq_idx=seq, initial_state=h0)
     y, st = ssd_scan(x, dt, A, Bm, Cm, **kw)
     yp, sp = ssd_chunked(x, dt, A, Bm, Cm, **kw)
     _close(y, yp, 1e-2)
     _close(st, sp, 1e-2)
-    if packed is None:
-        B, L, H, P, G = 1, 12, 128, 64, 8
-        x, dt, Bm, Cm = bf(B, L, H, P), bf(B, L, H, k=0.5), bf(B, L, G, N), bf(B, L, G, N)
-        A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
-        h0 = t(r.standard_normal((B, H, P, N), np.float32)).to(dev)
-        kw = dict(chunk_size=256, D=torch.ones(H, device=dev), initial_state=h0)
-        y, st = ssd_scan(x, dt, A, Bm, Cm, **kw)
-        yp, sp = ssd_chunked(x, dt, A, Bm, Cm, **kw)
-        _close(y, yp, 1e-2)
-        _close(st, sp, 1e-2)
+    y2, st2 = ssd_scan(x, dt, A, Bm, Cm, **kw)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y3, st3, states = ssd_scan_fwd(x, dt, A, Bm, Cm, cs, D, dtb, (0.0, float("inf")), seq, h0,
+                                      keep_states=True)
+    assert torch.equal(y, y3) and torch.equal(st, st3)
+    kc = kernel_chunk(cs)
+    assert states.shape == (B, -(-L // kc), H, P, N)
+    for c in range(states.shape[1]):
+        if c == 0:
+            want = h0 if init else torch.zeros_like(states[:, 0])
+        else:
+            n = c * kc
+            _, want = ssd_chunked(x[:, :n], dt[:, :n], A, Bm[:, :n], Cm[:, :n], chunk_size=kc,
+                                  D=D, dt_bias=dtb, seq_idx=None if seq is None else seq[:, :n],
+                                  initial_state=h0)
+        _close(states[:, c], want, 1e-2)
 
 
 @pytest.mark.parametrize("case", ["causal", "prefix rows", "ragged masked", "empty", "valid"])
@@ -411,13 +436,15 @@ def test_kernels_raise_on_what_they_do_not_take():
         block_attn_lse(q, q[:, :4], q[:, :4], causal=True)  # causal takes Lq == Lk
     with pytest.raises(ValueError):
         block_attn_lse(q, q[:, :, :2], q[:, :, :2].contiguous())  # k and v strides differ
-    # K4 takes chunks of at most 256 rows (four 64-row tiles staged a block)
+    # K1 and K4 take chunks of 64 to 1,024 rows, multiples of 64
     args, D, dtb, _, seq, dy, _ = _ssd_case(5, 1, 512, 8, 2, None, 512, dev)
-    from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan_fwd
-
-    _, _, states = ssd_scan_fwd(*args.values(), 512, D, dtb, (0.0, float("inf")), seq, None)
-    with pytest.raises(ValueError, match="at most 256"):
-        ssd_scan_bwd(*args.values(), D, dtb, seq, states, dy, None, 512)
+    _, _, states = ssd_scan_fwd(*args.values(), 512, D, dtb, (0.0, float("inf")), seq, None,
+                                keep_states=True)
+    for cs in (96, 1088):
+        with pytest.raises(ValueError, match="chunk size"):
+            ssd_scan_bwd(*args.values(), D, dtb, seq, states, dy, None, cs)
+        with pytest.raises(ValueError, match="chunk size"):
+            ssd_scan(*args.values(), chunk_size=cs)
 
 
 def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):
@@ -440,13 +467,16 @@ def _ssd_case(seed, B, L, H, G, packed, cs, dev, init=False):
     (300, (13, 140), False, 4, 4, 64),    # H == G: one head a group
     (512, (64, 128), False, 16, 4, 256),  # whole tile pairs masked by the segments
     (300, (37, 170), True, 16, 4, 128),   # chunks of two tiles
+    (700, (37, 450), False, 16, 4, 512),  # chunks of 512, run as chunks of 256
+    (1100, None, True, 16, 4, 1024),      # chunks of 1,024
 ])
 def test_ssd_backward_kernel_matches_plain(L, packed, init, H, G, cs):
     """K4 through SSDScanFn: a ragged tail (L = 300, chunks of 64 or 128; L
     600, chunks of 256), a -1 pad with a boundary inside chunks or both on chunk
     and tile edges (leaving tile pairs with no pair of one segment), a
     final-state cotangent, an initial state, one head a group and the 9B's
-    16 (their heads split over slices); bitwise repeatable."""
+    16 (their heads split over slices), chunks of 512 and 1,024 (which both
+    kernels run as chunks of 256); bitwise repeatable."""
     dev = require_cuda()
     B = 2
     args, D, dtb, h0, seq, dy, dfin = _ssd_case(4, B, L, H, G, packed, cs, dev, init)
@@ -469,9 +499,8 @@ def test_ssd_backward_kernel_matches_plain(L, packed, init, H, G, cs):
 def test_ssd_backward_wrapper_counts_its_launches():
     dev = require_cuda()
     args, D, dtb, _, seq, dy, _ = _ssd_case(5, 1, 128, 8, 2, None, 64, dev)
-    from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan_fwd
-
-    _, _, states = ssd_scan_fwd(*args.values(), 64, D, dtb, (0.0, float("inf")), seq, None)
+    _, _, states = ssd_scan_fwd(*args.values(), 64, D, dtb, (0.0, float("inf")), seq, None,
+                                keep_states=True)
     before = ssd_scan_bwd.launches
     ssd_scan_bwd(*args.values(), D, dtb, seq, states, dy, None, 64)
     assert ssd_scan_bwd.launches == before + 1
@@ -549,12 +578,16 @@ def test_layernorm_kernel_matches_plain(D, residual, quant):
         _close(got, want, 1e-2)
 
 
-@pytest.mark.parametrize("B,G,H,P", [(2, 2, 16, 16), (1, 8, 128, 64), (8, 8, 128, 64)])
-def test_decode_fused_kernel_matches_plain(B, G, H, P):
-    """A group of 128 channels (a cluster of 1) and the 9B's 1024 (8)."""
+@pytest.mark.parametrize("B,G,H,P,N", [(2, 2, 16, 16, 128), (1, 8, 128, 64, 128),
+                                       (3, 8, 128, 64, 128), (8, 8, 128, 64, 128),
+                                       (1, 2, 16, 16, 256), (3, 1, 16, 64, 256)])
+def test_decode_fused_kernel_matches_plain(B, G, H, P, N):
+    """Groups of 128 channels (a cluster of 1 block) and 1,024 (the 9B's: a
+    cluster of 8), batch 1, 3 and 8, N 128 and 256 (two column passes);
+    bitwise repeatable."""
     dev = require_cuda()
     r = rng(8)
-    N, K, di = 128, 4, H * P
+    K, di = 4, H * P
     bf = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev, torch.bfloat16)  # noqa: E731
     f32 = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev)  # noqa: E731
     wide = bf(B, 2 * di + 64)  # xr and gate as column slices, as the fused in_proj gives them
@@ -569,6 +602,8 @@ def test_decode_fused_kernel_matches_plain(B, G, H, P):
     _close(got[0], want[0], 1e-2)
     assert torch.equal(got[1], want[1])
     _close(got[2], want[2], 1e-5)
+    again = fused_mamba_decode(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("packed", [None, (37, 170), (66, 128), (129, 195), "rows"])

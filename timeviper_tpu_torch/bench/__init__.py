@@ -44,6 +44,30 @@ def timed_ms(fn: Callable[[], object], steps: int) -> float:
     return start.elapsed_time(end) / steps
 
 
+def device_ms(fn: Callable[[], object], iters: int = 20) -> float:
+    """Device time (ms) of one call, summed over the kernels it launches
+    (torch.profiler), with the 50 MB L2 flushed before each call as the main
+    path leaves it: for calls of a few microseconds, where CUDA events around
+    a loop would time the host's launches instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+
+    def total_us(body) -> float:
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                body()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    return (total_us(fn) - total_us(lambda: None)) / iters / 1e3
+
+
 def bound_ms(flops: float, moved: float) -> float:
     """The least time (ms) the card could take: the larger of the bf16
     operations over the tensor cores' peak and the bytes over the memory

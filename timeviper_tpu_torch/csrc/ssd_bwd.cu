@@ -75,18 +75,21 @@
 // Segment ids reset the state exactly as the forward and the TPU kernel do:
 // cont, keep_last, no_boundary and the previous chunk's last id (clamped at
 // chunk 0).
-#include "attn_sm90.cuh"
+#include "ssd_sm90.cuh"
 
 namespace {
 
 using namespace tv::sm90;
+using namespace tv::ssd;
 using tv::bf;
 using tv::to_bf;
 
 constexpr int kP = 64;
 constexpr int kN = 128;
 constexpr int kTile = 64;
-constexpr int kMaxT = 4;  // tiles a chunk: chunks of at most 256 rows
+// tiles a chunk: chunks of at most 256 rows (the wrapper runs a longer chunk
+// as 256-row ones)
+constexpr int kMaxT = 4;
 constexpr int kLDN = kN + 8;
 constexpr int kLDP = kP + 8;
 constexpr int kThreads = 128;
@@ -158,15 +161,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
-}
-
-// v[i] * scale rounded to bf16, eight of them in one 16-byte word.
-__device__ __forceinline__ uint4 scale8(uint4 raw, float scale) {
-  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-  return make_uint4(tv::pack_bf16(bf(v[0]) * scale, bf(v[1]) * scale),
-                    tv::pack_bf16(bf(v[2]) * scale, bf(v[3]) * scale),
-                    tv::pack_bf16(bf(v[4]) * scale, bf(v[5]) * scale),
-                    tv::pack_bf16(bf(v[6]) * scale, bf(v[7]) * scale));
 }
 
 // Pass 1. grid (nc, H, B), block cs threads (the forward's pass 1).
@@ -376,63 +370,12 @@ __global__ void __launch_bounds__(kThreads) dstate_kernel(BwdArgs a) {
 
 // ---- pass 5: the dc and db kernels ----
 
-constexpr int kBox = 64 * 128;     // 64 rows of 64 bf16 columns, 128-byte swizzled
-constexpr int kNTile = 2 * kBox;   // 64 rows of N = 128 columns: two boxes
 constexpr int kVec = 256 * 4;      // a head's cumsum or dt over a chunk of <= 256 rows
 constexpr int kHeadSlot = kNTile + kBox + 2 * kVec;  // state, own rows, acs, dtp
 constexpr int kWGBytes = 2 * kHeadSlot + 2 * kBox;   // two head slots, two walk slots
 constexpr int kWalkThreads = 256;  // two consumer warpgroups
 constexpr size_t kWalkSmem =
     1024 + (1 + kMaxT) * kNTile + 2 * kWGBytes + 256 * sizeof(int);
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait for all of this thread's copies (committed or not), and make them
-// visible to wgmma (the async proxy).
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// 64 rows of COLS bf16 columns (row r at src + r * ld; rows >= valid read
-// zero, from the valid address `any`) into 128-byte swizzled boxes of 64
-// columns at dst, box k at dst + k kBox: the layout TMA's 128-byte swizzle
-// gives. NT threads, thread t.
-template <int COLS, int NT>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* src, size_t ld,
-                                          int valid, int t, const __nv_bfloat16* any) {
-  constexpr int CH = COLS / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int e = t; e < 64 * CH; e += NT) {
-    const int r = e / CH, c = e % CH;
-    const bool ok = r < valid;
-    cp16(dst + (c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4),
-         ok ? src + (size_t)r * ld + c * 8 : any, ok);
-  }
-}
-
-// n floats (a multiple of 4) from src to dst by 16-byte copies, 128 threads.
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int n, int t) {
-  for (int e = t; e < n / 4; e += 128) cp16(dst + 4 * e, src + 4 * e, true);
-}
-
-// Two bf16 values at (row r, column c), c even, of a swizzled box.
-__device__ __forceinline__ float2 ld_sw(const uint8_t* box, int r, int c) {
-  const uint32_t v = *reinterpret_cast<const uint32_t*>(box + r * 128 +
-                                                        ((((c >> 3) ^ (r & 7))) << 4) +
-                                                        (c & 7) * 2);
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
 
 // The register A operand (rows ra, ra + 8 of 16 x 64) of a swizzled [64][64]
 // box, row r scaled by w[r] in f32 before the bf16 rounding.
@@ -448,10 +391,6 @@ __device__ __forceinline__ void scaled_a(uint32_t (&pa)[4][4], const uint8_t* bo
     pa[kk][2] = tv::pack_bf16(v2.x * w0, v2.y * w0);
     pa[kk][3] = tv::pack_bf16(v3.x * w1, v3.y * w1);
   }
-}
-
-__device__ __forceinline__ void wg_bar(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
 // Pass 5. DB false: dc, DB true: db. grid (nc * T, G * S, B), 256 threads,

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "tv_ssd_fwd": [_P] * 25 + [_I] * 11 + [_F, _F, _P],
+    "tv_ssd_fwd": [_P] * 25 + [_I] * 14 + [_F, _F, _P],
     "tv_ssd_bwd": [_P] * 30 + [_I] * 9 + [_F, _F, _P],
     "tv_flash_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
     "tv_flash_bwd": [_P] * 14 + [_I] * 10 + [_F, _P],
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "tv_flash_bwd_smem": [_I],
     "tv_headgrid_smem": [_I],
     "tv_ssd_bwd_smem": [],
+    "tv_ssd_fwd_block": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

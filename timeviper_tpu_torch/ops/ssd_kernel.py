@@ -3,9 +3,13 @@ the forward with the causal conv fused in, as hand-written CUDA kernels.
 
 Counterpart of timeviper_tpu/ops/ssd_pallas.py:_ssd_core, the custom_vjp
 whose forward is the Pallas kernel _ssd_kernel (K1, csrc/ssd_fwd.cu here) and
-whose backward is _ssd_bwd_kernel (K4, csrc/ssd_bwd.cu here). The forward
-keeps the per-chunk inbound states for the backward, as the JAX forward does
-with `save_prev=True`.
+whose backward is _ssd_bwd_kernel (K4, csrc/ssd_bwd.cu here). Under
+autograd the forward keeps the per-chunk inbound states for the backward, as
+the JAX forward does with `save_prev=True`. Both kernels take chunks of at
+most 256 rows (`MAX_CHUNK`): a longer chunk runs as chunks of 256, which is
+the same function (chunk_size only moves rounding points: the state is
+rounded to bf16 every 256 rows instead of every chunk), and the states K1
+keeps for K4 are then those of the 256-row chunks.
 
 `ssd_scan` is the entry point: a CPU tensor takes the plain version
 (ops/ssd.py:ssd_chunked, differentiated by autograd); a CUDA tensor launches
@@ -24,6 +28,7 @@ is ops/conv.py:causal_conv1d three times, then ssd_chunked. Inference only.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +38,12 @@ from timeviper_tpu_torch.ops.ssd import ssd_chunked
 
 Limit = Tuple[float, float]
 NO_LIMIT: Limit = (0.0, float("inf"))
+MAX_CHUNK = 256  # rows of a chunk the kernels take: four 64-row tiles staged a block
+
+
+def kernel_chunk(chunk_size: int) -> int:
+    """The chunk the kernels run for a caller's `chunk_size`."""
+    return min(chunk_size, MAX_CHUNK)
 
 
 def ssd_scan(
@@ -61,7 +72,7 @@ def ssd_scan(
         return SSDScanFn.apply(x, dt, A, B_, C, D, dt_bias, initial_state, seq_idx,
                                chunk_size, dt_limit)
     y, final, _ = ssd_scan_fwd(x, dt, A, B_, C, chunk_size, D, dt_bias, dt_limit, seq_idx,
-                               initial_state)
+                               initial_state, keep_states=False)
     return y, final
 
 
@@ -75,7 +86,7 @@ class SSDScanFn(torch.autograd.Function):
     def forward(ctx, x, dt, A, B_, C, D, dt_bias, initial_state, seq_idx, chunk_size,
                 dt_limit):
         y, final, states = ssd_scan_fwd(x, dt, A, B_, C, chunk_size, D, dt_bias, dt_limit,
-                                        seq_idx, initial_state)
+                                        seq_idx, initial_state, keep_states=True)
         ctx.save_for_backward(x, dt, A, B_, C, D, dt_bias, seq_idx, states)
         ctx.chunk_size, ctx.dt_limit = chunk_size, dt_limit
         ctx.has_init = initial_state is not None
@@ -98,7 +109,8 @@ def ssd_scan_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal,
     """K4: gradients of ssd_scan's (y, final state) given their cotangents dy
     and dfinal (None = zero) -> (dx, ddt, dA, dB, dC, dD, ddt_bias, d initial
     state), None where the input was None. `states` (B, nc, H, P, N) f32 are
-    the inbound states K1 kept. A CPU tensor takes the plain version."""
+    the inbound states K1 kept, nc counting chunks of kernel_chunk(chunk_size)
+    rows. A CPU tensor takes the plain version."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, B_, C, D, dt_bias, seq_idx, dy, dfinal,
                                   chunk_size, dt_limit)
@@ -171,7 +183,7 @@ def ssd_conv_scan_fused(x_raw, dt, A, B_raw, C_raw, conv_params: dict,
         return ssd_conv_scan_fused_plain(x_raw, dt, A, B_raw, C_raw, conv_params, chunk_size,
                                          D, dt_bias, dt_limit, seq_idx)
     y, final, _ = _launch_fwd(x_raw, dt, A, B_raw, C_raw, chunk_size, D, dt_bias, dt_limit,
-                              seq_idx, None, conv_params)
+                              seq_idx, None, conv_params, keep_states=False)
     ssd_conv_scan_fused.launches += 1
     return y, final
 
@@ -235,10 +247,13 @@ def _clamp_args(dt_limit: Limit):
     return int(lo > 0.0 or hi != float("inf")), lo, hi
 
 
-def ssd_scan_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state):
+def ssd_scan_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state, *,
+                 keep_states: bool):
     """K1 on CUDA tensors -> (y, final state, the inbound state of every
-    chunk (B, nc, H, P, N) f32, which K4 takes)."""
-    out = _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state)
+    chunk of kernel_chunk(cs) rows (B, nc, H, P, N) f32, which K4 takes;
+    None unless `keep_states`)."""
+    out = _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state,
+                      keep_states=keep_states)
     ssd_scan.launches += 1
     return out
 
@@ -257,12 +272,51 @@ def _conv_args(conv_params, H, P, G, N, dev):
     return out
 
 
+def head_slices(blocks: int, R: int, n_sm: int) -> int:
+    """How many slices a kernel with one block an SM per (chunk or tile,
+    group) splits a group's R heads into: 1 unless its `blocks` would fill
+    fewer than 3 waves of `n_sm` SMs; then doubled while they would, keeping
+    at least 2 heads a slice."""
+    S = 1
+    while blocks * S < 3 * n_sm and R % (4 * S) == 0:
+        S *= 2
+    return S
+
+
+def fwd_plan(Bsz: int, L: int, G: int, R: int, cs: int, n_sm: int) -> Tuple[int, int]:
+    """The head slices (chunk_state, chunk_scan) K1 runs at a kernel chunk of
+    cs rows: chunk_state has a block per chunk and group, chunk_scan one per
+    64-row tile that starts before L and group."""
+    return (head_slices(-(-L // cs) * G * Bsz, R, n_sm),
+            head_slices(-(-L // 64) * G * Bsz, R, n_sm))
+
+
+def fwd_blocks():
+    """((threads, dynamic shared memory bytes) of a chunk_scan block, the same
+    of a chunk_state block) of K1 on the card."""
+    import ctypes
+
+    out = []
+    for which in (0, 1):
+        v = (ctypes.c_int * 2)()
+        _cuda.lib().tv_ssd_fwd_block(which, ctypes.cast(v, ctypes.c_void_p))
+        out.append(tuple(v))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_state,
-                conv_params=None):
-    """K1, or K5 with `conv_params`: one call of tv_ssd_fwd."""
+                conv_params=None, *, keep_states: bool):
+    """K1, or K5 with `conv_params`: one call of tv_ssd_fwd. Returns (y,
+    final state, the f32 inbound states or None unless `keep_states`)."""
     Bsz, L, H, P, G, N, sx, sdt, sbc = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx,
                                                       strided=True)
     _f32_state(initial_state, (Bsz, H, P, N), "initial_state")
+    cs = kernel_chunk(cs)
     conv = ([None] * 6 if conv_params is None
             else _conv_args(conv_params, H, P, G, N, x.device))
     nc = -(-L // cs)
@@ -276,33 +330,29 @@ def _launch_fwd(x, dt, A, B_, C, cs, D, dt_bias, dt_limit, seq_idx, initial_stat
     dtp = torch.empty(Bsz, H, nc * cs, **f32)
     acs = torch.empty(Bsz, H, nc * cs, **f32)
     carry = torch.empty(Bsz, H, nc, **f32)
-    states = torch.empty(Bsz, nc, H, P, N, **f32)
-    cb = torch.empty(Bsz, nc, G, cs, cs, **f32)
+    states = torch.empty(Bsz, nc, H, P, N, **f32)  # chunk states, then the inbound ones
+    hin = torch.empty(Bsz, nc, H, P, N, dtype=torch.bfloat16, device=x.device)
+    S_state, S_scan = fwd_plan(Bsz, L, G, H // G, cs, _n_sm(x.device))
     clamp, lo, hi = _clamp_args(dt_limit)
     p = _cuda.ptr
     err = _cuda.lib().tv_ssd_fwd(
         p(x), p(dt), p(A), p(dt_bias), p(D), p(B_), p(C), p(seq_idx),
         p(initial_state), *(p(c) for c in conv), *(p(c) for c in conv_out), p(y), p(final),
-        p(dtp), p(acs), p(carry), p(states), p(cb), Bsz, L, H, P, G, N, cs, sx, sdt, sbc,
-        clamp, lo, hi, _cuda.stream_of(x))
+        p(dtp), p(acs), p(carry), p(states), p(hin), Bsz, L, H, P, G, N, cs, sx, sdt, sbc,
+        S_state, S_scan, clamp, int(keep_states), lo, hi, _cuda.stream_of(x))
     _cuda.check(err, "tv_ssd_fwd")
-    return y, final, states
+    return y, final, states if keep_states else None
 
 
 def bwd_head_slices(nc: int, cs: int, G: int, R: int, Bsz: int, n_sm: int) -> int:
-    """How many slices K4's dc / db kernels split a group's R heads into: 1
-    unless their grid, nc * (cs / 64) * G * Bsz blocks of one block an SM,
-    would fill fewer than 3 waves of `n_sm` SMs; then doubled while it
-    would, keeping at least 2 heads a slice (one for each warpgroup)."""
-    blocks, S = nc * (cs // 64) * G * Bsz, 1
-    while blocks * S < 3 * n_sm and R % (4 * S) == 0:
-        S *= 2
-    return S
+    """How many slices K4's dc / db kernels, nc * (cs / 64) * G * Bsz blocks,
+    split a group's R heads into (head_slices)."""
+    return head_slices(nc * (cs // 64) * G * Bsz, R, n_sm)
 
 
 def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt_limit):
     Bsz, L, H, P, G, N = _check_inputs(x, dt, A, B_, C, cs, D, dt_bias, seq_idx)[:6]
-    _require(cs <= 256, f"the backward takes chunks of at most 256 rows, got {cs}")
+    cs = kernel_chunk(cs)
     nc = -(-L // cs)
     _f32_state(states, (Bsz, nc, H, P, N), "states")
     _f32_state(dfinal, (Bsz, H, P, N), "dfinal")
@@ -311,8 +361,7 @@ def _launch_bwd(x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, dt
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     Lp = nc * cs
-    S = bwd_head_slices(nc, cs, G, H // G, Bsz,
-                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    S = bwd_head_slices(nc, cs, G, H // G, Bsz, _n_sm(dev))
     dx = torch.empty_like(x)
     ddt = torch.empty(Bsz, L, H, **f32)
     dB = torch.empty(Bsz, L, G, N, **f32)
