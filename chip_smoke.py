@@ -2,9 +2,9 @@
 """Drive the PyTorch port of TimeViper once on one CUDA card: the two
 microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
-slot-batched serving engine, LoRA training, int8 serving with the fused
-kernels, then serving with the InternVideo2 tower (bf16, then int8) and with
-the two-tower DINOv2 + SigLIP encoder.
+slot-batched serving engine, pdrop with TransV, LoRA training, int8 serving
+with the fused kernels, then serving with the InternVideo2 tower (bf16, then
+int8) and with the two-tower DINOv2 + SigLIP encoder.
 
     python3 chip_smoke.py
 
@@ -80,6 +80,30 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    0.999); >= 95% of the tokens the argmax of one nano_forward over prompt
    and output of an f32 copy of the backbone; K1, K2, K3 and K9 launched; output tokens/s, rounds and the
    largest gap between rounds, with chunked prefill on and then off.
+5c. pdrop and TransV, on the same bf16 model with the JAX package's pdrop
+   setting (bench_all.py:377: "uni_14_0.8-attn_18_0.6", CrossAttention;
+   the merge modules from a generator of their own, tanh(alpha) = 0.5,
+   q_proj scaled to cross-attention logits of std 1; before and after the
+   scaling, the 64-frame first logits of the kernels, the plain versions,
+   the plain versions one ulp off and an f32 copy, on one keep set, the
+   scaled kernel run within a cosine of 0.99 of the f32 one):
+   (a) the 64- and 256-frame requests through generate(use_pdrop=True), K1,
+   K2, K3 and K9 launched; the rows after each stage (8,192 -> 7,372 ->
+   6,553 at 256 frames) and each attention layer's kv_len (8,192 for layer
+   7, 6,553 for 18, 29, 40); the first logits (cosine 0.99) and the attn
+   stage's keep set (at least 99% overlap) against a run with every plain
+   version; K1 and K2 against their plain versions on the path's own inputs
+   at each row count (8,192, 7,372, 6,553; 2,048, 1,843, 1,638 at 64
+   frames); the 256-frame prefill with and without pdrop in turns; (b) the
+   1,016-frame prefix of phase 5 through prefill_prefix(use_pdrop=True) and
+   its 40-token question, and nano_forward_longctx with the stages against
+   one pdrop nano_forward of the same 16,304 rows (cosine 0.999); (c)
+   ServingEngine(pdrop_frames=64), 8 slots: a text-only request and 8 of 64
+   frames, each request's tokens those of the offline Generator or, where
+   they part, within MISS_GAP_LIMIT of an f32 teacher-forcing pdrop
+   forward's argmax; (d) K9 on the TransV calls the paths made (32 suffix
+   rows x 820 / 819 dropped tokens at prefill, 1 x 820 / 819 per decode
+   step, B 8 in the engine) against its plain version and SDPA.
 6. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
@@ -102,6 +126,11 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    tokens of 16 frames are compared across fused, unfused, plain versions and
    the bf16 model. Encode, prefill and decode times of both configurations
    are printed, then the text and 256-frame requests run off, on, on, off.
+   Then the JAX package's pdrop serving mix (bench_all.py:348-410) on this
+   W8A8 model with the fusions on: the merge modules quantized and
+   calibrated on one pdrop prefill, 8 requests x 64 frames, 16 new tokens,
+   through ServingEngine(pdrop_frames=64), run twice; output tokens/s; K5,
+   K7, K8 and K9 launched.
 8. InternVideo2 serving: the int8 model is freed; internvideo2-1b-16-224px +
    tome_mlp-16 + nano-9b-v2 (39 blocks of width 1408, clips of 4 frames merged
    jointly to 64 tokens) with random bf16 weights from the seed, the three
@@ -132,6 +161,8 @@ the device's busy share).
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import gc
 import hashlib
 import json
@@ -152,16 +183,23 @@ from timeviper_tpu_torch.bench import device_ms, microbench_flash, microbench_vi
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
+from timeviper_tpu_torch.models import longctx as longctx_mod  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
+from timeviper_tpu_torch.models import pdrop as pdrop_mod  # noqa: E402
 from timeviper_tpu_torch.models import prefix_cache as pc_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
 from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
 from timeviper_tpu_torch.models.longctx import nano_forward_longctx  # noqa: E402
 from timeviper_tpu_torch.models.nano import NanoModel, nano_forward  # noqa: E402
+from timeviper_tpu_torch.models.pdrop import (  # noqa: E402
+    init_merge_modules,
+    make_pdrop_spec,
+)
 from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noqa: E402
 from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params, vlm_forward  # noqa: E402
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
+from timeviper_tpu_torch.ops import attention as attn_mod  # noqa: E402
 from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
     BLOCK_ROWS,
     block_attn_lse,
@@ -232,6 +270,12 @@ MAX_NEW = 16
 # missed only at near-ties, with gaps of at most 4.9e-2 (NVIDIA H100 80GB
 # HBM3, 700 W); a slot that attends over the wrong keys misses by more.
 MISS_GAP_LIMIT = 0.1
+# pdrop / TransV on the 9B as the JAX package benchmarks it (bench_all.py:377):
+# uniform keep of 80% before layer 14, then 60% of the original visual
+# tokens ranked by layer 18's attention; TransV gated at tanh(alpha) = 0.5
+# (alpha starts at 0, where a broken cross-attention would pass every check)
+PDROP = dict(use_pdrop=True, pdrop_type="uni_14_0.8-attn_18_0.6", merge_module="CrossAttention")
+PDROP_ALPHA = math.atanh(0.5)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -298,12 +342,13 @@ ROUTES = {"ssd_fwd": (nano_mod, "ssd_scan"), "flash_fwd": (nano_mod, "flash_atte
           "vit_attn_qkv": (vit_mod, "encoder_attention_qkv"),
           "ssd_conv_fwd": (nano_mod, "ssd_conv_scan_fused"),
           "decode_fused": (nano_mod, "fused_mamba_decode"), "layernorm": (vit_mod, "fused_ln"),
-          "vit_attn": (iv2_mod, "encoder_attention")}
+          "vit_attn": (iv2_mod, "encoder_attention"),
+          "block_attn": (attn_mod, "block_attn_lse")}  # K9 as TransV's cross_attention
 CALLS = {name: getattr(mod, attr) for name, (mod, attr) in ROUTES.items()}
 PLAIN = {"ssd_fwd": ssd_chunked, "flash_fwd": flash_attention_plain,
          "vit_attn_qkv": vit_attention_qkv_plain, "ssd_conv_fwd": ssd_conv_scan_fused_plain,
          "decode_fused": fused_mamba_decode_plain, "layernorm": fused_ln_plain,
-         "vit_attn": vit_attention_plain}
+         "vit_attn": vit_attention_plain, "block_attn": block_attn_lse_plain}
 
 
 def log(msg: str) -> None:
@@ -970,6 +1015,17 @@ def phase_microbench(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def clone_arg(v):
+    """A copy of a kernel's argument with the same strides (K6's v and K1's x
+    are strided slices)."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    if v.is_contiguous() or 0 in v.stride():
+        return v.detach().clone()
+    return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                               device=v.device).copy_(v.detach())
+
+
 class Capture:
     """Records the first call's inputs of a wrapper while `armed`, and the
     cotangent that reaches that call's (first) output in the backward."""
@@ -980,16 +1036,8 @@ class Capture:
     def __call__(self, *args, **kwargs):
         first = self.armed and self.args is None
         if first:
-            def clone(v):  # a copy with the same strides (K6's v is a strided slice)
-                if not isinstance(v, torch.Tensor):
-                    return v
-                if v.is_contiguous() or 0 in v.stride():
-                    return v.detach().clone()
-                return torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
-                                           device=v.device).copy_(v.detach())
-
-            self.args = tuple(clone(a) for a in args)
-            self.kwargs = {k: clone(v) for k, v in kwargs.items()}
+            self.args = tuple(clone_arg(a) for a in args)
+            self.kwargs = {k: clone_arg(v) for k, v in kwargs.items()}
         out = self.fn(*args, **kwargs)
         head = out[0] if isinstance(out, tuple) else out
         if first and head.requires_grad:
@@ -1486,6 +1534,464 @@ def phase_engine(model, arch, smi: str, kernel_results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def pdrop_arch(arch):
+    """The same model with the JAX package's pdrop setting (PDROP)."""
+    return dataclasses.replace(arch, llm=dataclasses.replace(arch.llm, **PDROP))
+
+
+def attach_merge_modules(model, arch_p) -> None:
+    """Give the model TransV modules for arch_p's stages in its dtype, from a
+    generator of their own (the other weights stay as the seed made them),
+    alpha set so that tanh(alpha) = 0.5."""
+    mods = init_merge_modules(arch_p.llm, model.llm_backbone.embeddings.weight.dtype, DEV)
+    mods.reset_parameters(torch.Generator(device=DEV).manual_seed(SEED + 8))
+    with torch.no_grad():
+        for mm in mods.values():
+            mm.alpha.fill_(PDROP_ALPHA)
+    model.merge_modules = mods
+
+
+@torch.no_grad()
+def temper_transv(model, gen, ids, px) -> list:
+    """Rescale each stage's TransV q_proj so that its cross-attention logits
+    have standard deviation 1 on this request's pdrop prefill, stage by
+    stage (each rescale changes what the next stage sees). The 9B's raw
+    hidden state has an RMS of tens by layer 14, so N(0, 0.02) q and k
+    projections give logits of thousands: a one-hot softmax whose winner a
+    bf16 rounding upstream can flip, and with it the suffix rows. Returns
+    the factors."""
+    factors = []
+    for si in range(len(model.merge_modules)):
+        seen = []
+
+        def record(q, k, v, *args):
+            seen.append((q, k))
+            return cross(q, k, v, *args)
+
+        cross, pdrop_mod.cross_attention = pdrop_mod.cross_attention, record
+        try:
+            pdrop_prefill(gen, ids, px)
+        finally:
+            pdrop_mod.cross_attention = cross
+        q, k = seen[si]
+        B, Lq, Hq, hd = q.shape
+        Hkv = k.shape[2]
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", q.reshape(B, Lq, Hkv, Hq // Hkv, hd).float(),
+                              k.float()) / math.sqrt(hd)
+        factor = 1.0 / logits.std().item()
+        model.merge_modules.stage(si).cross_attn.q_proj.weight.mul_(factor)
+        factors.append(factor)
+    return factors
+
+
+class StageLog:
+    """Records, while installed, each pdrop stage's row count before and
+    after it and the keep indices each "attn" stage ranks; with `replay`
+    (the keep indices of another run, in stage order) those stages keep
+    these instead of their own."""
+
+    def __init__(self, replay=None):
+        self.lengths, self.keeps, self.replay = [], [], list(replay or ())
+        self._stage, self._keep = pdrop_mod.apply_pdrop_stage, pdrop_mod._keep_indices
+
+    def __enter__(self):
+        def stage(hidden, *args, **kw):
+            out = self._stage(hidden, *args, **kw)
+            self.lengths.append((hidden.shape[1], out[0].shape[1]))
+            return out
+
+        def keep(st, *args, **kw):
+            idx = self._keep(st, *args, **kw)
+            if st.compress_type == "attn":
+                self.keeps.append(idx.cpu())
+                if self.replay:
+                    idx = self.replay.pop(0).to(idx.device)
+            return idx
+
+        nano_mod.apply_pdrop_stage = longctx_mod.apply_pdrop_stage = stage
+        pdrop_mod._keep_indices = keep
+        return self
+
+    def __exit__(self, *exc):
+        nano_mod.apply_pdrop_stage = longctx_mod.apply_pdrop_stage = self._stage
+        pdrop_mod._keep_indices = self._keep
+
+
+def plan_visual(gen, ids) -> int:
+    return gen._plan_prompt(ids, IMAGE_TOKEN)[0].num_visual
+
+
+def kv_lens(cache, cfg) -> dict:
+    return {i: cache["layers"][i]["kv_len"] for i in cfg.attention_layer_indices}
+
+
+@torch.inference_mode()
+def pdrop_prefill(gen, ids, pixels, replay=None, visual=None):
+    """The Generator's bucketed pdrop prefill of one request: (first logits,
+    cache, bucket, StageLog); `replay` as StageLog takes it; `visual` the
+    encoded frames, if given."""
+    if visual is None:
+        visual = gen.encode_frames(pixels)
+    plan, bucket, pad, ids_arr, gather_idx, seq_idx = gen._plan_prompt(ids, IMAGE_TOKEN)
+    with StageLog(replay) as stages:
+        logits, cache = gen.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
+                                    bucket + MAX_NEW, gen._pdrop_start(plan, pad, True))
+    return logits, cache, bucket, stages
+
+
+@torch.inference_mode()
+def forced_logits_pdrop(llm, merge, arch_p, gen, ids, visual, tokens) -> torch.Tensor:
+    """The f32 logits (n, V) of one pdrop nano_forward over the request's
+    bucketed, fused prompt row (its left pad kept) followed by its outputs
+    but the last: the rows that predict the n outputs, with the prompt's last
+    row as the ranking query, as the Generator's prefill and decode take it."""
+    plan, bucket, pad, ids_arr, gather_idx, seq_idx = gen._plan_prompt(ids, IMAGE_TOKEN)
+    text = llm.embeddings(torch.as_tensor(ids_arr, dtype=torch.long, device=DEV))
+    src = torch.cat([text, visual.to(text.dtype)])
+    fused = src[torch.as_tensor(gather_idx, dtype=torch.long, device=DEV)]
+    out = llm.embeddings(torch.as_tensor(tokens[:-1], dtype=torch.long, device=DEV))
+    row = torch.cat([fused, out])[None]
+    seq = torch.cat([torch.as_tensor(seq_idx, dtype=torch.int32, device=DEV),
+                     torch.zeros(len(tokens) - 1, dtype=torch.int32, device=DEV)])[None]
+    vs, nv, _ = plan.sample_layouts[0]
+    spec = make_pdrop_spec([(pad + vs, nv, row.shape[1] - pad - vs - nv)],
+                           arch_p.llm.pdrop_stages, [bucket - 1])
+    return nano_forward(llm, arch_p.llm, inputs_embeds=row, seq_idx=seq, pdrop_spec=spec,
+                        pdrop_params=merge, logits_to_keep=len(tokens))["logits"][0]
+
+
+def transv_witness(model, arch_p, gen, ids, px, tag: str, min_cos=None) -> dict:
+    """How far rounding alone moves the pdrop first logits of one request at
+    the merge modules' present weights. One keep set for every run (the
+    kernel run's), so that only the arithmetic differs: the kernels in bf16,
+    the plain versions in bf16, the plain versions in bf16 with every visual
+    feature moved up by one ulp, and the plain versions on an f32 copy of the
+    backbone and merge modules (the same bf16 visual features). Returns the
+    cosines of the pairs; where the bf16 runs part from the f32 run as far as
+    from each other, the gap is the conditioning of the weights, not a fault
+    of a kernel. With `min_cos`, the kernel run must reach it against the f32
+    run."""
+    with torch.inference_mode():
+        visual = gen.encode_frames(px)
+        if visual.dtype != torch.bfloat16:
+            raise AssertionError(f"visual features in {visual.dtype}, not bf16")
+        nudged = (visual.view(torch.int16) + 1).view(torch.bfloat16)  # one ulp up in magnitude
+    kern, _, _, stages = pdrop_prefill(gen, ids, px, visual=visual)
+    use_plain_versions()
+    try:
+        plain, _, _, _ = pdrop_prefill(gen, ids, px, replay=stages.keeps, visual=visual)
+        moved, _, _, _ = pdrop_prefill(gen, ids, px, replay=stages.keeps, visual=nudged)
+        llm32 = NanoModel(arch_p.llm, torch.float32, DEV)
+        llm32.load_state_dict(model.llm_backbone.state_dict())
+        merge32 = copy.deepcopy(model.merge_modules).float()
+        first = int(kern.float().argmax())
+        with StageLog(replay=stages.keeps):
+            f32 = forced_logits_pdrop(llm32, merge32, arch_p, gen, ids, visual, [first])[-1]
+    finally:
+        use_kernels()
+    del llm32, merge32
+    torch.cuda.empty_cache()
+    cos = {"kernels vs f32": cosine(kern, f32), "plain vs f32": cosine(plain, f32),
+           "kernels vs plain": cosine(kern, plain), "plain vs plain one ulp up": cosine(plain, moved),
+           "plain one ulp up vs f32": cosine(moved, f32)}
+    log(f"[pdrop witness] {tag}, one keep set, first-logit cosines: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    if min_cos is not None and not cos["kernels vs f32"] > min_cos:
+        raise AssertionError(f"pdrop witness {tag}: the kernels' first logits part from the f32 "
+                             "run's")
+    return cos
+
+
+class CallLog:
+    """Wraps a kernel wrapper: keeps the inputs (args, kwargs) of the first
+    call at each key(*args) while armed."""
+
+    def __init__(self, fn, key):
+        self.fn, self.key, self.armed, self.calls = fn, key, True, {}
+
+    def __call__(self, *args, **kw):
+        key = self.key(*args)
+        if self.armed and key not in self.calls:
+            self.calls[key] = (tuple(clone_arg(a) for a in args),
+                               {k: clone_arg(v) for k, v in kw.items()})
+        return self.fn(*args, **kw)
+
+
+def by_length(x, *args):
+    """CallLog's key for K1 and K2: the row count of their first argument."""
+    return x.shape[1]
+
+
+def by_transv_shape(q, k, *args):
+    """CallLog's key for K9: (Lq, Lk, B)."""
+    return q.shape[1], k.shape[1], q.shape[0]
+
+
+@torch.no_grad()
+def compare_logged(name: str, calls: dict, tag: str, kernel_results: dict) -> None:
+    """A kernel against its plain version on each call CallLog kept."""
+    for key, (args, kw) in sorted(calls.items()):
+        err = compare(name, CALLS[name](*args, **kw), PLAIN[name](*args, **kw))
+        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        log(f"[{tag}] {name} at {key} on the path's own inputs {shapes}: max abs err {err:.3e}")
+        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"], err)
+
+
+def phase_pdrop(model, arch, smi: str, kernel_results: dict) -> None:
+    """5c: pdrop and TransV on the bf16 9B (PDROP; the merge modules from a
+    generator of their own, q_proj tempered by temper_transv, transv_witness
+    before and after; the tempered kernel run within a cosine of 0.99 of the
+    f32 run): (a) the 64-
+    and 256-frame requests through
+    generate(use_pdrop=True), K1, K2, K3 and K9 launched, the rows after each
+    stage and each attention layer's kv_len, the first logits (cosine 0.99)
+    and the attn keep set (99% overlap) against a run of the plain
+    versions, K1 and K2 against their plain versions on the first call at
+    each row count the stages give, the pdrop prefill's seconds beside the
+    plain prefill's; (b)
+    prefill_prefix(use_pdrop=True) of the long-video phase's 1,016-frame
+    prefix and its 40-token question, and nano_forward_longctx with the
+    stages against one pdrop prefill of the same row (cosine 0.999); (c)
+    ServingEngine(pdrop_frames=64): a text-only request and 8 of 64 frames
+    through 8 slots, each request's tokens those of the offline Generator,
+    or where they part within MISS_GAP_LIMIT of the argmax of an f32
+    teacher-forcing pdrop forward; (d) K9 on the TransV calls the paths made
+    (prefill 32 x 820 / 819, decode 1 x 820 / 819, the engine's B 8)
+    against its plain version and SDPA."""
+    arch_p = pdrop_arch(arch)
+    cfg = arch_p.llm
+    attach_merge_modules(model, arch_p)
+    for var in FUSIONS:
+        os.environ[var] = "0"
+    gen = Generator(model, arch_p, terminator_ids=[], max_new_tokens=MAX_NEW)
+    requests = make_requests(arch)[1:]
+    transv_witness(model, arch_p, gen, *requests[0][1], "64 frames, weights as drawn")
+    factors = temper_transv(model, gen, *requests[0][1])
+    log(f"[pdrop] TransV q_proj rescaled by {', '.join(f'{f:.3e}' for f in factors)} (stage "
+        "order): cross-attention logits of standard deviation 1 on the 64-frame request")
+    transv_witness(model, arch_p, gen, *requests[0][1], "64 frames, q_proj tempered", 0.99)
+    calls = CallLog(block_attn_lse, by_transv_shape)
+    attn_mod.block_attn_lse = calls
+    try:
+        # (a) the Generator; K1 and K2 logged at each length the stages give
+        path = {name: CallLog(CALLS[name], by_length) for name in ("ssd_fwd", "flash_fwd")}
+        for name, logged in path.items():
+            setattr(*ROUTES[name], logged)
+        reset_launches()
+        for label, (ids, px) in requests:
+            o = gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN, use_pdrop=True)
+            if not torch.isfinite(o.first_logits).all():
+                raise AssertionError(f"pdrop {label}: non-finite first-token logits")
+            log(f"[pdrop] {label}: encode {o.encode_s:.3f} s, pdrop prefill {o.prefill_s:.3f} s, "
+                f"decode {(o.num_generated - 1) / o.decode_s:.2f} tok/s, tokens "
+                f"{o.token_ids.tolist()}")
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        use_kernels()
+        attn_mod.block_attn_lse = calls
+        log(f"[pdrop] launches during the two pdrop requests: {launches}")
+        for name in ("ssd_fwd", "flash_fwd", "vit_attn_qkv", "block_attn"):
+            if launches[name] == 0:
+                raise AssertionError(f"pdrop: {name} was never launched")
+        calls.armed = False
+        for name, logged in path.items():
+            compare_logged(name, logged.calls, "pdrop", kernel_results)
+        del path
+        torch.cuda.empty_cache()
+        for label, (ids, px) in requests:
+            logits, cache, bucket, stages = pdrop_prefill(gen, ids, px)
+            lens = kv_lens(cache, cfg)
+            log(f"[pdrop] {label}: bucket {bucket}, rows "
+                + " -> ".join(str(n) for n in [stages.lengths[0][0]]
+                              + [after for _, after in stages.lengths])
+                + f"; kv_len by attention layer {lens}; cache length {cache['length']}; "
+                f"TransV rows by stage {[c['k'].shape[0] for c in cache['ca_kv']]}")
+            del cache
+            # the plain versions rank on their own (the overlap) and then keep
+            # the kernel run's set (the first logits); a second plain run keeps
+            # its own set, and the kernel run is repeated with that set
+            use_plain_versions()
+            try:
+                ref, _, _, ref_stages = pdrop_prefill(gen, ids, px, replay=stages.keeps)
+                free, _, _, _ = pdrop_prefill(gen, ids, px)
+            finally:
+                use_kernels()
+            swapped, _, _, _ = pdrop_prefill(gen, ids, px, replay=ref_stages.keeps)
+            keep, ref_keep = stages.keeps[0], ref_stages.keeps[0]
+            overlap = len(set(keep.tolist()) & set(ref_keep.tolist())) / len(ref_keep)
+            log(f"[pdrop] {label}: attn keep set, kernels vs plain versions: {overlap:.2%} of "
+                f"{len(ref_keep)} overlap; first logits cosine, each run with its own keep set "
+                f"{cosine(logits, free):.6f}, the kernels with the plain versions' set vs the "
+                f"kernels with their own {cosine(swapped, logits):.6f}, vs the plain versions "
+                f"{cosine(swapped, free):.6f}")
+            logits_agree(f"pdrop {label}, kernels vs plain versions, one keep set", logits, ref)
+            if overlap < 0.99:
+                raise AssertionError(f"pdrop {label}: keep sets overlap {overlap:.2%}")
+            # each stage drops what pdrop_drop_counts says (820 and 819 at 256
+            # frames: 8,192 -> 7,372 -> 6,553), and an attention layer keeps
+            # the rows it saw
+            rows = [bucket]
+            for drop in pdrop_mod.pdrop_drop_counts(cfg, plan_visual(gen, ids)):
+                rows.append(rows[-1] - drop)
+            want = {i: rows[sum(st.layer <= i for st in cfg.pdrop_stages)] for i in lens}
+            if stages.lengths != list(zip(rows, rows[1:])) or lens != want:
+                raise AssertionError(f"pdrop rows {stages.lengths}, kv_len {lens}; want {rows}, "
+                                     f"{want}")
+        ids, px = requests[1][1]
+        times = []
+        for use in (True, False, True, False):
+            o = gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN, use_pdrop=use)
+            times.append((use, o.prefill_s))
+        log("[pdrop] 256 frames, prefill seconds in turns: " + ", ".join(
+            f"{'pdrop' if use else 'plain'} {sec:.4f}" for use, sec in times) + f"; {smi}")
+
+        # (b) long video: the 1,016-frame prefix of phase 5, from its generator
+        g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+        size = arch.vision.image_size
+        frames = torch.rand(1024, size, size, 3, generator=g, device=DEV)[:1016] * 2 - 1
+        text = torch.randint(10, 130000, (8 + 12 + 40 + 300,), generator=g, device=DEV).tolist()
+        prefix_ids, question = text[:8] + [IMAGE_TOKEN] * 1016, text[20:60]
+        t0 = time.perf_counter()
+        state = gen.prefill_prefix(prefix_ids, pixels=frames, image_token_id=IMAGE_TOKEN,
+                                   suffix_budget=512, use_pdrop=True)
+        torch.cuda.synchronize()
+        log(f"[pdrop long video] prefill_prefix(use_pdrop=True): bucket {state.bucket}, cache "
+            f"length {state.cache['length']}, kv_len {kv_lens(state.cache, cfg)}, "
+            f"{time.perf_counter() - t0:.3f} s with the encode")
+        before = block_attn_lse.launches
+        o = gen.generate(question, prefix=state)
+        if not torch.isfinite(o.first_logits).all():
+            raise AssertionError("pdrop long video: non-finite logits")
+        log(f"[pdrop long video] 40-token question: continuation {o.prefill_s:.3f} s, K9 "
+            f"launches {block_attn_lse.launches - before}, tokens {o.token_ids.tolist()}")
+        del state
+        llm = model.llm_backbone
+        with torch.inference_mode():
+            visual = gen.encode_frames(frames)
+            emb = lambda x: llm.embeddings(torch.as_tensor(x, device=DEV))  # noqa: E731
+            row = torch.cat([emb(text[:8]), visual, emb(question)])[None]
+            nv, L = visual.shape[0], row.shape[1]
+            spec = make_pdrop_spec([(8, nv, len(question))], cfg.pdrop_stages, [L - 1])
+            t0 = time.perf_counter()
+            one = nano_forward(llm, cfg, inputs_embeds=row, logits_to_keep=1, pdrop_spec=spec,
+                               pdrop_params=model.merge_modules)["logits"][:, -1]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with StageLog() as stages:
+                long = nano_forward_longctx(llm, cfg, row, chunk_tokens=4096, pdrop_spec=spec,
+                                            pdrop_params=model.merge_modules)["logits"][:, -1]
+            torch.cuda.synchronize()
+        log(f"[pdrop long video] {L} rows -> "
+            + " -> ".join(str(after) for _, after in stages.lengths)
+            + f": one-shot pdrop prefill {t1 - t0:.3f} s, longctx (chunks of 4,096) "
+            f"{time.perf_counter() - t1:.3f} s")
+        logits_agree("pdrop long video, longctx vs one-shot", long, one, 0.999)
+        del frames, visual, row, one, long
+        torch.cuda.empty_cache()
+
+        # (c) the engine: a text-only request, then 8 of 64 frames
+        g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+        mix = [dict(input_ids=torch.randint(10, 130000, (100,), generator=g,
+                                            device=DEV).tolist(), max_new_tokens=MAX_NEW)]
+        for _ in range(8):
+            ids = torch.randint(10, 130000, (40,), generator=g, device=DEV).tolist()
+            mix.append(dict(input_ids=ids[:8] + [IMAGE_TOKEN] * 64 + ids[8:],
+                            pixels=torch.rand(64, size, size, 3, generator=g, device=DEV) * 2 - 1,
+                            image_token_id=IMAGE_TOKEN, max_new_tokens=MAX_NEW))
+        eng = ServingEngine(model, arch_p, terminator_ids=[], num_slots=8, max_len=4096,
+                            steps_per_sync=4, pdrop_frames=64)
+        reset_launches()
+        attn_mod.block_attn_lse, calls.armed = calls, True  # the plain runs routed past it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run([Request(request_id=i, **kw) for i, kw in enumerate(mix)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls.armed = False
+        n_tok = sum(len(r.output_ids) for r in out)
+        log(f"[pdrop engine] {len(out)} requests, {n_tok} output tokens in {wall:.3f} s, "
+            f"{n_tok / wall:.2f} output tokens/s; launches "
+            f"{ {name: w.launches for name, w in WRAPPERS.items()} }; {smi}")
+        bad = [(r.request_id, r.error) for r in out if r.error or not r.done]
+        if bad:
+            raise AssertionError(f"pdrop engine requests failed: {bad}")
+        del eng
+        check_pdrop_engine(model, arch_p, mix, out)
+    finally:
+        attn_mod.block_attn_lse = block_attn_lse
+    # the long-video phase's count, and the two pdrop requests' of (a)
+    kernel_results["block_attn"]["launches"] += launches["block_attn"]
+    time_transv_calls(calls.calls, kernel_results)
+    model.merge_modules = None
+    torch.cuda.empty_cache()
+
+
+def time_transv_calls(calls: dict, kernel_results: dict) -> None:
+    """(d) K9 on the TransV calls the paths made, {(Lq, Lk, B): inputs}."""
+    with torch.no_grad():
+        for (Lq, Lk, B), ((q, k, v), kw) in sorted(calls.items()):
+            err = compare("block_attn", block_attn_lse(q, k, v, **kw),
+                          block_attn_lse_plain(q, k, v, **kw))
+            ms = timed_ms(lambda: block_attn_lse(q, k, v, **kw))
+            plain_ms = timed_ms(lambda: block_attn_lse_plain(q, k, v, **kw), iters=3)
+            lib_in = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+            lib_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                *lib_in, enable_gqa=True))
+            Hq, Hkv, hd = q.shape[2], k.shape[2], q.shape[3]
+            bound_ms, bound_by = bound(4 * B * Hq * hd * Lq * Lk,
+                                       nbytes(q, k, v, q) + 8 * B * Hq * Lq)
+            pack, n_split, _ = block_attn_plan(B, Lq, Lk, Hq, Hkv)
+            log(f"[pdrop] block_attn [TransV {Lq} x {Lk}, B {B}]: max abs err {err:.3e}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (SDPA), bound "
+                f"{bound_ms:.4f} ms ({bound_by}); {n_split} key split(s), {pack} heads a block")
+            kernel_results["block_attn"]["max_abs_err"] = max(
+                kernel_results["block_attn"]["max_abs_err"], err)
+
+
+def check_pdrop_engine(model, arch_p, mix, out) -> None:
+    """Each engine request's tokens against the offline Generator's (pdrop
+    for the video requests); where they part, every engine token from there
+    that is not the argmax of an f32 teacher-forcing pdrop forward (an f32
+    copy of the backbone and the merge modules, plain versions) must lie
+    within MISS_GAP_LIMIT of it."""
+    llm32 = merge32 = None
+    same = 0
+    for i, (kw, r) in enumerate(zip(mix, out)):
+        gen = Generator(model, arch_p, terminator_ids=[], max_new_tokens=len(r.output_ids))
+        px = kw.get("pixels")
+        ref = gen.generate(kw["input_ids"], pixels=px, image_token_id=IMAGE_TOKEN,
+                           use_pdrop=px is not None).token_ids.tolist()
+        first = next((j for j, (a, b) in enumerate(zip(r.output_ids, ref)) if a != b), None)
+        if first is None:
+            same += 1
+            continue
+        if px is None:
+            raise AssertionError(f"pdrop engine: the text-only request's tokens {r.output_ids} "
+                                 f"are not generate()'s {ref}")
+        if llm32 is None:
+            llm32 = NanoModel(arch_p.llm, torch.float32, DEV)
+            llm32.load_state_dict(model.llm_backbone.state_dict())
+            merge32 = copy.deepcopy(model.merge_modules).float()
+        with torch.inference_mode():
+            visual = gen.encode_frames(px)
+        use_plain_versions()
+        try:
+            rows = forced_logits_pdrop(llm32, merge32, arch_p, gen, kw["input_ids"], visual,
+                                       r.output_ids)
+        finally:
+            use_kernels()
+        gaps = [(rows[j].max() - rows[j, tok]).item() for j, tok in enumerate(r.output_ids)]
+        worst = max(gaps[first:])
+        log(f"[pdrop engine] request {i}: tokens part from the offline Generator's at {first} "
+            f"({r.output_ids} vs {ref}); largest gap below the f32 argmax from there "
+            f"{worst:.3e} (limit {MISS_GAP_LIMIT})")
+        if worst > MISS_GAP_LIMIT:
+            raise AssertionError(f"pdrop engine request {i}: a token {worst:.3e} below the f32 "
+                                 "argmax")
+    log(f"[pdrop engine] {same} of {len(out)} requests give the offline Generator's tokens")
+    del llm32, merge32
+    torch.cuda.empty_cache()
+
+
 def training_row(arch, n_frames: int, g: torch.Generator):
     """One row, collated as a user's data would be: 8 text tokens, the frames,
     32 text tokens, with labels on those last 32."""
@@ -1634,7 +2140,8 @@ def set_fusions(on: bool) -> None:
         os.environ[var] = "1" if on else "0"
 
 
-def phase_int8_serving(arch, kernel_results: dict, bf16: dict, profile: bool = False) -> None:
+def phase_int8_serving(arch, smi: str, kernel_results: dict, bf16: dict,
+                       profile: bool = False) -> None:
     t0 = time.perf_counter()
     model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
                             dtype=torch.bfloat16)
@@ -1716,6 +2223,7 @@ def phase_int8_serving(arch, kernel_results: dict, bf16: dict, profile: bool = F
         log(f"[int8] {label}: first-token logits, int8 unfused vs the bf16 model: cosine "
             f"{cosine(off[label].first_logits, bf16['logits'][label]):.6f}")
     ab_rounds(gen, requests)
+    int8_pdrop_mix(model, arch, smi, kernel_results)
     if profile:
         ids, px = requests[2][1]
         for on in (False, True):
@@ -1725,6 +2233,67 @@ def phase_int8_serving(arch, kernel_results: dict, bf16: dict, profile: bool = F
                              lambda: gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN))
             finally:
                 set_fusions(False)
+
+
+def int8_pdrop_mix(model, arch, smi: str, kernel_results: dict) -> None:
+    """The JAX package's pdrop serving mix (bench_all.py:348-410) on the W8A8
+    model with the fusions on: the merge modules attached (PDROP), quantized
+    and calibrated on one request's pdrop prefill; 8 requests of 4 text
+    tokens, 64 frames and 20 text tokens, 16 new tokens each, through
+    ServingEngine(pdrop_frames=64) with 8 slots, twice (the second run is
+    the one to read). Every request served; K5, K7, K8 and K9 launched."""
+    arch_p = pdrop_arch(arch)
+    attach_merge_modules(model, arch_p)
+    quantize_params_int8(model.merge_modules)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    size = arch.vision.image_size
+
+    def mix(base):
+        out = []
+        for i in range(8):
+            text = torch.randint(3, 2000, (24,), generator=g, device=DEV).tolist()
+            out.append(Request(request_id=base + i,
+                               input_ids=text[:4] + [IMAGE_TOKEN] * 64 + text[4:],
+                               pixels=torch.rand(64, size, size, 3, generator=g,
+                                                 device=DEV) * 2 - 1,
+                               image_token_id=IMAGE_TOKEN, max_new_tokens=MAX_NEW))
+        return out
+
+    gen = Generator(model, arch_p, terminator_ids=[], max_new_tokens=MAX_NEW)
+    first = mix(100)[0]
+    calibrate_act_scales(lambda m, r: pdrop_prefill(gen, r.input_ids, r.pixels),
+                         model.merge_modules, [first])
+    n_cal = sum(isinstance(m, Int8Linear) and m.act_inv is not None
+                for m in model.merge_modules.modules())
+    set_fusions(True)
+    try:
+        for run in ("first", "second"):
+            eng = ServingEngine(model, arch_p, terminator_ids=[], num_slots=8, max_len=4096,
+                                steps_per_sync=4, pdrop_frames=64)
+            reqs = mix(0 if run == "second" else 1000)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: w.launches for name, w in WRAPPERS.items()}
+            bad = [(r.request_id, r.error) for r in out if r.error or not r.done]
+            if bad:
+                raise AssertionError(f"int8 pdrop mix: requests failed {bad}")
+            n_tok = sum(len(r.output_ids) for r in out)
+            log(f"[int8 pdrop] {run} run, W8A8 with the fusions on ({n_cal} TransV linears "
+                f"calibrated): {len(out)} requests x 64 frames, {n_tok} output tokens in "
+                f"{wall:.3f} s, {n_tok / wall:.2f} output tokens/s, {len(out) / wall:.3f} "
+                f"requests/s; launches {launches}; {smi}")
+            for name in ("ssd_conv_fwd", "decode_fused", "layernorm", "block_attn"):
+                if launches[name] == 0:
+                    raise AssertionError(f"int8 pdrop mix: {name} was never launched")
+            del eng
+    finally:
+        set_fusions(False)
+    model.merge_modules = None
+    torch.cuda.empty_cache()
 
 
 @torch.no_grad()
@@ -1867,11 +2436,12 @@ def main() -> int:
     bf16 = phase_serving(model, arch, results, profile=args.profile)
     phase_long_video(model, arch, results)
     phase_engine(model, arch, smi, results)
+    phase_pdrop(model, arch, smi, results)
     phase_training(model, arch, results, profile=args.profile)
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()
     torch.cuda.empty_cache()
-    phase_int8_serving(arch, results, bf16, profile=args.profile)
+    phase_int8_serving(arch, smi, results, bf16, profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
     iv2 = phase_tower_serving("internvideo2-1b-16-224px", 3, "iv2", results, int8=True)

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's JAX-free modules equal the
 originals: timeviper_tpu_torch/config.py (every registry entry the port
-builds, field for field) and timeviper_tpu_torch/data/fusion.py (plans and
-fused labels on several layouts). The port imports neither original."""
+builds, field for field, and the pdrop micro-DSL) and
+timeviper_tpu_torch/data/fusion.py (plans and fused labels on several
+layouts). The port imports neither original."""
 
 from dataclasses import asdict
 
@@ -50,6 +51,21 @@ def test_unported_ids_keep_their_family_and_tiny_configs_match():
             b.num_compressed_tokens, b.projector_type)
     with pytest.raises(ValueError):
         tcfg.get_llm_backbone_config("no-such-model")
+
+
+@pytest.mark.parametrize("pdrop_type", ["uni_14_0.8-attn_18_0.6", "uni_1_0.5",
+                                        "attn_7_0.25-uni_40_0.9"])
+def test_pdrop_dsl_matches(pdrop_type):
+    """parse_pdrop_type, PdropStage and NanoConfig.pdrop_stages, copied from
+    timeviper_tpu/config.py:18-45, :131-134, on the 9B (its attention layers
+    are 7, 18, 29, 40)."""
+    got, want = tcfg.parse_pdrop_type(pdrop_type), jcfg.parse_pdrop_type(pdrop_type)
+    assert [asdict(s) for s in got] == [asdict(s) for s in want]
+    kw = dict(use_pdrop=True, pdrop_type=pdrop_type, merge_module="CrossAttention")
+    g, w = tcfg.NanoConfig(**kw), jcfg.NanoConfig(**kw)
+    assert asdict(g) == asdict(w)
+    assert [asdict(s) for s in g.pdrop_stages] == [asdict(s) for s in w.pdrop_stages]
+    assert tcfg.NanoConfig(pdrop_type=pdrop_type).pdrop_stages == ()  # use_pdrop off
 
 
 IMG = 500

@@ -32,7 +32,7 @@ MODULES = [
     "timeviper_tpu_torch.serving.engine", "timeviper_tpu_torch.bench",
     "timeviper_tpu_torch.bench.microbench_vit_attn", "timeviper_tpu_torch.bench.microbench_flash",
     "timeviper_tpu_torch.bench.attention_ab", "timeviper_tpu_torch.bench.ssd_ab",
-    "timeviper_tpu_torch.bench.train_ab",
+    "timeviper_tpu_torch.bench.train_ab", "timeviper_tpu_torch.models.pdrop",
     "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent

@@ -22,6 +22,8 @@ K6 (csrc/vit_attn.cu) is held to the same 1e-2 as K3, with v read as a
 strided column slice of a fused qkv buffer.
 
 K9 (csrc/block_attn.cu) is held to 1e-2 of each output's largest magnitude
+(TransV's cross_attention runs it at the 9B's pdrop shapes, with an all-zero
+slot that must give exactly 0)
 (o, and the row sums l and maxima m of the scaled logits), in both modes, on
 k and v read as row ranges of a cache buffer, with an empty key block and
 with rows that see no key (l = 0, m = -inf, o = 0 on both sides); also where
@@ -51,6 +53,7 @@ import torch
 from torch_parity import packed_seq, require_cuda, rng, row_pads, t
 
 from timeviper_tpu_torch.ops import block_attention as block_attention_mod
+from timeviper_tpu_torch.ops.attention import attention, cross_attention
 from timeviper_tpu_torch.ops import flash_attention as flash_attention_mod
 from timeviper_tpu_torch.ops import headgrid_attention as headgrid_attention_mod
 from timeviper_tpu_torch.ops import vit_attention as vit_attention_mod
@@ -122,6 +125,11 @@ def _close(got, want, rel, floor=1.0):
     (1, 700, 16, 4, 512, (37, 450), True),   # chunks of 512
     (1, 1100, 16, 4, 1024, None, False),     # chunks of 1,024
     (2, 200, 16, 4, 128, (5, 70), True),     # chunks of two tiles, B 2
+    # the 256-frame pdrop prefill after its stages: the 4,056-row left pad,
+    # then one segment of 7,372 or 6,553 rows in all (no multiple of 256 or
+    # 128; 6,553 odd)
+    (1, 7372, 128, 8, 256, (4056, 7372), False),
+    (1, 6553, 128, 8, 256, (4056, 6553), False),
 ])
 def test_ssd_kernel_matches_plain(B, L, H, G, cs, packed, init):
     """K1 against ssd_chunked: y and the final state, a bitwise repeat, and
@@ -257,12 +265,14 @@ def test_block_attention_split_kernel_matches_plain(case):
 
 @pytest.mark.parametrize("L,packed", [(200, (13, 100)), (256, (64, 128)), (64, None),
                                       (1, None), (63, (5, 40)), (300, (13, 140)),
-                                      (300, (32, 128)), (203, "rows")])
+                                      (300, (32, 128)), (203, "rows"), (7372, (4056, 7372)),
+                                      (6553, (4056, 6553))])
 def test_flash_kernel_matches_plain(L, packed):
     """Ragged tail or not (L 1, 63, 203, 300: L % 4 != 0 too, so the key ids
     are padded); a -1 pad plus one boundary inside tiles, or on the 32-token
-    block and 128-key tile edges; B 3 with a pad of its own per row. A
-    repeat gives the same bits."""
+    block and 128-key tile edges; B 3 with a pad of its own per row; the
+    256-frame pdrop prefill's lengths after its stages (7,372 and 6,553
+    behind the 4,056-row pad). A repeat gives the same bits."""
     dev = require_cuda()
     r = rng(1)
     B, Hq, Hkv, D = (3 if packed == "rows" else 2), 8, 2, 128
@@ -276,6 +286,29 @@ def test_flash_kernel_matches_plain(L, packed):
     got = flash_attention(q, k, v, segment_ids=seg)
     _close(got, flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
     assert torch.equal(got, flash_attention(q, k, v, segment_ids=seg))
+
+
+@pytest.mark.parametrize("Lq,Lk,B", [(32, 820, 1), (32, 819, 8), (1, 819, 1), (1, 820, 8)])
+def test_transv_cross_attention_runs_the_block_kernel(Lq, Lk, B):
+    """TransV's cross_attention on the card is K9's non-causal mode: the 9B's
+    32 query and 8 KV heads, a prefill's 32 suffix rows or a decode step's 1
+    against the 820 / 819 tokens a stage drops (no multiple of 4: the key
+    ids are padded), B 1 or 8 slots with the last slot's K/V all zero, which
+    gives exactly 0. Against the plain `attention`, to 1e-2 of its largest
+    value (no floor: the outputs are averages of v). A repeat gives the same
+    bits."""
+    dev = require_cuda()
+    r = rng(17)
+    Hq, Hkv, D = 32, 8, 128
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    q, k, v = bf(B, Lq, Hq, D), bf(B, Lk, Hkv, D), bf(B, Lk, Hkv, D)
+    k[-1], v[-1] = 0, 0
+    before = block_attn_lse.launches
+    got = cross_attention(q, k, v)
+    assert block_attn_lse.launches == before + 1
+    _close(got, attention(q, k, v), 1e-2, floor=0.0)
+    assert (got[-1] == 0).all()
+    assert torch.equal(got, cross_attention(q, k, v))
 
 
 @pytest.mark.parametrize("L,packed", [(1, None), (203, "rows"), (300, (13, 140))])

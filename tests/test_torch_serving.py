@@ -19,7 +19,8 @@ Port-only checks: every served token of the text-only requests is the
 argmax of one nano_forward over prompt + output (teacher forcing), to 1e-4
 (f32 decode steps against one forward), and the first-token logits of a
 batched row equal Generator.generate's on the same prompt, to 1e-4; the
-options the port does not serve yet raise NotImplementedError.
+option the port does not serve yet (`mesh`) raises NotImplementedError, and
+`pdrop_frames` on a model without pdrop stages ValueError.
 """
 
 import functools
@@ -172,8 +173,12 @@ def test_engine_teacher_forcing_and_first_logits():
 
 @pytest.mark.parametrize("option", [dict(pdrop_frames=4), dict(mesh=object())])
 def test_unported_options_raise(option):
+    """`mesh` is not ported; `pdrop_frames` is (tests/test_torch_pdrop_generate.py)
+    and refuses a model without pdrop stages, as the JAX engine does."""
     arch, model, *_ = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    error, match = ((ValueError, "pdrop-configured") if "pdrop_frames" in option
+                    else (NotImplementedError, "ROADMAP Queue 1"))
+    with pytest.raises(error, match=match):
         ServingEngine(model, arch, terminator_ids=[2], cache_dtype=torch.float32,
                       num_slots=1, max_len=64, **option)
 

@@ -1,5 +1,5 @@
 """Configuration dataclasses and registries of the port (its own copy of what
-it uses from timeviper_tpu/config.py: NanoConfig, ViTConfig,
+it uses from timeviper_tpu/config.py: the pdrop micro-DSL, NanoConfig, ViTConfig,
 InternVideo2Config, VLMConfig, the tiny test configs and the registry entries
 of the ported families).
 
@@ -17,6 +17,32 @@ import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# pdrop micro-DSL
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PdropStage:
+    """One pdrop stage of the `type_layer_ratio` micro-DSL: e.g.
+    "uni_14_0.8-attn_18_0.6" keeps 80% of the visual tokens, chosen
+    uniformly, before layer 14, then 60% ranked by the last prompt token's
+    attention (that layer's q/k projections: an attention layer) before layer
+    18. Ratios count against the original visual tokens."""
+
+    compress_type: str  # "uni" | "attn"
+    layer: int
+    ratio: float
+
+
+def parse_pdrop_type(pdrop_type: str) -> Tuple[PdropStage, ...]:
+    stages = []
+    for part in pdrop_type.split("-"):
+        typ, layer, ratio = part.split("_")
+        stages.append(PdropStage(typ, int(layer), float(ratio)))
+    return tuple(stages)
+
 
 # ---------------------------------------------------------------------------
 # LLM backbone
@@ -61,10 +87,10 @@ class NanoConfig:
     use_conv_bias: bool = True
     mamba_proj_bias: bool = False
     chunk_size: int = 256
-    # compression (pdrop / TransV are not ported: the port raises on use_pdrop)
+    # compression: pdrop stages and the TransV merge (models/pdrop.py)
     use_pdrop: bool = False
     pdrop_type: Optional[str] = None
-    merge_module: str = "no_merge"
+    merge_module: str = "no_merge"  # "no_merge" | "CrossAttention"
     # misc
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
@@ -74,6 +100,13 @@ class NanoConfig:
             raise ValueError("hybrid_override_pattern must have one char per layer")
         if not re.match(r"^[*\-M]+$", self.hybrid_override_pattern):
             raise ValueError(f"bad hybrid_override_pattern {self.hybrid_override_pattern!r}")
+        for st in self.pdrop_stages:
+            # the JAX package meets such a stage only inside the forward, as
+            # a KeyError of the missing q/k projections
+            if st.compress_type == "attn" and st.layer not in self.attention_layer_indices:
+                raise ValueError(f"pdrop stage {st}: an attn stage ranks with its layer's q/k "
+                                 f"projections, and layer {st.layer} is not an attention "
+                                 f"layer {self.attention_layer_indices}")
 
     @property
     def mamba_intermediate_size(self) -> int:
@@ -95,6 +128,12 @@ class NanoConfig:
     @property
     def mamba_layer_indices(self) -> Tuple[int, ...]:
         return tuple(i for i, c in enumerate(self.hybrid_override_pattern) if c == "M")
+
+    @property
+    def pdrop_stages(self) -> Tuple[PdropStage, ...]:
+        if not self.use_pdrop or self.pdrop_type is None:
+            return ()
+        return parse_pdrop_type(self.pdrop_type)
 
 
 def tiny_nano_config(**overrides) -> NanoConfig:

@@ -17,8 +17,15 @@ it (models/prefix_cache.py:nano_forward_continue) and decodes. One
 PrefixState serves any number of questions: a continuation never writes
 into it.
 
-Left out for now: pdrop, sequence parallelism, speculative decoding and the
-serving engine.
+pdrop: `generate(use_pdrop=True)` and `prefill_prefix(use_pdrop=True)` on a
+pdrop config run its stages inside the bucketed prefill, the visual block
+starting after the left pad and the ranking query the bucket's last row
+(the last prefix token for a prefix: question-agnostic, as in the JAX
+package); the cache then carries each layer's `kv_len` and the TransV
+`ca_kv`, which the continuation and every decode step merge again
+(timeviper_tpu/models/generate.py:259-297, :528-553, :651-668).
+
+Left out for now: sequence parallelism and speculative decoding.
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ class PrefixState:
     cache after one prefill of it, reusable by any number of questions."""
 
     cache: dict
-    bucket: int  # prefix rows filled (cache["length"])
+    bucket: int  # prefix rows filled (cache["length"]; before any pdrop drop)
     cache_len: int  # cache capacity
     suffix_budget: int  # the largest suffix bucket it can take
     pad: int = 0  # leading pad rows (cache["valid_from"])
@@ -150,8 +157,11 @@ class Generator:
         return plan, bucket, pad, ids_arr, gather_idx, seq_idx
 
     @torch.inference_mode()
-    def prefill(self, ids_arr, gather_idx, seq_idx, visual, pad, cache_len):
-        """Bucketed prefill -> (last-row f32 logits (1, V), decode cache)."""
+    def prefill(self, ids_arr, gather_idx, seq_idx, visual, pad, cache_len,
+                pdrop_vision_start: Optional[int] = None):
+        """Bucketed prefill -> (last-row f32 logits (1, V), decode cache).
+        `pdrop_vision_start` (the visual block's first row, the pad included)
+        runs the pdrop stages with the bucket's last row as the query."""
         bucket = len(seq_idx)
         plan = FusionPlan(fused_len=bucket, text_len=len(ids_arr), num_visual=visual.shape[0],
                           gather_idx=gather_idx, is_visual=None, seq_idx=seq_idx,
@@ -160,8 +170,19 @@ class Generator:
             self.model, self.arch,
             input_ids=torch.as_tensor(ids_arr, dtype=torch.long, device=self.device),
             plan=plan, visual_embeddings=visual, fill_cache=True, cache_max_len=cache_len,
-            valid_from=pad, logits_to_keep=1, fused_conv=_fused_conv_default())
+            valid_from=pad, logits_to_keep=1, fused_conv=_fused_conv_default(),
+            use_pdrop=pdrop_vision_start is not None, pdrop_vision_start=pdrop_vision_start,
+            pdrop_query_pos=bucket - 1)
         return out["logits"][:, -1], out["cache"]
+
+    def _pdrop_start(self, plan, pad: int, use_pdrop: bool) -> Optional[int]:
+        """The pdrop prefill's vision start (pad + the sample's), or None
+        without pdrop; pdrop generation is single-sample."""
+        if not (use_pdrop and self.arch.llm.use_pdrop):
+            return None
+        if len(plan.sample_layouts) != 1:
+            raise ValueError("pdrop generation is single-sample (packed rows train only)")
+        return pad + plan.sample_layouts[0][0]
 
     @torch.inference_mode()
     def decode(self, first_logits, cache, rng_seed: int = 0) -> np.ndarray:
@@ -185,11 +206,13 @@ class Generator:
         image_token_id: Optional[int] = None,
         suffix_budget: int = 512,
         cache_len: Optional[int] = None,
+        use_pdrop: bool = False,
     ) -> PrefixState:
         """Prefill a shared prompt prefix once and return a PrefixState for
         generate(prefix=...). The budget is raised to one SSD chunk at least
         (a suffix bucket is a multiple of the chunk); the cache holds the
-        bucket, the budget and max_new_tokens."""
+        bucket, the budget and max_new_tokens. `use_pdrop` runs the pdrop
+        stages with the last prefix token as the ranking query."""
         suffix_budget = max(suffix_budget, self.arch.llm.chunk_size)
         visual = self.encode_frames(pixels) if pixels is not None else None
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(
@@ -200,7 +223,8 @@ class Generator:
         if cache_len < need:
             raise ValueError(f"cache_len {cache_len} < prefix bucket {bucket} + suffix_budget "
                              f"{suffix_budget} + max_new_tokens {self.max_new_tokens}")
-        _, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad, cache_len)
+        _, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad, cache_len,
+                                self._pdrop_start(plan, pad, use_pdrop))
         return PrefixState(cache=cache, bucket=bucket, cache_len=cache_len,
                            suffix_budget=suffix_budget, pad=pad)
 
@@ -221,12 +245,14 @@ class Generator:
         pixels=None,
         image_token_id: Optional[int] = None,
         answer_prompt_ids: Optional[Sequence[int]] = None,
+        use_pdrop: bool = False,
         rng_seed: int = 0,
         prefix: Optional[PrefixState] = None,
     ) -> GenerationOutput:
         """Generate a completion for one prompt (batch 1). With `prefix` (from
         prefill_prefix), `input_ids` is the suffix only (the question after
-        the video) and `prefill_s` the seconds of its continuation."""
+        the video) and `prefill_s` the seconds of its continuation.
+        `use_pdrop` runs a pdrop config's stages in the prefill."""
         ids = list(input_ids) + list(answer_prompt_ids or [])
         if prefix is not None:
             return self._generate_on_prefix(ids, pixels, prefix, rng_seed)
@@ -237,7 +263,8 @@ class Generator:
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(ids, image_token_id)
         visual = self._check_visual(plan, visual)
         first_logits, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
-                                           bucket + self.max_new_tokens)
+                                           bucket + self.max_new_tokens,
+                                           self._pdrop_start(plan, pad, use_pdrop))
         _sync(self.device)
         t2 = time.perf_counter()
         tokens = self.decode(first_logits, cache, rng_seed)
@@ -264,7 +291,8 @@ class Generator:
         llm = self.model.llm_backbone
         with torch.inference_mode():
             embeds = llm.embeddings(torch.as_tensor([ids], dtype=torch.long, device=self.device))
-            first_logits, cache = nano_forward_continue(llm, self.arch.llm, embeds, prefix.cache)
+            first_logits, cache = nano_forward_continue(llm, self.arch.llm, embeds, prefix.cache,
+                                                        pdrop_params=self.model.merge_modules)
         _sync(self.device)
         t1 = time.perf_counter()
         tokens = self.decode(first_logits, cache, rng_seed)

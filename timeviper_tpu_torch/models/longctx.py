@@ -19,8 +19,12 @@ models/nano.py:nano_forward with the wide intermediates at chunk size:
 A length that is no multiple of the chunk leaves a short last chunk, which
 runs as it is: K1 takes any length, so the JAX package's tail padding (pad
 rows computed and dropped) is left behind too. The (L, D) hidden state
-between layers stays whole. Inference only. pdrop stages between layers are
-not ported (`pdrop_spec` raises NotImplementedError).
+between layers stays whole. Inference only.
+
+With a `pdrop_spec` the config's pdrop stages run between layers
+(models/pdrop.py, timeviper_tpu/models/longctx.py:158-175); after a stage L
+is in general no multiple of the chunk, and a layer runs unchunked once L
+fits in one chunk.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from timeviper_tpu_torch.models.nano import (
     compute_logits,
     mlp_mixer_forward,
 )
+from timeviper_tpu_torch.models.pdrop import apply_pdrop_stage
 from timeviper_tpu_torch.models.prefix_cache import _mamba_continue
 from timeviper_tpu_torch.ops.norms import rms_norm
 
@@ -77,13 +82,20 @@ def nano_forward_longctx(model: NanoModel, cfg: NanoConfig, inputs_embeds: torch
                          pdrop_params=None) -> Dict[str, Any]:
     """Full-sequence prefill with the wide intermediates at chunk size; a layer
     runs unchunked where L <= chunk_tokens. Same math as
-    nano_forward(inputs_embeds=...). Returns {"hidden_states", "logits"}
-    (the f32 logits of the last `logits_to_keep` rows; 0 keeps all)."""
-    if pdrop_spec is not None or pdrop_params is not None:
-        raise NotImplementedError("pdrop stages in the long-context forward are not ported")
+    nano_forward(inputs_embeds=..., pdrop_spec=..., pdrop_params=...). Returns
+    {"hidden_states", "logits"} (the f32 logits of the last `logits_to_keep`
+    rows; 0 keeps all)."""
     hidden = inputs_embeds
-    chunked = hidden.shape[1] > chunk_tokens
-    for block in model.layers:
+    stages = ({st.layer: (i, st) for i, st in enumerate(cfg.pdrop_stages)}
+              if pdrop_spec is not None else {})
+    for idx, block in enumerate(model.layers):
+        if idx in stages:
+            si, st = stages[idx]
+            hidden, _, _, pdrop_spec, _ = apply_pdrop_stage(
+                hidden, None, None, pdrop_spec, st, si, cfg=cfg,
+                attn_mixer=block.mixer if st.compress_type == "attn" else None,
+                merge=pdrop_params)
+        chunked = hidden.shape[1] > chunk_tokens
         if block.block_type == "attention" or not chunked:
             hidden = _block_forward(block, cfg, hidden, None, False, 0)[0]
         elif block.block_type == "mamba":

@@ -33,7 +33,14 @@ Two switches of the JAX package choose fused kernels, read as it reads them
 Where the JAX package also asks for the TPU, the port asks nothing more: a
 CPU tensor takes the fused call's plain version, a CUDA tensor its kernel.
 
-Left out for now: pdrop / TransV, the remat policies other than "full".
+pdrop (models/pdrop.py): with a `pdrop_spec`, each stage runs before its
+layer and the row shrinks. The attention layers' caches then record their
+own row count `kv_len` (a layer before a stage holds the pre-drop rows), the
+decode writes and masks each layer at its `kv_len`, and the cache keeps each
+stage's TransV K/V (`ca_kv`), which every decoded token cross-attends at the
+stage's layer (`nano_decode_step(pdrop_params=...)`).
+
+Left out for now: the remat policies other than "full".
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import NanoConfig
+from timeviper_tpu_torch.models.pdrop import apply_pdrop_stage, merge_dropped_cached
 from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_supported
@@ -322,13 +330,21 @@ def attention_mixer_decode(
     different lengths): then each row writes its K/V at its own slot, an
     index scatter, and a key mask limits it to its own [valid_from_b,
     length_b]. The keys read are the slots up to the longest row's; its
-    length is read on the host, so CPU tensors cost no device sync."""
+    length is read on the host, so CPU tensors cost no device sync.
+
+    A layer whose cache entry holds `kv_len` (a pdrop prefill's, in either
+    form) writes and masks at it instead of `length`, and returns it one
+    more (timeviper_tpu/models/nano.py:474-507)."""
     B = x.shape[0]
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     k, v = cache_layer["k"], cache_layer["v"]
     q = m.q_proj(x).reshape(B, 1, Hq, hd)
     k_new = m.k_proj(x).reshape(B, Hkv, hd).to(k.dtype)
     v_new = m.v_proj(x).reshape(B, Hkv, hd).to(v.dtype)
+    kv_len = cache_layer.get("kv_len")
+    if kv_len is not None:  # after a pdrop prefill: this layer's own row count
+        length = kv_len
+        cache_layer = {**cache_layer, "kv_len": kv_len + 1}
     if not isinstance(length, torch.Tensor):
         if length >= k.shape[1]:
             raise ValueError(f"KV cache of {k.shape[1]} slots is full")
@@ -391,6 +407,8 @@ def nano_forward(
     labels: Optional[torch.Tensor] = None,
     remat=False,
     fused_conv: bool = False,
+    pdrop_spec=None,
+    pdrop_params=None,
 ) -> Dict[str, Any]:
     """Full-sequence forward (prefill or training). Returns {"hidden_states",
     "logits", "labels"} (the labels passed through, as the JAX forward returns
@@ -399,29 +417,46 @@ def nano_forward(
     keeps only each block's input for the backward and recomputes the block
     there; the JAX package's other policies ("dots", "scan", "dots_scan")
     are not ported. `fused_conv` (inference only) fuses each Mamba layer's
-    conv into its scan (ops/ssd_kernel.py:ssd_conv_scan_fused)."""
+    conv into its scan (ops/ssd_kernel.py:ssd_conv_scan_fused).
+
+    `pdrop_spec` (models/pdrop.py, one row) runs the config's pdrop stages
+    before their layers, with the TransV modules `pdrop_params` (a
+    MergeModules or None); the labels and seq_idx shrink with the rows, and a
+    filled cache records each attention layer's `kv_len` and each stage's
+    `ca_kv` (timeviper_tpu/models/nano.py:616-681)."""
     if remat not in (False, True, "full"):
         raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
-    if cfg.use_pdrop:
-        raise NotImplementedError("pdrop is not ported")
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
-    L = hidden.shape[1]
-    new_layers = []
-    for block in model.layers:
+    stages = ({st.layer: (i, st) for i, st in enumerate(cfg.pdrop_stages)}
+              if pdrop_spec is not None else {})
+    new_layers, ca_kvs = [], []
+    for idx, block in enumerate(model.layers):
+        if idx in stages:
+            si, st = stages[idx]
+            hidden, labels, seq_idx, pdrop_spec, ca_kv = apply_pdrop_stage(
+                hidden, labels, seq_idx, pdrop_spec, st, si, cfg=cfg,
+                attn_mixer=block.mixer if st.compress_type == "attn" else None,
+                merge=pdrop_params)
+            ca_kvs.append(ca_kv or {})
         if remat and not fill_cache:
             hidden = checkpoint(
-                lambda h, blk=block: _block_forward(blk, cfg, h, seq_idx, False, 0)[0],
+                lambda h, blk=block, s=seq_idx: _block_forward(blk, cfg, h, s, False, 0)[0],
                 hidden, use_reentrant=False)
             layer_cache = None
         else:
             hidden, layer_cache = _block_forward(block, cfg, hidden, seq_idx, fill_cache,
                                                  cache_max_len, fused_conv)
+            if fill_cache and pdrop_spec is not None and block.block_type == "attention":
+                layer_cache["kv_len"] = hidden.shape[1]
         new_layers.append(layer_cache or {})
     hidden = rms_norm(hidden, model.norm_f.weight, cfg.layer_norm_epsilon)
     logits = compute_logits(model, hidden[:, -logits_to_keep:] if logits_to_keep else hidden)
     out = {"hidden_states": hidden, "logits": logits, "labels": labels}
     if fill_cache:
-        out["cache"] = {"layers": new_layers, "length": L, "valid_from": int(valid_from)}
+        out["cache"] = {"layers": new_layers, "length": hidden.shape[1],
+                        "valid_from": int(valid_from)}
+        if ca_kvs:
+            out["cache"]["ca_kv"] = ca_kvs
     return out
 
 
@@ -433,17 +468,38 @@ def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
     return F.linear(hidden.float(), w)
 
 
+def cached_merges(cfg: NanoConfig, cache: Dict[str, Any], pdrop_params) -> Dict[int, tuple]:
+    """{layer: (ca_kv, merge module)} of the stages whose TransV K/V the cache
+    holds: each later row is merged again before that layer."""
+    ca_kvs = cache.get("ca_kv")
+    if not ca_kvs or pdrop_params is None:
+        return {}
+    out = {}
+    for si, st in enumerate(cfg.pdrop_stages):
+        mm = pdrop_params.stage(si)
+        if si < len(ca_kvs) and ca_kvs[si] and mm is not None:
+            out[st.layer] = (ca_kvs[si], mm)
+    return out
+
+
 def nano_decode_step(
-    model: NanoModel, cfg: NanoConfig, input_ids: torch.Tensor, cache: Dict[str, Any]
+    model: NanoModel, cfg: NanoConfig, input_ids: torch.Tensor, cache: Dict[str, Any],
+    pdrop_params=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. input_ids (B, 1). Returns (logits (B, V) f32, cache).
     The cache's `length` and `valid_from` are host integers or (B,) tensors
-    (attention_mixer_decode); the returned length is one more."""
+    (attention_mixer_decode); the returned length is one more. A cache from a
+    pdrop prefill with TransV (`ca_kv`) and the merge modules `pdrop_params`
+    merge the token again at each stage's layer
+    (timeviper_tpu/models/nano.py:721-737)."""
     hidden = model.embeddings(input_ids)
     length, valid_from = cache["length"], cache["valid_from"]
     eps = cfg.layer_norm_epsilon
+    merges = cached_merges(cfg, cache, pdrop_params)
     new_layers = []
-    for block, lc in zip(model.layers, cache["layers"]):
+    for idx, (block, lc) in enumerate(zip(model.layers, cache["layers"])):
+        if idx in merges:
+            hidden = merge_dropped_cached(hidden, *merges[idx], cfg)
         normed = rms_norm(hidden, block.norm.weight, eps)
         if block.block_type == "mamba":
             out, lc = mamba_mixer_decode(block.mixer, cfg, normed, lc)
@@ -455,4 +511,7 @@ def nano_decode_step(
         new_layers.append(lc)
     hidden = rms_norm(hidden, model.norm_f.weight, eps)
     logits = compute_logits(model, hidden[:, 0])
-    return logits, {"layers": new_layers, "length": length + 1, "valid_from": valid_from}
+    new_cache = {"layers": new_layers, "length": length + 1, "valid_from": valid_from}
+    if "ca_kv" in cache:
+        new_cache["ca_kv"] = cache["ca_kv"]
+    return logits, new_cache

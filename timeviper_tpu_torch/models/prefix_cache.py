@@ -36,10 +36,16 @@ Where the port leaves the JAX code behind, and why:
   decode step writes rows in place, models/nano.py), and the Mamba states
   are new tensors.
 
-Not ported yet: a cache from a pdrop prefill (`ca_kv`, `kv_len`,
-`kv_valid`) and the speculative verify pass (`logits_all`, the `chunk_size`
-override), which raise NotImplementedError, and `qwen2_forward_continue`,
-which waits for the qwen2 backbone.
+A cache from a pdrop prefill (models/pdrop.py) continues too: an attention
+layer appends at its own `kv_len` (a layer before a stage holds the pre-drop
+rows), and with the merge modules the suffix rows cross-attend each stage's
+cached TransV K/V (`ca_kv`) before its layer
+(timeviper_tpu/models/prefix_cache.py:294-329, :456-470).
+
+Not ported yet: a cache with slot-validity masks (`kv_valid`, made only by
+the sequence-parallel masked prefill) and the speculative verify pass
+(`logits_all`, the `chunk_size` override), which raise NotImplementedError,
+and `qwen2_forward_continue`, which waits for the qwen2 backbone.
 """
 
 from __future__ import annotations
@@ -52,10 +58,12 @@ from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.models.nano import (
     AttentionMixer,
     MambaMixer,
+    cached_merges,
     compute_logits,
     mamba_in_proj,
     mlp_mixer_forward,
 )
+from timeviper_tpu_torch.models.pdrop import merge_dropped_cached
 from timeviper_tpu_torch.ops.block_attention import block_attn_lse, merge_parts
 from timeviper_tpu_torch.ops.conv import causal_conv1d
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
@@ -111,9 +119,12 @@ def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
                         cache_layer: Dict[str, Any], length: int, valid_from: int
                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry whose
-    buffers are copies of the input's with the suffix rows written)."""
+    buffers are copies of the input's with the suffix rows written). A
+    layer's own `kv_len` (after a pdrop prefill) takes the place of
+    `length`."""
     B, S, _ = x.shape
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    length = cache_layer.get("kv_len", length)
     if length + S > cache_layer["k"].shape[1]:
         raise ValueError(f"a suffix of {S} rows after {length} overflows the cache's "
                          f"{cache_layer['k'].shape[1]} slots")
@@ -122,7 +133,10 @@ def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
     k[:, length:length + S] = m.k_proj(x).reshape(B, S, Hkv, hd).to(k.dtype)
     v[:, length:length + S] = m.v_proj(x).reshape(B, S, Hkv, hd).to(v.dtype)
     out = attention_suffix(q, k, v, length, valid_from)
-    return m.o_proj(out.reshape(B, S, Hq * hd)), {"k": k, "v": v}
+    lc = {"k": k, "v": v}
+    if "kv_len" in cache_layer:
+        lc["kv_len"] = length + S
+    return m.o_proj(out.reshape(B, S, Hq * hd)), lc
 
 
 @torch.no_grad()
@@ -133,19 +147,23 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
     """Run a suffix on top of a filled cache. inputs_embeds (B, S, D) holds
     the S real suffix rows, no pads. Returns (the f32 logits (B, V) of its
     last row, the updated cache with length += S). The input cache is left
-    untouched."""
+    untouched. `pdrop_params` (the merge modules) merge the suffix rows with
+    a pdrop cache's `ca_kv`."""
     if logits_all or chunk_size is not None:
         raise NotImplementedError("the speculative verify pass (logits_all, chunk_size) "
                                   "is not ported")
-    if pdrop_params is not None or any(key in cache for key in ("ca_kv", "kv_valid")) or any(
-            "kv_len" in lc or "kv_valid" in lc for lc in cache["layers"]):
-        raise NotImplementedError("a cache from a pdrop prefill is not ported")
+    if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
+        raise NotImplementedError("a cache with slot-validity masks (kv_valid, the "
+                                  "sequence-parallel masked prefill's) is not ported")
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.layer_norm_epsilon
     hidden = inputs_embeds
+    merges = cached_merges(cfg, cache, pdrop_params)
     new_layers = []
-    for block, lc in zip(model.layers, cache["layers"]):
+    for idx, (block, lc) in enumerate(zip(model.layers, cache["layers"])):
+        if idx in merges:
+            hidden = merge_dropped_cached(hidden, *merges[idx], cfg)
         normed = rms_norm(hidden, block.norm.weight, eps)
         if block.block_type == "mamba":
             out, lc = _mamba_continue(block.mixer, cfg, normed, lc)
@@ -156,5 +174,7 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
         hidden = hidden + out
         new_layers.append(lc)
     hidden = rms_norm(hidden[:, -1], model.norm_f.weight, eps)
-    return compute_logits(model, hidden), {"layers": new_layers, "length": length + S,
-                                           "valid_from": valid_from}
+    new_cache = {"layers": new_layers, "length": length + S, "valid_from": valid_from}
+    if "ca_kv" in cache:
+        new_cache["ca_kv"] = cache["ca_kv"]
+    return compute_logits(model, hidden), new_cache

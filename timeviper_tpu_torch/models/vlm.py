@@ -4,8 +4,10 @@ timeviper_tpu/models/vlm.py).
 The host builds the fusion plan (data/fusion.py) and the model applies it as
 one gather. `vlm_loss` is the training loss over a batch of rows that share
 one plan: the rows run as a written-out batch dimension where the JAX package
-vmaps its one-row loss. Left out for now: the qwen2 backbone, pdrop and
-heterogeneous batches (per-row plans).
+vmaps its one-row loss. A pdrop config with `merge_module == "CrossAttention"`
+gives the model its TransV modules (`merge_modules`, models/pdrop.py), and
+`vlm_forward(use_pdrop=True)` runs the stages. Left out for now: the qwen2
+backbone, training with pdrop and heterogeneous batches (per-row plans).
 
 Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
 (models/internvideo2.py, clips of 4 frames merged jointly by the projector),
@@ -34,6 +36,7 @@ from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.cache import init_nano_cache
 from timeviper_tpu_torch.models.internvideo2 import InternVideo2, encode_frames_iv2
 from timeviper_tpu_torch.models.nano import NanoModel, nano_decode_step, nano_forward
+from timeviper_tpu_torch.models.pdrop import init_merge_modules, make_pdrop_spec
 from timeviper_tpu_torch.models.projector import Projector, projector_forward
 from timeviper_tpu_torch.models.vit import ViT, vit_forward
 
@@ -115,6 +118,7 @@ class TimeViperVLM(nn.Module):
         else:
             self.vision_backbone, self.projector = towers[""]
         self.llm_backbone = NanoModel(arch.llm, dtype, device)
+        self.merge_modules = init_merge_modules(arch.llm, dtype, device)
 
     def tower(self, key: str) -> Tuple[nn.Module, Projector]:
         """The tower and projector of `key` (one of arch.towers())."""
@@ -126,12 +130,16 @@ class TimeViperVLM(nn.Module):
 def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloat16,
                     device=None) -> TimeViperVLM:
     """Build the model on `device` (the card by default) with random weights
-    drawn from `generator`, which must live on the same device."""
+    drawn from `generator`, which must live on the same device. The TransV
+    modules draw last, so the other weights are those of the same config
+    without them."""
     model = TimeViperVLM(arch, dtype, device)
     for key, _, _ in arch.towers():
         for part in model.tower(key):
             part.reset_parameters(generator)
     model.llm_backbone.reset_parameters(generator)
+    if model.merge_modules is not None:
+        model.merge_modules.reset_parameters(generator)
     return model.eval()
 
 
@@ -188,11 +196,21 @@ def vlm_forward(
     valid_from: int = 0,
     logits_to_keep: int = 0,
     fused_conv: bool = False,
+    use_pdrop: bool = False,
+    pdrop_vision_start: Optional[int] = None,
+    pdrop_query_pos: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Prefill over one fused row: encode pixels unless visual embeddings are
     given, fuse them into the text by the plan, run the backbone. `fused_conv`
     (inference only) fuses each Mamba layer's conv into its scan
-    (timeviper_tpu/models/vlm.py:227)."""
+    (timeviper_tpu/models/vlm.py:227).
+
+    `use_pdrop` on a pdrop config runs its stages (vlm.py:219-288) over one
+    sample spanning the row, as the Generator's bucketed prefill lays it
+    out: the visual block starts at `pdrop_vision_start` (a left pad
+    included) and `pdrop_query_pos` is the ranking query. The JAX package's
+    other layout, packed samples with labels, is training's, which is not
+    ported with pdrop."""
     emb = model.llm_backbone.embeddings.weight
     if visual_embeddings is None and pixels is not None:
         ve = encode_visual(model, arch, pixels)
@@ -206,10 +224,16 @@ def vlm_forward(
     seq_idx = (torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
                                device=emb.device)[None]
                if plan.seq_idx is not None else None)
+    spec = None
+    if use_pdrop and arch.llm.use_pdrop:
+        nv = plan.num_visual
+        spec = make_pdrop_spec([(pdrop_vision_start, nv, fused.shape[1] - pdrop_vision_start - nv)],
+                               arch.llm.pdrop_stages, [pdrop_query_pos])
     return nano_forward(model.llm_backbone, arch.llm, inputs_embeds=fused, seq_idx=seq_idx,
                         fill_cache=fill_cache, cache_max_len=cache_max_len,
                         valid_from=valid_from, logits_to_keep=logits_to_keep,
-                        fused_conv=fused_conv)
+                        fused_conv=fused_conv, pdrop_spec=spec,
+                        pdrop_params=model.merge_modules)
 
 
 def vlm_loss(
@@ -264,5 +288,7 @@ def init_cache(arch: VLMArch, batch_size: int, max_len: int, dtype=torch.bfloat1
 
 def decode_step(model: TimeViperVLM, arch: VLMArch, token: torch.Tensor, cache):
     """One token per row; the cache's lengths are host integers or one per
-    row (models/nano.py:nano_decode_step)."""
-    return nano_decode_step(model.llm_backbone, arch.llm, token, cache)
+    row (models/nano.py:nano_decode_step). The TransV modules ride along: a
+    cache from a pdrop prefill merges each token again (vlm.py:396-406)."""
+    return nano_decode_step(model.llm_backbone, arch.llm, token, cache,
+                            pdrop_params=model.merge_modules)

@@ -3,7 +3,8 @@
 `attention` is the plain version of the two attention kernels (K2 in
 ops/flash_attention.py, K3 in ops/vit_attention.py) and the decode attention.
 GQA is written into the einsum: query head h reads KV head h // (Hq/Hkv), with
-no repeat of the KV heads.
+no repeat of the KV heads. `cross_attention` (TransV, models/pdrop.py) takes
+`attention` on a CPU tensor and K9 (ops/block_attention.py) on a CUDA one.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import math
 from typing import Optional
 
 import torch
+
+from timeviper_tpu_torch.ops.block_attention import block_attn_lse
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -62,3 +65,14 @@ def attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(v.dtype).float(), v.float())
     return out.reshape(B, Lq, Hq, D).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal GQA attention of q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D)
+    (timeviper_tpu/ops/attention.py:128, without its `kv_valid`, which no
+    caller passes). A CPU tensor takes `attention`; a CUDA tensor K9's
+    non-causal mode, its row statistics dropped, or raises. All-zero keys and
+    values give exactly 0 on both."""
+    if q.device.type == "cpu":
+        return attention(q, k, v)
+    return block_attn_lse(q, k, v, causal=False)[0]

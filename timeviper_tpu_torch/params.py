@@ -13,7 +13,10 @@ the port's add_lora. An int8 leaf of the JAX package's quantize
 (kernel_q (in, out), kernel_scale, optional act_inv) becomes an Int8Linear's
 buffers, kernel_q transposed to (out, in), and a Mamba in_proj fused by
 fuse_decode_in_proj becomes `in_proj.fused`; load those into a model that went
-through the port's quantize_params_int8 (and fuse_decode_in_proj). Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
+through the port's quantize_params_int8 (and fuse_decode_in_proj). The TransV
+modules `merge_modules` (a list, None for a stage without one) become
+`merge_modules.<stage>`, their kernels transposed as any linear, `alpha` an
+f32 scalar. Every leaf is copied (`np.array(leaf)`): a JAX buffer seen through numpy is
 read-only, and the port must own its memory. bfloat16 leaves keep their type.
 """
 
@@ -139,6 +142,18 @@ def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def merge_state_dict(merge_modules) -> Dict[str, torch.Tensor]:
+    """The TransV list (None for a stage without a module) -> a
+    models/pdrop.py:MergeModules state_dict, keyed by stage index."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, mm in enumerate(merge_modules):
+        if mm is not None:
+            sd[f"{i}.alpha"] = to_tensor(mm["alpha"]).float()
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                _linear(sd, f"{i}.cross_attn.{name}", mm["cross_attn"][name])
+    return sd
+
+
 def from_jax_numpy(tree: Dict[str, Any], arch) -> Dict[str, torch.Tensor]:
     """The JAX VLM pytree (init_vlm_params's layout) -> TimeViperVLM state_dict."""
     parts = [("llm_backbone", nano_state_dict(tree["llm_backbone"], arch.llm))]
@@ -149,6 +164,8 @@ def from_jax_numpy(tree: Dict[str, Any], arch) -> Dict[str, torch.Tensor]:
             vis, proj = vis[key], proj[key]
         parts += [(f"vision_backbone{dot}", tower_state_dict(vis, family, cfg)),
                   (f"projector{dot}", projector_state_dict(proj))]
+    if tree.get("merge_modules") is not None:
+        parts.append(("merge_modules", merge_state_dict(tree["merge_modules"])))
     sd: Dict[str, torch.Tensor] = {}
     for prefix, part in parts:
         sd.update({f"{prefix}.{k}": v for k, v in part.items()})

@@ -48,10 +48,23 @@ Where the port leaves the JAX engine behind, and why:
   prompt completes, JAX lists its slot as free again before inserting its
   state, so a queued request can be given the same slot and is then lost.
 
-Not ported yet: pdrop serving (`pdrop_frames`, ROADMAP Queue 1 item 3) and
-sequence-parallel serving (`mesh`, item 8), which raise NotImplementedError;
-without a mesh the JAX engine's `batch_prefill` switch has no use, and text
-prompts always prefill in batches.
+pdrop serving (`pdrop_frames`, timeviper_tpu/serving/engine.py:131-175,
+:328-365, :480-535): a request with pixels must bring exactly
+`pdrop_frames` frames and runs the Generator's bucketed pdrop prefill; its
+compacted state goes into the slot with each attention layer's row count
+`kv_len` (a layer before a stage keeps the pre-drop rows, so the capacity
+check is against the pre-drop bucket) and each stage's TransV K/V, sized
+once by the stages' drop counts at that frame budget. Every other request
+gets zero TransV rows, which cross-attention turns into exactly 0 (the
+model has no attention biases). The port keeps each attention layer's
+`kv_len` per slot on the host, as it keeps the lengths, and builds the (B,)
+tensors for each step. A pdrop prefix state is refused in a slot, as in the
+JAX engine.
+
+Not ported yet: sequence-parallel serving (`mesh`, ROADMAP Queue 1 item 8),
+which raises NotImplementedError; without a mesh the JAX engine's
+`batch_prefill` switch has no use, and text prompts always prefill in
+batches.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ import torch
 
 from timeviper_tpu_torch.models.generate import Generator, PrefixState, _fused_conv_default
 from timeviper_tpu_torch.models.nano import nano_forward
+from timeviper_tpu_torch.models.pdrop import pdrop_drop_counts
 from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue
 from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch, decode_step, init_cache
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
@@ -88,12 +102,14 @@ class Request:
 
 
 def _copy_state(dst_layers, slot: int, src_layers, row: int, n: int) -> None:
-    """Copy row `row` of a prefill's cache (its first n K/V rows and its Mamba
-    states) into slot `slot` of the batched cache, in place."""
+    """Copy row `row` of a prefill's cache (its first n K/V rows, or a
+    layer's own `kv_len`, and its Mamba states) into slot `slot` of the
+    batched cache, in place."""
     for dl, sl in zip(dst_layers, src_layers):
         if "k" in sl:
-            dl["k"][slot, :n].copy_(sl["k"][row, :n])
-            dl["v"][slot, :n].copy_(sl["v"][row, :n])
+            rows = sl.get("kv_len", n)
+            dl["k"][slot, :rows].copy_(sl["k"][row, :rows])
+            dl["v"][slot, :rows].copy_(sl["v"][row, :rows])
         if "ssm_state" in sl:
             dl["ssm_state"][slot].copy_(sl["ssm_state"][row])
             for role, window in sl["conv_state"].items():
@@ -121,9 +137,6 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("sequence-parallel serving (mesh=) is not ported "
                                       "(ROADMAP Queue 1 item 8)")
-        if pdrop_frames is not None:
-            raise NotImplementedError("pdrop serving (pdrop_frames=) is not ported "
-                                      "(ROADMAP Queue 1 item 3)")
         self.model = model
         self.arch = arch
         self.num_slots = num_slots
@@ -142,6 +155,7 @@ class ServingEngine:
         self.device = self._gen.device
         self.cache_layers = init_cache(arch, num_slots, max_len, cache_dtype,
                                        device=self.device)["layers"]
+        self._pdrop = None if pdrop_frames is None else self._init_pdrop(pdrop_frames)
         # per-slot host state
         self.slot_req: List[Optional[Request]] = [None] * num_slots
         self.slot_lengths = np.zeros((num_slots,), np.int64)
@@ -152,6 +166,31 @@ class ServingEngine:
         # are trimmed on the host
         self.steps_per_sync = max(1, steps_per_sync)
         self.round_stamps: List[float] = []
+
+    def _init_pdrop(self, frames: int) -> Dict[str, Any]:
+        """The pdrop state: the visual tokens a request brings, each stage's
+        slot-batched TransV K/V buffers ({} for a stage that merges
+        nothing) and each attention layer's kv_len per slot (host)."""
+        llm = self.arch.llm
+        if not (llm.use_pdrop and llm.pdrop_stages):
+            raise ValueError("pdrop_frames requires a pdrop-configured llm")
+        if any(st.layer >= llm.num_hidden_layers for st in llm.pdrop_stages):
+            raise ValueError("a pdrop stage beyond the layer stack never fires, but its drop "
+                             "count would corrupt the host's length tracking")
+        if llm.attention_bias:
+            raise ValueError("pdrop serving relies on zero TransV rows being exactly inert "
+                             "for the other slots (no attention biases)")
+        nv = frames * self.arch.tokens_per_frame
+        drops = pdrop_drop_counts(llm, nv)
+        merge = self.model.merge_modules
+        shape = (self.num_slots, llm.num_key_value_heads, llm.head_dim)
+        ca = [{key: torch.zeros(shape[0], drop, *shape[1:], dtype=self.cache_dtype,
+                                device=self.device) for key in ("k", "v")}
+              if merge is not None and merge.stage(si) is not None and drop > 0 else {}
+              for si, drop in enumerate(drops)]
+        return {"frames": frames, "num_visual": nv, "ca_kv": ca,
+                "kv_len": {i: np.zeros((self.num_slots,), np.int64)
+                           for i, bt in enumerate(llm.layers_block_type) if bt == "attention"}}
 
     # ------------------------------------------------------------------
 
@@ -183,9 +222,14 @@ class ServingEngine:
     def _dispatch_continue(self, req: Request, slot: int) -> Dict[str, Any]:
         """Run the question suffix on its cached video prefix
         (models/prefix_cache.py) for insertion into a slot. The JAX engine's
-        ValueErrors, but for its pdrop prefix state, which the port cannot
-        make yet."""
+        ValueErrors."""
         st = req.prefix
+        if st.cache.get("ca_kv") is not None:
+            raise ValueError(
+                f"request {req.request_id}: pdrop prefix states are not"
+                " servable — dropping compacts the cache so its true row"
+                " count lives on device, but engine slots track lengths"
+                " host-side (use the offline Generator for pdrop)")
         if st.cache_len != self.max_len:
             raise ValueError(
                 f"request {req.request_id}: prefix cache_len {st.cache_len}"
@@ -252,12 +296,23 @@ class ServingEngine:
     @torch.inference_mode()
     def _dispatch_prefill(self, req: Request, slot: int) -> Dict[str, Any]:
         """One request's bucketed prefill (the Generator's), at a cache of its
-        own bucket's capacity."""
+        own bucket's capacity; a request with pixels in a pdrop engine runs
+        the pdrop prefill, and its slot length is the compacted one."""
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._prefill_plan(req)
+        pdrop_start = None
+        if self._pdrop is not None and req.pixels is not None:
+            if plan.num_visual != self._pdrop["num_visual"]:
+                raise ValueError(
+                    f"request {req.request_id}: pdrop engine is compiled for"
+                    f" {self._pdrop['num_visual']} visual tokens"
+                    f" ({self._pdrop['frames']} frames); request has"
+                    f" {plan.num_visual}")
+            pdrop_start = self._gen._pdrop_start(plan, pad, True)
         visual = self._gen.encode_frames(req.pixels) if req.pixels is not None else None
         visual = self._gen._check_visual(plan, visual)
-        logits, cache1 = self._gen.prefill(ids_arr, gather_idx, seq_idx, visual, pad, bucket)
-        return self._pending(req, slot, logits, cache1, bucket, pad)
+        logits, cache1 = self._gen.prefill(ids_arr, gather_idx, seq_idx, visual, pad, bucket,
+                                           pdrop_start)
+        return self._pending(req, slot, logits, cache1, cache1["length"], pad)
 
     def _prefill_plan(self, req: Request):
         """Host-side bucket geometry for one request (the Generator's planner)
@@ -266,8 +321,10 @@ class ServingEngine:
         planned = self._gen._plan_prompt(list(req.input_ids), req.image_token_id)
         bucket = planned[1]
         if bucket + req.max_new_tokens > self.max_len:
-            # decode writes K/V at slots [bucket, bucket + max_new): without
-            # headroom the request cannot finish (like vLLM, reject it)
+            # decode writes K/V at slots [bucket, bucket + max_new) (after a
+            # pdrop prefill too: a layer before a stage keeps the pre-drop
+            # rows): without headroom the request cannot finish (like vLLM,
+            # reject it)
             raise ValueError(
                 f"request {req.request_id}: bucket {bucket} + "
                 f"max_new_tokens {req.max_new_tokens} exceeds engine "
@@ -304,8 +361,18 @@ class ServingEngine:
         """Copy a prefill's state into its slot of the batched cache and
         activate the slot on the host."""
         slot = pending["slot"]
-        _copy_state(self.cache_layers, slot, pending["cache1"]["layers"], pending["row"],
-                    pending["bucket"])
+        layers1 = pending["cache1"]["layers"]
+        _copy_state(self.cache_layers, slot, layers1, pending["row"], pending["bucket"])
+        if self._pdrop is not None:
+            for idx, kv_len in self._pdrop["kv_len"].items():
+                kv_len[slot] = layers1[idx].get("kv_len", pending["bucket"])
+            ca1 = pending["cache1"].get("ca_kv")
+            for si, buf in enumerate(self._pdrop["ca_kv"]):
+                for key, b in buf.items():
+                    if ca1:
+                        b[slot].copy_(ca1[si][key])
+                    else:  # zeros: exactly inert for a request without TransV rows
+                        b[slot].zero_()
         self.slot_req[slot] = pending["req"]
         self.slot_lengths[slot] = pending["bucket"]
         self.slot_valid_from[slot] = pending["pad"]
@@ -326,16 +393,25 @@ class ServingEngine:
         lens = torch.from_numpy(self.slot_lengths * on)
         vf = torch.from_numpy(self.slot_valid_from * on)
         step = torch.from_numpy(on)
+        kv_lens = {idx: torch.from_numpy(kv_len * on)
+                   for idx, kv_len in (self._pdrop["kv_len"].items() if self._pdrop else ())}
         toks = torch.as_tensor(self._last_tokens, device=self.device)
         burst = []
         for _ in range(self.steps_per_sync):
-            cache = {"layers": self.cache_layers,
+            layers = [dict(lc, kv_len=kv_lens[idx].clamp(max=self.max_len - 1))
+                      if idx in kv_lens else lc for idx, lc in enumerate(self.cache_layers)]
+            cache = {"layers": layers,
                      "length": lens.clamp(max=self.max_len - 1), "valid_from": vf}
+            if self._pdrop is not None:
+                cache["ca_kv"] = self._pdrop["ca_kv"]
             logits, cache = decode_step(self.model, self.arch, toks[:, None], cache)
-            self.cache_layers = cache["layers"]  # new Mamba states; K/V written in place
+            # new Mamba states; K/V written in place; kv_len stays on the host
+            self.cache_layers = [{k: v for k, v in lc.items() if k != "kv_len"}
+                                 for lc in cache["layers"]]
             toks = sample_token(logits, generator, self.sampling)
             burst.append(toks)
             lens = lens + step
+            kv_lens = {idx: kv + step for idx, kv in kv_lens.items()}
         return torch.stack(burst, 1), active, self.slot_lengths.copy()
 
     def _process_burst(self, dispatched) -> None:
@@ -357,6 +433,8 @@ class ServingEngine:
         for i in active:
             if self.slot_req[i] is not None:
                 self.slot_lengths[i] = int(lengths[i]) + n
+                for kv_len in (self._pdrop["kv_len"].values() if self._pdrop else ()):
+                    kv_len[i] += n
 
     # ------------------------------------------------------------------
 

@@ -4,7 +4,12 @@
 (a 2-D kernel of at least `min_size` elements) for an `Int8Linear`, in place.
 The ViT's patch embedding is an `nn.Linear` here, but in the JAX package it
 is a 4-D (p, p, 3, D) leaf that is never quantized, so it stays as it is;
-InternVideo2's flattened 2-D tubelet kernel is quantized in both.
+InternVideo2's flattened 2-D tubelet kernel is quantized in both. The TransV
+merge modules (`TimeViperVLM.merge_modules`, models/pdrop.py) quantize as
+the JAX package's tree walk quantizes `params["merge_modules"]`, under the
+backbone's switch; their linears see input only inside a pdrop stage or a
+decode step on a pdrop cache, so calibrate them with a forward that runs
+pdrop.
 
 `calibrate_act_scales` runs a forward with the amax sink of
 ops/int8_linear.py installed and gives each int8 layer that saw input
