@@ -4,7 +4,8 @@ microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
 slot-batched serving engine, pdrop with TransV, LoRA training, int8 serving
 with the fused kernels, then serving with the InternVideo2 tower (bf16, then
-int8) and with the two-tower DINOv2 + SigLIP encoder.
+int8) and with the two-tower DINOv2 + SigLIP encoder, and last the Qwen2.5-7B
+backbone.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,10 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    its device time is split by kernel (dq, dkv). K3 runs at SigLIP's
    shape and at DINOv2-L's (hd 64, T 734); K10a at 8 frames for 1, 2 and 4
    heads a block, with the exp and without it. Each output's SHA-256 is printed, to
-   compare the kernels' bits across runs and machines.
+   compare the kernels' bits across runs and machines. Last, the qwen2
+   backbones' GQA groups (Hq / Hkv 28 / 4, 16 / 2 and 12 / 2: blocks of 1, 8
+   and 2 query heads): K2 at L 4,096 segmented and not, and K9 at 1 and 40
+   rows x 8,448 keys at 28 / 4 (the qwen2.5-7b decode step and a question).
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
    heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
@@ -146,6 +150,23 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    with its own ToMe-16 projector, 32 tokens a frame; the text and 64-frame
    requests. Every encode chunk launches K3 23 + 26 times; the first logits
    are held against the plain versions as above.
+10. Qwen2: qwen2.5-7b-instruct + siglip-vit-so400m-384px + tome_mlp-16, all 28
+   layers, random bf16 weights from the seed (the other models freed first):
+   (a) the three requests with the kernels and with every plain version
+   (first-logit cosine 0.99; K2 exactly 28 launches a prefill, K9 28 a decode
+   step: the Generator's qwen2 decode attention is K9's non-causal mode);
+   (b) a 40-token question on a cached prefix of 8 tokens + 256 frames
+   (prefill_prefix, generate(prefix=...): K9 twice a layer in the
+   continuation) against the whole prompt; (c) pdrop
+   "uni_14_0.8-attn_21_0.6" with TransV (tanh(alpha) 0.5, q_proj tempered as
+   in 5c) on the 64- and 256-frame requests: the rows after each stage
+   (8,192 -> 7,372 -> 6,553), each layer's kv_len, the first logits on one
+   keep set against the plain versions, and the attn keep set against
+   theirs, within 2 points of how far one ulp on the visual features moves
+   the plain versions' own set (or of 99%); (d)
+   ServingEngine with 4 slots, a text request and four of 64 frames, each
+   the offline Generator's tokens or within MISS_GAP_LIMIT of an f32
+   teacher-forcing argmax. The launches of (a) add to the kernels line.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -187,6 +208,7 @@ from timeviper_tpu_torch.models import longctx as longctx_mod  # noqa: E402
 from timeviper_tpu_torch.models import nano as nano_mod  # noqa: E402
 from timeviper_tpu_torch.models import pdrop as pdrop_mod  # noqa: E402
 from timeviper_tpu_torch.models import prefix_cache as pc_mod  # noqa: E402
+from timeviper_tpu_torch.models import qwen2 as qwen2_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
 from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
@@ -197,7 +219,12 @@ from timeviper_tpu_torch.models.pdrop import (  # noqa: E402
     make_pdrop_spec,
 )
 from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noqa: E402
-from timeviper_tpu_torch.models.vlm import encode_visual, init_vlm_params, vlm_forward  # noqa: E402
+from timeviper_tpu_torch.models.vlm import (  # noqa: E402
+    encode_visual,
+    init_vlm_params,
+    llm_forward,
+    vlm_forward,
+)
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops import attention as attn_mod  # noqa: E402
 from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
@@ -280,6 +307,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 FUSIONS = ("TIMEVIPER_FUSED_CONV", "TIMEVIPER_FUSED_DECODE", "TIMEVIPER_VIT_FUSED_LN")
+# the qwen2 backbones' (query heads, KV heads): qwen2.5-7b, qwen2.5-3b, qwen2-1.5b
+QWEN2_GQA = ((28, 4), (16, 2), (12, 2))
 
 # Per kernel: its source, the TPU kernel it replaces (file:line) and its
 # tolerance, relative to the plain result's largest magnitude. Forward: both
@@ -879,6 +908,55 @@ def kernel_cases(g: torch.Generator):
                                         f"{pack} heads a block"))
         del q9, k9, v9, out9, lib_in
 
+    # the qwen2 backbones' GQA groups, from a generator of their own (the
+    # other cases' inputs and SHA-256 stay as they were): K2 at L 4,096 with
+    # the same segments and without, at Hq / Hkv 28 / 4 (qwen2.5-7b: blocks
+    # of 1 query head), 16 / 2 (qwen2.5-3b: 8) and 12 / 2 (qwen2-1.5b: 2);
+    # K9 at the qwen2.5-7b decode step's 1 row and a question's 40 against
+    # 8,448 cached rows (the 256-frame bucket and a 256-row suffix budget)
+    gq = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    def rq(*shape):
+        return torch.randn(*shape, generator=gq, device=DEV).to(torch.bfloat16)
+
+    for Hq2, Hkv2 in QWEN2_GQA:
+        q2, k2, v2 = rq(1, L, Hq2, hd), rq(1, L, Hkv2, hd), rq(1, L, Hkv2, hd)
+        pack = gqa_pack(Hq2, Hkv2)
+        plan2 = (f"{-(-L * pack // FLASH_TILE[0]) * (Hq2 // pack)} blocks of {FLASH_TILE[0]} "
+                 f"(row, head) pairs ({FLASH_TILE[0] // pack} tokens x {pack} heads)")
+        out2 = flash_attention(q2, k2, v2)
+        for sq in (seq, None):
+            yield ("flash_fwd", lambda sq=sq, q2=q2, k2=k2, v2=v2: flash_attention(
+                       q2, k2, v2, segment_ids=sq),
+                   lambda sq=sq, q2=q2, k2=k2, v2=v2: flash_attention_plain(
+                       q2, k2, v2, segment_ids=sq),
+                   sdpa(q2, k2, v2, sq)[0] if sq is not None else sdpa(q2, k2, v2, flash=True)[0],
+                   (4 * Hq2 * hd * (pairs if sq is not None else L * (L + 1) // 2),
+                    nbytes(q2, k2, v2, sq, out2)),
+                   dict(variant=f"qwen2 Hq/Hkv {Hq2}/{Hkv2}, "
+                                + ("segmented; library: SDPA with a boolean mask"
+                                   if sq is not None else "unsegmented; library: SDPA flash "
+                                   "backend, is_causal"), main=False, repeat=True, launch=plan2))
+        del q2, k2, v2, out2
+    Hq2, Hkv2 = QWEN2_GQA[0]
+    for Lq in (1, 40):
+        q9, k9, v9 = rq(1, Lq, Hq2, hd), rq(1, 8448, Hkv2, hd), rq(1, 8448, Hkv2, hd)
+        out9 = block_attn_lse(q9, k9, v9)
+        pack, n_split, _ = block_attn_plan(1, Lq, 8448, Hq2, Hkv2)
+        blocks = -(-Lq * pack // BLOCK_ROWS) * (Hq2 // pack) * n_split
+        lib_in = [x.transpose(1, 2).contiguous() for x in (q9, k9, v9)]
+
+        def lib9(lib_in=lib_in):
+            return torch.nn.functional.scaled_dot_product_attention(*lib_in, enable_gqa=True)
+
+        yield ("block_attn", lambda q9=q9, k9=k9, v9=v9: block_attn_lse(q9, k9, v9),
+               lambda q9=q9, k9=k9, v9=v9: block_attn_lse_plain(q9, k9, v9), lib9,
+               (4 * Hq2 * hd * Lq * 8448, nbytes(q9, k9, v9, *out9)),
+               dict(variant=f"qwen2 Hq/Hkv {Hq2}/{Hkv2}, non-causal {Lq} x 8448"
+                            + (" (the decode step)" if Lq == 1 else ""), main=False,
+                    repeat=True, launch=f"{n_split} key split(s), {blocks} blocks, {pack} "
+                                        "heads a block"))
+        del q9, k9, v9, out9, lib_in
+
 
 def output_digest(out) -> str:
     """SHA-256 of a kernel's output tensor(s), bytes as they lie on the card."""
@@ -1372,18 +1450,18 @@ def engine_requests(arch, g: torch.Generator):
 
 @torch.inference_mode()
 def forced_logits(llm, arch, gen, ids, visual, n: int) -> torch.Tensor:
-    """The f32 logits (n, V) of the last n rows of one nano_forward of `llm`
-    over the bucketed, fused row of `ids` and the frames' visual tokens (the
-    rows that predict a request's n outputs), fused as vlm_forward fuses
-    it."""
+    """The f32 logits (n, V) of the last n rows of one nano_forward (or
+    qwen2_forward) of `llm` over the bucketed, fused row of `ids` and the
+    frames' visual tokens (the rows that predict a request's n outputs),
+    fused as vlm_forward fuses it."""
     plan, bucket, pad, ids_arr, gather_idx, seq_idx = gen._plan_prompt(ids, IMAGE_TOKEN)
     visual = gen._check_visual(plan, visual)
     text = llm.embeddings(torch.as_tensor(ids_arr, dtype=torch.long, device=DEV))
     src = torch.cat([text, visual.to(text.dtype)])
     fused = src[torch.as_tensor(gather_idx, dtype=torch.long, device=DEV)][None]
     seq = torch.as_tensor(seq_idx, dtype=torch.int32, device=DEV)[None]
-    return nano_forward(llm, arch.llm, inputs_embeds=fused, seq_idx=seq,
-                        logits_to_keep=n)["logits"][0]
+    return llm_forward(llm, arch, inputs_embeds=fused, seq_idx=seq,
+                       logits_to_keep=n)["logits"][0]
 
 
 def phase_engine(model, arch, smi: str, kernel_results: dict) -> None:
@@ -1609,11 +1687,13 @@ class StageLog:
             return idx
 
         nano_mod.apply_pdrop_stage = longctx_mod.apply_pdrop_stage = stage
+        qwen2_mod.apply_pdrop_stage = stage
         pdrop_mod._keep_indices = keep
         return self
 
     def __exit__(self, *exc):
         nano_mod.apply_pdrop_stage = longctx_mod.apply_pdrop_stage = self._stage
+        qwen2_mod.apply_pdrop_stage = self._stage
         pdrop_mod._keep_indices = self._keep
 
 
@@ -2414,6 +2494,252 @@ def int8_tower_request(model, arch, gen, requests, bf16_outs, blocks, tag: str) 
     log(f"[{tag} int8] 64 frames: first-token logits, int8 vs the bf16 model: cosine "
         f"{cosine(outs['64 frames'].first_logits, bf16_outs['64 frames'].first_logits):.6f}")
 
+# phase 10: the qwen2 backbone. Where each kernel of its path is called: K2
+# in the prefill's attention, K9 in the Generator's decode step, in the
+# continuation's two suffix blocks and in TransV's cross-attention, K3 in
+# the SigLIP tower
+QWEN2_ID = "qwen2.5-7b-instruct"
+QWEN2_PDROP = dict(use_pdrop=True, pdrop_type="uni_14_0.8-attn_21_0.6",
+                   merge_module="CrossAttention")  # docs/USAGE.md's qwen2 setting
+QWEN2_ROUTES = {"flash_fwd": ((qwen2_mod, "flash_attention"),),
+                "block_attn": ((qwen2_mod, "block_attn_lse"), (pc_mod, "block_attn_lse"),
+                               (attn_mod, "block_attn_lse")),
+                "vit_attn_qkv": ((vit_mod, "encoder_attention_qkv"),)}
+QWEN2_PATH = tuple(QWEN2_ROUTES)
+
+
+def route_qwen2(table: dict) -> None:
+    """Point the qwen2 path's calls of each kernel at table[name] (CALLS or
+    PLAIN)."""
+    for name, places in QWEN2_ROUTES.items():
+        for mod, attr in places:
+            setattr(mod, attr, table[name])
+
+
+def qwen2_launches(tag: str, want: dict, need=QWEN2_PATH) -> dict:
+    """The launch counts since the last reset_launches; each kernel in `need`
+    must have launched, and exactly want[name] times where given."""
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"[{tag}] launches: {launches}")
+    for name in need:
+        if launches[name] == 0 or launches[name] != want.get(name, launches[name]):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, want "
+                                 f"{want.get(name, 'some')}")
+    return launches
+
+
+def phase_qwen2(smi: str, kernel_results: dict) -> None:
+    """10: qwen2.5-7b-instruct + siglip-vit-so400m-384px + tome_mlp-16 at full
+    width and depth (28 layers, GQA 28 / 4), random bf16 weights from the
+    seed: (a) the three requests through Generator.generate with the kernels
+    and with every plain version (first-logit cosine 0.99; K2 28 launches a
+    prefill, K9 28 a decode step); (b) a 40-token question on a cached prefix
+    of 8 tokens + 256 frames against the whole prompt; (c) pdrop with TransV
+    (QWEN2_PDROP, tanh(alpha) 0.5, q_proj tempered as phase 5c tempers it):
+    the 64- and 256-frame requests, the rows after each stage, each layer's
+    kv_len, the first logits on one keep set against the plain versions, and
+    the attn keep set against theirs (within 2 points of what one input ulp
+    moves the plain versions' own set, or of 99%); (d) ServingEngine with 4
+    slots: a text request and four of 64 frames, each the offline
+    Generator's tokens or, where they part, within MISS_GAP_LIMIT of an f32
+    teacher-forcing argmax. The launches of (a) add to the kernels'
+    records."""
+    arch = build_arch(VLMConfig(llm_backbone_id=QWEN2_ID))
+    t0 = time.perf_counter()
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cfg = arch.llm
+    log(f"[qwen2] {QWEN2_ID}: {sum(p.numel() for p in model.llm_backbone.parameters()) / 1e9:.2f}"
+        f" B backbone params ({cfg.num_hidden_layers} layers, Hq/Hkv "
+        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}, pack "
+        f"{gqa_pack(cfg.num_attention_heads, cfg.num_key_value_heads)}), "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
+    for var in FUSIONS:
+        os.environ[var] = "0"
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    requests = make_requests(arch)
+
+    # (a) the three requests, with the kernels and with the plain versions
+    route_qwen2(CALLS)
+    reset_launches()
+    outs = serve(gen, requests, "qwen2")
+    steps = sum(o.num_generated - 1 for o in outs.values())
+    launches = qwen2_launches("qwen2", {"flash_fwd": 3 * cfg.num_hidden_layers,
+                                        "block_attn": steps * cfg.num_hidden_layers})
+    for name in QWEN2_PATH:
+        kernel_results[name]["launches"] += launches[name]
+    route_qwen2(PLAIN)
+    try:
+        plain = serve(gen, requests, "qwen2 plain")
+    finally:
+        route_qwen2(CALLS)
+    for label, o in outs.items():
+        log(f"[qwen2] {label}: ids kernels {o.token_ids.tolist()} plain "
+            f"{plain[label].token_ids.tolist()}")
+        logits_agree(f"qwen2 {label}, kernels vs plain versions", o.first_logits,
+                     plain[label].first_logits)
+    del plain
+    torch.cuda.empty_cache()
+
+    # (b) a question on a cached 256-frame prefix, against the whole prompt
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    size = arch.vision.image_size
+    text = torch.randint(10, 130000, (48,), generator=g, device=DEV).tolist()
+    frames = torch.rand(256, size, size, 3, generator=g, device=DEV) * 2 - 1
+    prefix_ids, question = text[:8] + [IMAGE_TOKEN] * 256, text[8:]
+    t0 = time.perf_counter()
+    state = gen.prefill_prefix(prefix_ids, pixels=frames, image_token_id=IMAGE_TOKEN,
+                               suffix_budget=512)
+    torch.cuda.synchronize()
+    reset_launches()
+    o = gen.generate(question, prefix=state)
+    # the continuation: two K9 blocks a layer; the decode: one a layer and step
+    qwen2_launches("qwen2 prefix", {"block_attn": (o.num_generated + 1) * cfg.num_hidden_layers},
+                   need=("block_attn",))
+    whole = gen.generate(prefix_ids + question, pixels=frames, image_token_id=IMAGE_TOKEN)
+    log(f"[qwen2 prefix] prefill_prefix of 8 tokens + 256 frames: bucket {state.bucket}, pad "
+        f"{state.pad}, {time.perf_counter() - t0:.3f} s with the encode; 40-token question: "
+        f"continuation {o.prefill_s:.3f} s, decode {(o.num_generated - 1) / o.decode_s:.2f} "
+        f"tok/s, tokens {o.token_ids.tolist()}; the whole prompt's {whole.token_ids.tolist()}")
+    logits_agree("qwen2 prefix, question vs the whole prompt", o.first_logits,
+                 whole.first_logits)
+    del state, frames, whole
+    torch.cuda.empty_cache()
+
+    # (c) pdrop with TransV
+    arch_p = dataclasses.replace(arch, llm=dataclasses.replace(cfg, **QWEN2_PDROP))
+    attach_merge_modules(model, arch_p)
+    gen_p = Generator(model, arch_p, terminator_ids=[], max_new_tokens=MAX_NEW)
+    factors = temper_transv(model, gen_p, *requests[1][1])
+    log(f"[qwen2 pdrop] {arch_p.llm.pdrop_type}: TransV q_proj rescaled by "
+        f"{', '.join(f'{f:.3e}' for f in factors)} (stage order)")
+    for label, (ids, px) in requests[1:]:
+        reset_launches()
+        o = gen_p.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN, use_pdrop=True)
+        qwen2_launches(f"qwen2 pdrop {label}", {})
+        with torch.inference_mode():
+            visual = gen_p.encode_frames(px)
+            nudged = (visual.view(torch.int16) + 1).view(torch.bfloat16)  # one ulp up
+        logits, cache, bucket, stages = pdrop_prefill(gen_p, ids, px, visual=visual)
+        lens = [lc["kv_len"] for lc in cache["layers"]]
+        rows = [bucket]
+        for drop in pdrop_mod.pdrop_drop_counts(arch_p.llm, plan_visual(gen_p, ids)):
+            rows.append(rows[-1] - drop)
+        want = [rows[sum(st.layer <= i for st in arch_p.llm.pdrop_stages)]
+                for i in range(cfg.num_hidden_layers)]
+        if stages.lengths != list(zip(rows, rows[1:])) or lens != want:
+            raise AssertionError(f"qwen2 pdrop rows {stages.lengths}, kv_len {lens}; want "
+                                 f"{rows}, {want}")
+        transv_rows = [c["k"].shape[0] for c in cache["ca_kv"]]
+        del cache
+        # the plain versions on the kernels' keep set (the first logits), on
+        # their own (the overlap), and on their own with every visual feature
+        # one ulp up: how far rounding alone moves the keep set
+        route_qwen2(PLAIN)
+        try:
+            ref, _, _, _ = pdrop_prefill(gen_p, ids, px, replay=stages.keeps, visual=visual)
+            _, _, _, ref_stages = pdrop_prefill(gen_p, ids, px, visual=visual)
+            _, _, _, moved_stages = pdrop_prefill(gen_p, ids, px, visual=nudged)
+        finally:
+            route_qwen2(CALLS)
+        keep, ref_keep = stages.keeps[0], ref_stages.keeps[0]
+        overlap = len(set(keep.tolist()) & set(ref_keep.tolist())) / len(ref_keep)
+        witness = len(set(moved_stages.keeps[0].tolist()) & set(ref_keep.tolist())) / len(ref_keep)
+        log(f"[qwen2 pdrop] {label}: encode {o.encode_s:.3f} s, pdrop prefill "
+            f"{o.prefill_s:.3f} s, decode {(o.num_generated - 1) / o.decode_s:.2f} tok/s, "
+            f"tokens {o.token_ids.tolist()}; rows " + " -> ".join(map(str, rows))
+            + f"; kv_len by layer {sorted(set(lens), reverse=True)} ({lens.count(rows[0])}, "
+            f"{lens.count(rows[1])}, {lens.count(rows[-1])} layers); TransV rows "
+            f"{transv_rows}; attn keep set of {len(ref_keep)}: kernels vs plain versions "
+            f"{overlap:.2%} overlap, plain vs plain one ulp up {witness:.2%}")
+        logits_agree(f"qwen2 pdrop {label}, kernels vs plain versions, one keep set", logits,
+                     ref)
+        # random weights rank visual tokens by near-ties that one input ulp
+        # reorders: the kernels' set must overlap the plain one as closely as
+        # that, or to 99%, less 2 points
+        if overlap < min(0.99, witness) - 0.02:
+            raise AssertionError(f"qwen2 pdrop {label}: keep sets overlap {overlap:.2%} (one "
+                                 f"input ulp: {witness:.2%})")
+        del visual, nudged
+    model.merge_modules = None
+    torch.cuda.empty_cache()
+
+    # (d) the engine: 4 slots, a text request and four of 64 frames
+    g = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    mix = [dict(input_ids=torch.randint(10, 130000, (100,), generator=g, device=DEV).tolist(),
+                max_new_tokens=MAX_NEW)]
+    for _ in range(4):
+        ids = torch.randint(10, 130000, (40,), generator=g, device=DEV).tolist()
+        mix.append(dict(input_ids=ids[:8] + [IMAGE_TOKEN] * 64 + ids[8:],
+                        pixels=torch.rand(64, size, size, 3, generator=g, device=DEV) * 2 - 1,
+                        image_token_id=IMAGE_TOKEN, max_new_tokens=MAX_NEW))
+    eng = ServingEngine(model, arch, terminator_ids=[], num_slots=4, max_len=4096,
+                        steps_per_sync=4)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run([Request(request_id=i, **kw) for i, kw in enumerate(mix)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.output_ids) for r in out)
+    log(f"[qwen2 engine] {len(out)} requests through 4 slots, {n_tok} output tokens in "
+        f"{wall:.3f} s, {n_tok / wall:.2f} output tokens/s; {smi}")
+    # the slots' decode is the plain masked attention (one length a row)
+    qwen2_launches("qwen2 engine", {}, need=("flash_fwd", "vit_attn_qkv"))
+    bad = [(r.request_id, r.error) for r in out if r.error or not r.done]
+    if bad:
+        raise AssertionError(f"qwen2 engine requests failed: {bad}")
+    del eng
+    check_qwen2_engine(model, arch, mix, out)
+    del model, gen, gen_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_qwen2_engine(model, arch, mix, out) -> None:
+    """Each engine request's tokens against the offline Generator's; where
+    they part, every engine token from there that is not the argmax of an
+    f32 teacher-forcing qwen2_forward (an f32 copy of the backbone, plain
+    versions) must lie within MISS_GAP_LIMIT of it (phase 5b's rule)."""
+    llm32, same = None, 0
+    for i, (kw, r) in enumerate(zip(mix, out)):
+        gen = Generator(model, arch, terminator_ids=[], max_new_tokens=len(r.output_ids))
+        px = kw.get("pixels")
+        ref = gen.generate(kw["input_ids"], pixels=px, image_token_id=IMAGE_TOKEN)
+        cos = cosine(r.first_logits, ref.first_logits)
+        ref = ref.token_ids.tolist()
+        first = next((j for j, (a, b) in enumerate(zip(r.output_ids, ref)) if a != b), None)
+        log(f"[qwen2 engine] request {i}: first logits cosine {cos:.6f} against the offline "
+            f"Generator's; tokens {r.output_ids}, the Generator's "
+            + ("the same" if first is None else f"{ref} (they part at {first})"))
+        if not cos >= 0.999:
+            raise AssertionError(f"qwen2 engine request {i}: first logits cosine {cos:.6f}")
+        if first is None:
+            same += 1
+            continue
+        if llm32 is None:
+            llm32 = qwen2_mod.Qwen2Model(arch.llm, torch.float32, DEV)
+            llm32.load_state_dict(model.llm_backbone.state_dict())
+        with torch.inference_mode():
+            visual = gen.encode_frames(px) if px is not None else None
+        route_qwen2(PLAIN)
+        try:
+            rows = forced_logits(llm32, arch, gen, kw["input_ids"] + r.output_ids[:-1], visual,
+                                 len(r.output_ids))
+        finally:
+            route_qwen2(CALLS)
+        gaps = [(rows[j].max() - rows[j, tok]).item() for j, tok in enumerate(r.output_ids)]
+        worst = max(gaps[first:])
+        log(f"[qwen2 engine] request {i}: largest gap below the f32 argmax from token {first} "
+            f"on {worst:.3e} (limit {MISS_GAP_LIMIT})")
+        if worst > MISS_GAP_LIMIT:
+            raise AssertionError(f"qwen2 engine request {i}: a token {worst:.3e} below the f32 "
+                                 "argmax")
+    log(f"[qwen2 engine] {same} of {len(out)} requests give the offline Generator's tokens")
+    del llm32
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2449,6 +2775,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_tower_serving("dinosiglip-vit-so-384px", 2, "dinosiglip", results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_qwen2(smi, results)
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

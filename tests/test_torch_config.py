@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's JAX-free modules equal the
-originals: timeviper_tpu_torch/config.py (every registry entry the port
-builds, field for field, and the pdrop micro-DSL) and
+originals: timeviper_tpu_torch/config.py (every registry entry, the
+nano and the qwen2 backbones', field for field, and the pdrop micro-DSL) and
 timeviper_tpu_torch/data/fusion.py (plans and fused labels on several
 layouts). The port imports neither original."""
 
@@ -15,7 +15,7 @@ from timeviper_tpu_torch import config as tcfg
 from timeviper_tpu_torch.data import fusion as tfusion
 
 VISION_IDS = [k for k, v in tcfg.VISION_MODEL_REGISTRY.items() if v["family"] == "siglip"]
-LLM_IDS = [k for k, v in tcfg.LLM_MODEL_REGISTRY.items() if v["family"] == "nano"]
+LLM_IDS = list(tcfg.LLM_MODEL_REGISTRY)  # the nano and the five qwen2 ids
 
 
 @pytest.mark.parametrize("vid", VISION_IDS)
@@ -29,11 +29,14 @@ def test_vision_registry_matches(vid):
 @pytest.mark.parametrize("lid", LLM_IDS)
 def test_llm_registry_matches(lid):
     got, want = tcfg.get_llm_backbone_config(lid), jcfg.get_llm_backbone_config(lid)
-    assert got["family"] == want["family"] == "nano"
+    assert got["family"] == want["family"] == ("qwen2" if lid.startswith("qwen2") else "nano")
     g, w = got["config"], want["config"]
+    assert type(g).__name__ == type(w).__name__
     assert asdict(g) == asdict(w)
-    assert (g.layers_block_type, g.mamba_intermediate_size, g.conv_dim) == (
-        w.layers_block_type, w.mamba_intermediate_size, w.conv_dim)
+    assert (g.layers_block_type, g.pdrop_stages) == (w.layers_block_type, w.pdrop_stages)
+    if got["family"] == "nano":
+        assert (g.mamba_intermediate_size, g.conv_dim) == (w.mamba_intermediate_size,
+                                                           w.conv_dim)
 
 
 def test_unported_ids_keep_their_family_and_tiny_configs_match():
@@ -44,6 +47,8 @@ def test_unported_ids_keep_their_family_and_tiny_configs_match():
     assert asdict(tcfg.tiny_nano_config(mamba_n_groups=8)) == asdict(
         jcfg.tiny_nano_config(mamba_n_groups=8))
     assert asdict(tcfg.tiny_vit_config()) == asdict(jcfg.tiny_vit_config())
+    assert asdict(tcfg.tiny_qwen2_config(tie_word_embeddings=True)) == asdict(
+        jcfg.tiny_qwen2_config(tie_word_embeddings=True))
     for spec in ("tome_mlp-16", "gelu_mlp", "tome_mlp-2"):
         a, b = tcfg.VLMConfig(arch_specifier=spec), jcfg.VLMConfig(arch_specifier=spec)
         assert asdict(a) == asdict(b)
@@ -113,5 +118,6 @@ def test_other_vision_registry_entries_match(vid):
             ("effective_depth",) if vid.startswith("internvideo2") else
             ("num_patches", "num_prefix_tokens"))
         assert [getattr(g, p) for p in props] == [getattr(w, p) for p in props]
-    for lid in ("qwen2-7b", "qwen2.5-3b-instruct"):
-        assert tcfg.get_llm_backbone_config(lid)["config"] is None
+    for lid in ("qwen2-7b", "qwen2.5-3b-instruct"):  # built now, as the JAX package builds them
+        g, w = (reg.get_llm_backbone_config(lid)["config"] for reg in (tcfg, jcfg))
+        assert type(g).__name__ == "Qwen2Config" and asdict(g) == asdict(w)

@@ -33,6 +33,7 @@ MODULES = [
     "timeviper_tpu_torch.bench.microbench_vit_attn", "timeviper_tpu_torch.bench.microbench_flash",
     "timeviper_tpu_torch.bench.attention_ab", "timeviper_tpu_torch.bench.ssd_ab",
     "timeviper_tpu_torch.bench.train_ab", "timeviper_tpu_torch.models.pdrop",
+    "timeviper_tpu_torch.models.qwen2", "timeviper_tpu_torch.ops.rope",
     "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent

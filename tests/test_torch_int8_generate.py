@@ -41,6 +41,30 @@ SWITCHES = ("TIMEVIPER_FUSED_CONV", "TIMEVIPER_FUSED_DECODE", "TIMEVIPER_VIT_FUS
             "TIMEVIPER_LLM_INT8_MXU", "TIMEVIPER_VIT_INT8_MXU")
 
 
+def jit_in_order(fn, *args):
+    """fn(*args) through jax.jit, with every dict of the result in the
+    insertion order fn builds it. A jitted result's dicts come back with
+    sorted keys, and the JAX package's calibrate_act_scales pairs its
+    captured scales with the quantized leaves in dict order; fn op by op
+    gives that order too, but compiles each op on its own (seconds for this
+    VLM). The order is read from the traced result."""
+    seen = {}
+
+    def traced(*a):
+        seen["tree"] = fn(*a)
+        return seen["tree"]
+
+    return _in_order(jax.jit(traced)(*args), seen["tree"])
+
+
+def _in_order(value, template):
+    if isinstance(template, dict):
+        return {k: _in_order(value[k], v) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_in_order(a, b) for a, b in zip(value, template))
+    return value
+
+
 def _count(monkeypatch, module, name, calls):
     fn = getattr(module, name)
     monkeypatch.setattr(module, name, lambda *a, **k: calls.append(name) or fn(*a, **k))
@@ -55,7 +79,13 @@ def test_int8_fused_generate_matches_jax(monkeypatch):
                             chunk_size=128)
     arch = VLMArch(vlm=vlm, vision=vcfg, llm=lcfg)
     jarch = jax_vlm.VLMArch(vlm=vlm, vision=vcfg, llm=lcfg, llm_family="nano")
-    params = jax_vlm.init_vlm_params(jax.random.PRNGKey(0), jarch, jnp.float32)
+
+    def init(key):  # the weights and both quantized trees, in the JAX init's dict order
+        p = jax_vlm.init_vlm_params(key, jarch, jnp.float32)
+        return p, [jax_quant.quantize_params_int8(p[part], min_size=1)
+                   for part in ("vision_backbone", "llm_backbone")]
+
+    params, (vqp, lqp) = jit_in_order(init, jax.random.PRNGKey(0))
     model = TimeViperVLM(arch, torch.float32, device="cpu")
     model.load_state_dict(from_jax_numpy(params, arch))
 
@@ -63,13 +93,10 @@ def test_int8_fused_generate_matches_jax(monkeypatch):
     cal_px = r.random((3, 28, 28, 3), np.float32)
     cal_ids = r.integers(10, 400, (1, 40)).astype(np.int32)
     vq = jax_quant.calibrate_act_scales(
-        lambda p, b: jax_vit.vit_forward(p, vcfg, b),
-        jax_quant.quantize_params_int8(params["vision_backbone"], min_size=1),
-        [jnp.asarray(cal_px)])
+        lambda p, b: jax_vit.vit_forward(p, vcfg, b), vqp, [jnp.asarray(cal_px)])
     lq = jax_quant.calibrate_act_scales(
         lambda p, b: jax_nano.nano_forward(p, lcfg, input_ids=b, logits_to_keep=1)["logits"],
-        jax_quant.quantize_params_int8(params["llm_backbone"], min_size=1),
-        [jnp.asarray(cal_ids)])
+        lqp, [jnp.asarray(cal_ids)])
     qparams = dict(params, vision_backbone=vq, llm_backbone=jax_quant.fuse_decode_in_proj(lq))
 
     # the port's own quantize and calibration give the same scales, and the

@@ -288,6 +288,73 @@ def test_flash_kernel_matches_plain(L, packed):
     assert torch.equal(got, flash_attention(q, k, v, segment_ids=seg))
 
 
+# the qwen2 backbones' GQA groups: 28 / 4 (qwen2.5-7b, 7 query heads a KV
+# head: blocks of 1 head), 16 / 2 (qwen2.5-3b: 8) and 12 / 2 (qwen2-1.5b: 2)
+QWEN2_GQA = [(28, 4), (16, 2), (12, 2)]
+
+
+@pytest.mark.parametrize("Hq,Hkv", QWEN2_GQA)
+@pytest.mark.parametrize("L,packed", [(300, (13, 140)), (256, None), (4096, (1000, 2500))])
+def test_flash_kernel_at_the_qwen2_gqa_groups(Hq, Hkv, L, packed):
+    """K2 at query-head packs of 1, 8 and 2 (ops/block_attention.py:gqa_pack),
+    segmented (a -1 pad and a boundary) and not, against its plain version to
+    1e-2; one launch; a repeat gives the same bits."""
+    dev = require_cuda()
+    r = rng(21)
+    B = 1 if L == 4096 else 2
+    q, k, v = (t(r.standard_normal((B, L, h, 128), np.float32)).to(dev, torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    seg = t(packed_seq(B, L, *packed)).to(dev) if packed else None
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, segment_ids=seg)
+    assert flash_attention.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, segment_ids=seg), 1e-2)
+    assert torch.equal(got, flash_attention(q, k, v, segment_ids=seg))
+
+
+@pytest.mark.parametrize("Hq,Hkv", QWEN2_GQA)
+@pytest.mark.parametrize("case", ["decode 1", "question 40", "causal 4096", "no key"])
+def test_block_attention_kernel_at_the_qwen2_gqa_groups(Hq, Hkv, case):
+    """K9 at query-head packs of 1, 8 and 2: a decode step's 1 row and a
+    question's 40 against 8,448 rows [3, 8451) of a cache buffer (split
+    keys, as the qwen2 decode and continuation read them); the causal
+    suffix part at 4,096; 40 rows whose row 5 sees no key (l 0, m -inf, o
+    0). Against the plain version to 1e-2; one launch; a repeat gives the
+    same bits."""
+    dev = require_cuda()
+    r = rng(22)
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    kw, dead = {}, None
+    if case == "causal 4096":
+        q, k, v = bf(1, 4096, Hq, 128), bf(1, 4096, Hkv, 128), bf(1, 4096, Hkv, 128)
+        kw = dict(causal=True)
+    else:
+        Lq = 1 if case == "decode 1" else 40
+        buf_k, buf_v = bf(1, 8460, Hkv, 128), bf(1, 8460, Hkv, 128)
+        q, k, v = bf(1, Lq, Hq, 128), buf_k[:, 3:8451], buf_v[:, 3:8451]
+        assert block_attn_plan(1, Lq, k.shape[1], Hq, Hkv)[1] > 1
+        if case == "no key":
+            seg_q = torch.zeros(1, Lq, dtype=torch.int32, device=dev)
+            seg_q[:, 5] = 7
+            kw, dead = dict(seg_q=seg_q, seg_kv=torch.zeros(1, k.shape[1], dtype=torch.int32,
+                                                            device=dev)), 5
+    before = block_attn_lse.launches
+    got = block_attn_lse(q, k, v, **kw)
+    assert block_attn_lse.launches == before + 1
+    o, l, m = got
+    po, pl, pm = block_attn_lse_plain(q, k, v, **kw)
+    _close(o, po, 1e-2)
+    _close(l, pl, 1e-2)
+    assert torch.equal(torch.isneginf(m), torch.isneginf(pm))
+    _close(torch.where(torch.isneginf(pm), 0.0, m), torch.where(torch.isneginf(pm), 0.0, pm),
+           1e-2)
+    if dead is not None:
+        assert (l[:, :, dead] == 0).all() and torch.isneginf(m[:, :, dead]).all()
+        assert (o[:, dead] == 0).all()
+    again = block_attn_lse(q, k, v, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("Lq,Lk,B", [(32, 820, 1), (32, 819, 8), (1, 819, 1), (1, 820, 8)])
 def test_transv_cross_attention_runs_the_block_kernel(Lq, Lk, B):
     """TransV's cross_attention on the card is K9's non-causal mode: the 9B's

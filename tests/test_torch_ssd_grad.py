@@ -89,7 +89,8 @@ def test_ssd_grads_match_the_jax_backward_kernel(L, cs, packed, lim):
 
 @pytest.mark.parametrize("packed", [None, (5, 23)])
 def test_ssd_grads_match_jax_vjp_with_an_initial_state(packed):
-    """jax.vjp of the jnp ssd_chunked, the initial state's cotangent too."""
+    """jax.vjp of the jnp ssd_chunked, the initial state's cotangent too
+    (jitted: op by op, its backward compiles each op on its own)."""
     B, L, H, P, G, N, cs = 2, 40, 4, 8, 2, 16, 16
     v = _inputs(7, B, L, H, P, G, N)
     h0 = rng(8).standard_normal((B, H, P, N), np.float32)
@@ -101,9 +102,12 @@ def test_ssd_grads_match_jax_vjp_with_an_initial_state(packed):
                                seq_idx=None if seq is None else jnp.asarray(seq),
                                initial_state=init, return_final_state=True)
 
+    @jax.jit
+    def vjp_of_f(args, init, cotangents):
+        return jax.vjp(f, *args, init)[1](cotangents)
+
     args = [jnp.asarray(v[k]) for k in ("x", "dt", "A", "Bm", "Cm", "D", "dtb")]
-    _, vjp = jax.vjp(f, *args, jnp.asarray(h0))
-    want = vjp((jnp.asarray(v["gy"]), jnp.asarray(v["gst"])))
+    want = vjp_of_f(args, jnp.asarray(h0), (jnp.asarray(v["gy"]), jnp.asarray(v["gst"])))
     for name, g, w in zip(NAMES + ("dinit",), got, want):
         _close(name, g, w)
 

@@ -118,5 +118,8 @@ def test_build_arch_matches_jax(vid):
     assert asdict(arch.vision) == asdict(jarch.vision)
     assert [(b, f, asdict(c)) for b, f, c in arch.vision_backbones or ()] == [
         (b, f, asdict(c)) for b, f, c in jarch.vision_backbones or ()]
-    with pytest.raises(NotImplementedError):
-        build_arch(tcfg.VLMConfig(vision_backbone_id=vid, llm_backbone_id="qwen2.5-7b-instruct"))
+    # with a qwen2 backbone too, as the JAX package builds it
+    q, jq = (fn(cls(vision_backbone_id=vid, llm_backbone_id="qwen2.5-7b-instruct"))
+             for fn, cls in ((build_arch, tcfg.VLMConfig), (jax_build_arch, VLMConfig)))
+    assert (q.llm_family, asdict(q.llm), asdict(q.vision)) == (
+        jq.llm_family, asdict(jq.llm), asdict(jq.vision))

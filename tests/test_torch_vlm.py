@@ -8,7 +8,6 @@ from dataclasses import asdict
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from torch_parity import n, rng, t
 
@@ -61,5 +60,10 @@ def test_build_arch_matches_jax_for_the_9b():
     # the port's own config classes hold the same fields as the JAX package's
     assert (asdict(arch.vision), asdict(arch.llm), arch.tokens_per_frame) == (
         asdict(jarch.vision), asdict(jarch.llm), jarch.tokens_per_frame)
-    with pytest.raises(NotImplementedError):
-        build_arch(PortVLMConfig(llm_backbone_id="qwen2-1.5b"))
+    # the qwen2 ids build too, with the JAX package's configs
+    for lid in ("qwen2.5-7b-instruct", "qwen2.5-7b-base", "qwen2.5-3b-instruct", "qwen2-7b",
+                "qwen2-1.5b"):
+        arch, jarch = build_arch(PortVLMConfig(llm_backbone_id=lid)), jax_build_arch(
+            VLMConfig(llm_backbone_id=lid))
+        assert arch.llm_family == jarch.llm_family == "qwen2"
+        assert asdict(arch.llm) == asdict(jarch.llm)

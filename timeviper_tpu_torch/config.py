@@ -1,14 +1,11 @@
 """Configuration dataclasses and registries of the port (its own copy of what
-it uses from timeviper_tpu/config.py: the pdrop micro-DSL, NanoConfig, ViTConfig,
-InternVideo2Config, VLMConfig, the tiny test configs and the registry entries
-of the ported families).
+it uses from timeviper_tpu/config.py: the pdrop micro-DSL, NanoConfig,
+Qwen2Config, ViTConfig, InternVideo2Config, VLMConfig, the tiny test configs
+and the registry entries).
 
 The port imports nothing of the JAX package, not even its JAX-free modules,
 so these definitions are kept here; tests/test_torch_config.py holds every
-registry entry the port builds equal, field for field, to the original.
-Backbones of the family the port does not build (qwen2) keep their registry
-ids with the family only, so that asking for one raises NotImplementedError
-in models/api.py:build_arch.
+registry entry equal, field for field, to the original.
 """
 
 from __future__ import annotations
@@ -16,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 # ---------------------------------------------------------------------------
 # pdrop micro-DSL
@@ -136,6 +133,52 @@ class NanoConfig:
         return parse_pdrop_type(self.pdrop_type)
 
 
+@dataclass(frozen=True)
+class Qwen2Config:
+    """Qwen2 / Qwen2.5 transformer backbone config, with Qwen2.5-7B defaults:
+    pre-norm blocks of GQA attention (q/k/v biases, RoPE) and a SiLU-gated
+    MLP. Every layer is an attention layer, so a pdrop "attn" stage may sit
+    on any of them."""
+
+    vocab_size: int = 152064
+    hidden_size: int = 3584
+    intermediate_size: int = 18944
+    num_hidden_layers: int = 28
+    num_attention_heads: int = 28
+    num_key_value_heads: int = 4
+    head_dim: int = 128
+    hidden_act: str = "silu"
+    max_position_embeddings: int = 32768
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1000000.0
+    attention_bias: bool = True
+    tie_word_embeddings: bool = False
+    # compression: pdrop stages and the TransV merge (models/pdrop.py)
+    use_pdrop: bool = False
+    pdrop_type: Optional[str] = None
+    merge_module: str = "no_merge"
+
+    @property
+    def layers_block_type(self) -> Tuple[str, ...]:
+        return tuple("attention" for _ in range(self.num_hidden_layers))
+
+    @property
+    def pdrop_stages(self) -> Tuple[PdropStage, ...]:
+        if not self.use_pdrop or self.pdrop_type is None:
+            return ()
+        return parse_pdrop_type(self.pdrop_type)
+
+
+LLMConfig = Union[NanoConfig, Qwen2Config]
+
+
+def suffix_chunk(cfg: LLMConfig) -> int:
+    """The rows a continuation's suffix bucket is a multiple of: the SSD
+    chunk, or 16 for a backbone without one (qwen2), as the JAX Generator
+    and engine take it."""
+    return getattr(cfg, "chunk_size", None) or 16
+
+
 def tiny_nano_config(**overrides) -> NanoConfig:
     """A tiny Nano config for tests (same structure, small dims)."""
     base = dict(
@@ -146,6 +189,16 @@ def tiny_nano_config(**overrides) -> NanoConfig:
     )
     base.update(overrides)
     return NanoConfig(**base)
+
+
+def tiny_qwen2_config(**overrides) -> Qwen2Config:
+    base = dict(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        max_position_embeddings=2048,
+    )
+    base.update(overrides)
+    return Qwen2Config(**base)
 
 
 # ---------------------------------------------------------------------------
@@ -270,12 +323,16 @@ LLM_MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {
     "nano-9b-v2-base": {"family": "nano", "config": NanoConfig()},
     "nemotron-h-8b-base": {"family": "nano", "config": NanoConfig(num_hidden_layers=52)},
     "debug-nano-tiny": {"family": "nano", "config": tiny_nano_config(vocab_size=128)},
-    # not built by the port
-    "qwen2.5-7b-instruct": {"family": "qwen2", "config": None},
-    "qwen2.5-7b-base": {"family": "qwen2", "config": None},
-    "qwen2.5-3b-instruct": {"family": "qwen2", "config": None},
-    "qwen2-7b": {"family": "qwen2", "config": None},
-    "qwen2-1.5b": {"family": "qwen2", "config": None},
+    "qwen2.5-7b-instruct": {"family": "qwen2", "config": Qwen2Config()},
+    "qwen2.5-7b-base": {"family": "qwen2", "config": Qwen2Config()},
+    "qwen2.5-3b-instruct": {"family": "qwen2", "config": Qwen2Config(
+        hidden_size=2048, intermediate_size=11008, num_hidden_layers=36,
+        num_attention_heads=16, num_key_value_heads=2, tie_word_embeddings=True)},
+    "qwen2-7b": {"family": "qwen2", "config": Qwen2Config(rope_theta=1000000.0,
+                                                          vocab_size=152064)},
+    "qwen2-1.5b": {"family": "qwen2", "config": Qwen2Config(
+        hidden_size=1536, intermediate_size=8960, num_hidden_layers=28,
+        num_attention_heads=12, num_key_value_heads=2, tie_word_embeddings=True)},
 }
 
 

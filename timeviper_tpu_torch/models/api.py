@@ -19,11 +19,10 @@ from timeviper_tpu_torch.models.vlm import VLMArch
 def build_arch(vlm_cfg: VLMConfig) -> VLMArch:
     """The static configs of a model id: the siglip, dinov2 and internvideo2
     towers, or several of them ("multi": a registry entry such as
-    dinosiglip-vit-so-384px, or ids joined as "a+b"), with the nano backbone."""
+    dinosiglip-vit-so-384px, or ids joined as "a+b"), with a nano or a qwen2
+    backbone."""
     ventry = get_vision_backbone_config(vlm_cfg.vision_backbone_id)
     lentry = get_llm_backbone_config(vlm_cfg.llm_backbone_id)
-    if lentry["family"] != "nano":
-        raise NotImplementedError(f"the {lentry['family']} backbone is not ported; nano is")
     if ventry["family"] == "multi":
         towers = []
         for bid in ventry["backbones"]:

@@ -1,11 +1,12 @@
-"""Decode cache of the Nemotron-H backbone (counterpart of
+"""Decode caches of the Nemotron-H and Qwen2 backbones (counterpart of
 timeviper_tpu/models/cache.py).
 
 A dict with the JAX package's layout: per Mamba layer `conv_state` {x, B, C}
 (B, channels, K) and `ssm_state` (B, H, P, N) float32; per attention layer
 `k`/`v` buffers of fixed capacity (B, max_len, Hkv, hd); `length`, the number
 of tokens already processed, and `valid_from`, the first slot that is not a
-left pad. `length` and `valid_from` are host integers: the decode loop runs in
+left pad. A Qwen2 cache holds `k`/`v` buffers in every layer (keys after
+RoPE). `length` and `valid_from` are host integers: the decode loop runs in
 Python and never needs them on the device.
 """
 
@@ -39,4 +40,13 @@ def init_nano_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
             layers.append({"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)})
         else:
             layers.append({})
+    return {"layers": layers, "length": 0, "valid_from": 0}
+
+
+def init_qwen2_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
+                     device=None) -> Dict[str, Any]:
+    shape = (batch_size, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    layers = [{"k": torch.zeros(shape, dtype=dtype, device=device),
+               "v": torch.zeros(shape, dtype=dtype, device=device)}
+              for _ in range(cfg.num_hidden_layers)]
     return {"layers": layers, "length": 0, "valid_from": 0}

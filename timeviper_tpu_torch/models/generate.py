@@ -13,7 +13,8 @@
 Questions on a cached video: `prefill_prefix` prefills the shared part of
 the prompt (system text and the video) once and returns a `PrefixState`;
 `generate(question_ids, prefix=state)` then runs only the question on top of
-it (models/prefix_cache.py:nano_forward_continue) and decodes. One
+it (models/prefix_cache.py:nano_forward_continue, or qwen2_forward_continue
+for the qwen2 backbone) and decodes. One
 PrefixState serves any number of questions: a continuation never writes
 into it.
 
@@ -38,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from timeviper_tpu_torch.config import suffix_chunk
 from timeviper_tpu_torch.data.fusion import FusionPlan, plan_fusion
 from timeviper_tpu_torch.models.vlm import (
     TimeViperVLM,
@@ -46,7 +48,7 @@ from timeviper_tpu_torch.models.vlm import (
     encode_visual,
     vlm_forward,
 )
-from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue
+from timeviper_tpu_torch.models.prefix_cache import forward_continue
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
@@ -210,10 +212,11 @@ class Generator:
     ) -> PrefixState:
         """Prefill a shared prompt prefix once and return a PrefixState for
         generate(prefix=...). The budget is raised to one SSD chunk at least
-        (a suffix bucket is a multiple of the chunk); the cache holds the
+        (a suffix bucket is a multiple of the chunk; 16 rows for qwen2,
+        config.py:suffix_chunk); the cache holds the
         bucket, the budget and max_new_tokens. `use_pdrop` runs the pdrop
         stages with the last prefix token as the ranking query."""
-        suffix_budget = max(suffix_budget, self.arch.llm.chunk_size)
+        suffix_budget = max(suffix_budget, suffix_chunk(self.arch.llm))
         visual = self.encode_frames(pixels) if pixels is not None else None
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(
             list(input_ids), image_token_id)
@@ -282,7 +285,7 @@ class Generator:
             raise ValueError("the video already lives in the prefix cache")
         if not ids:
             raise ValueError("empty suffix on a cached prefix")
-        chunk = self.arch.llm.chunk_size
+        chunk = suffix_chunk(self.arch.llm)
         sb = -(-len(ids) // chunk) * chunk
         if sb > prefix.suffix_budget:
             raise ValueError(f"suffix of {len(ids)} tokens needs a {sb}-token bucket (chunk "
@@ -291,8 +294,8 @@ class Generator:
         llm = self.model.llm_backbone
         with torch.inference_mode():
             embeds = llm.embeddings(torch.as_tensor([ids], dtype=torch.long, device=self.device))
-            first_logits, cache = nano_forward_continue(llm, self.arch.llm, embeds, prefix.cache,
-                                                        pdrop_params=self.model.merge_modules)
+            first_logits, cache = forward_continue(self.arch)(
+                llm, self.arch.llm, embeds, prefix.cache, pdrop_params=self.model.merge_modules)
         _sync(self.device)
         t1 = time.perf_counter()
         tokens = self.decode(first_logits, cache, rng_seed)

@@ -55,7 +55,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import NanoConfig
-from timeviper_tpu_torch.models.pdrop import apply_pdrop_stage, merge_dropped_cached
+from timeviper_tpu_torch.models.pdrop import (
+    apply_pdrop_stage,
+    cached_merges,
+    merge_dropped_cached,
+)
 from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_supported
@@ -466,20 +470,6 @@ def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
     lm = model.lm_head
     w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
     return F.linear(hidden.float(), w)
-
-
-def cached_merges(cfg: NanoConfig, cache: Dict[str, Any], pdrop_params) -> Dict[int, tuple]:
-    """{layer: (ca_kv, merge module)} of the stages whose TransV K/V the cache
-    holds: each later row is merged again before that layer."""
-    ca_kvs = cache.get("ca_kv")
-    if not ca_kvs or pdrop_params is None:
-        return {}
-    out = {}
-    for si, st in enumerate(cfg.pdrop_stages):
-        mm = pdrop_params.stage(si)
-        if si < len(ca_kvs) and ca_kvs[si] and mm is not None:
-            out[st.layer] = (ca_kvs[si], mm)
-    return out
 
 
 def nano_decode_step(

@@ -6,7 +6,9 @@ A stage (config.py:PdropStage) runs before its layer and keeps
 `min(int(original visual tokens * ratio), current)` of a sample's visual
 tokens: "uni" keeps evenly spaced ones, "attn" the ones the sample's last
 prompt token attends to most (mean over heads, with that attention layer's
-q/k projections on the raw hidden state). With a TransV merge module for the
+q/k projections, biases included, on the raw hidden state, without RoPE on
+qwen2 as in the JAX package). The stages run on either backbone (NanoConfig
+or Qwen2Config). With a TransV merge module for the
 stage, the text after the visual block then cross-attends the dropped tokens
 (ops/attention.py:cross_attention, K9 on the card) and adds the result gated
 by tanh(alpha). The prefill keeps the dropped tokens' cross-attention K/V
@@ -36,13 +38,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from timeviper_tpu_torch.config import NanoConfig, PdropStage
+from timeviper_tpu_torch.config import LLMConfig, PdropStage
 from timeviper_tpu_torch.ops.attention import cross_attention
 
 
@@ -81,7 +83,7 @@ def make_pdrop_spec(samples: List[Tuple[int, int, int]], stages: Tuple[PdropStag
         ratios=(1.0,) + tuple(s.ratio for s in stages))
 
 
-def pdrop_drop_counts(cfg: NanoConfig, num_visual: int) -> List[int]:
+def pdrop_drop_counts(cfg: LLMConfig, num_visual: int) -> List[int]:
     """Tokens each stage drops from `num_visual` original visual tokens (the
     serving engine sizes its ca_kv buffers with these)."""
     cur, drops = num_visual, []
@@ -98,7 +100,7 @@ def pdrop_drop_counts(cfg: NanoConfig, num_visual: int) -> List[int]:
 
 
 class CrossAttn(nn.Module):
-    def __init__(self, cfg: NanoConfig, dtype, device):
+    def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__()
         d, hd = cfg.hidden_size, cfg.head_dim
         kw = dict(bias=cfg.attention_bias, dtype=dtype, device=device)
@@ -111,7 +113,7 @@ class CrossAttn(nn.Module):
 class MergeModule(nn.Module):
     """One stage's TransV: a cross-attention and its f32 gate `alpha`."""
 
-    def __init__(self, cfg: NanoConfig, dtype, device):
+    def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__()
         self.cross_attn = CrossAttn(cfg, dtype, device)
         self.alpha = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
@@ -121,7 +123,7 @@ class MergeModules(nn.ModuleDict):
     """The merge modules keyed by stage index, as the JAX list
     `params["merge_modules"]` is indexed; a stage without one has no key."""
 
-    def __init__(self, cfg: NanoConfig, dtype, device):
+    def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__({str(i): MergeModule(cfg, dtype, device)
                           for i, st in enumerate(cfg.pdrop_stages)
                           if "drop" not in st.compress_type})
@@ -141,7 +143,7 @@ class MergeModules(nn.ModuleDict):
             mm.alpha.zero_()
 
 
-def init_merge_modules(cfg: NanoConfig, dtype=torch.bfloat16, device=None
+def init_merge_modules(cfg: LLMConfig, dtype=torch.bfloat16, device=None
                        ) -> Optional[MergeModules]:
     """The TransV modules of a "CrossAttention" config, else None."""
     if cfg.merge_module != "CrossAttention" or not cfg.pdrop_stages:
@@ -150,7 +152,7 @@ def init_merge_modules(cfg: NanoConfig, dtype=torch.bfloat16, device=None
 
 
 def _gated_merge(hidden: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mm: MergeModule,
-                 cfg: NanoConfig) -> torch.Tensor:
+                 cfg: LLMConfig) -> torch.Tensor:
     """hidden (B, S, D) cross-attends k, v (B, Nd, Hkv, hd); + tanh(alpha) x
     out, alpha cast to the hidden dtype first."""
     B, S, _ = hidden.shape
@@ -161,7 +163,7 @@ def _gated_merge(hidden: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mm: Mer
     return hidden + torch.tanh(mm.alpha.to(hidden.dtype)) * out
 
 
-def _ca_kv(dropped: torch.Tensor, mm: MergeModule, cfg: NanoConfig) -> Dict[str, torch.Tensor]:
+def _ca_kv(dropped: torch.Tensor, mm: MergeModule, cfg: LLMConfig) -> Dict[str, torch.Tensor]:
     """The dropped tokens' cross-attention K/V (Nd, Hkv, hd), projected once."""
     Nd, Hkv, hd = dropped.shape[0], cfg.num_key_value_heads, cfg.head_dim
     ca = mm.cross_attn
@@ -170,7 +172,7 @@ def _ca_kv(dropped: torch.Tensor, mm: MergeModule, cfg: NanoConfig) -> Dict[str,
 
 
 def merge_dropped_cached(hidden: torch.Tensor, ca_kv: Dict[str, torch.Tensor],
-                         mm: MergeModule, cfg: NanoConfig) -> torch.Tensor:
+                         mm: MergeModule, cfg: LLMConfig) -> torch.Tensor:
     """TransV after the prefill: new rows (B, S, D) cross-attend the cached
     dropped-token K/V, (Nd, Hkv, hd) shared by every row or (B, Nd, Hkv, hd)
     one per row (the serving engine's slots). A shared K/V is copied per row
@@ -183,6 +185,20 @@ def merge_dropped_cached(hidden: torch.Tensor, ca_kv: Dict[str, torch.Tensor],
         if B > 1:
             k, v = k.expand(B, -1, -1, -1).contiguous(), v.expand(B, -1, -1, -1).contiguous()
     return _gated_merge(hidden, k, v, mm, cfg)
+
+
+def cached_merges(cfg: LLMConfig, cache: Dict[str, Any], pdrop_params) -> Dict[int, tuple]:
+    """{layer: (ca_kv, merge module)} of the stages whose TransV K/V the cache
+    holds: each later row is merged again before that layer."""
+    ca_kvs = cache.get("ca_kv")
+    if not ca_kvs or pdrop_params is None:
+        return {}
+    out = {}
+    for si, st in enumerate(cfg.pdrop_stages):
+        mm = pdrop_params.stage(si)
+        if si < len(ca_kvs) and ca_kvs[si] and mm is not None:
+            out[st.layer] = (ca_kvs[si], mm)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +223,7 @@ def uni_keep_indices(cur: int, keep: int) -> np.ndarray:
     return out.astype(np.int32)
 
 
-def _rank_scores_attn(h: torch.Tensor, attn_mixer, cfg: NanoConfig, query_pos: int,
+def _rank_scores_attn(h: torch.Tensor, attn_mixer, cfg: LLMConfig, query_pos: int,
                       vision_start: int, num_vision: int) -> torch.Tensor:
     """Mean over heads of the query row's attention to each visual token, f32
     (num_vision,). h (Ls, D) is the sample's raw hidden state (no norm); the
@@ -231,7 +247,7 @@ def _training_query_pos(labels: torch.Tensor) -> int:
 
 
 def _keep_indices(stage: PdropStage, samp: PdropSampleSpec, sh: torch.Tensor,
-                  sample_labels, keep: int, *, cfg: NanoConfig, attn_mixer) -> torch.Tensor:
+                  sample_labels, keep: int, *, cfg: LLMConfig, attn_mixer) -> torch.Tensor:
     """The kept visual tokens, sorted, (keep,) int64 on the hidden's device."""
     cur = samp.num_vision
     if stage.compress_type == "uni":
@@ -259,7 +275,7 @@ def apply_pdrop_stage(
     stage: PdropStage,
     stage_idx: int,
     *,
-    cfg: NanoConfig,
+    cfg: LLMConfig,
     attn_mixer=None,
     merge: Optional[MergeModules] = None,
 ):
@@ -267,7 +283,8 @@ def apply_pdrop_stage(
     labels and seq_idx (1, L) or None. Returns (hidden, labels, seq_idx,
     the new spec, ca_kv) with the new length; ca_kv is the stage's TransV
     K/V {k, v} (Nd, Hkv, hd) when one sample merged, else None.
-    `attn_mixer` is the stage layer's AttentionMixer (an "attn" stage);
+    `attn_mixer` is the stage layer's attention module (an "attn" stage:
+    nano's AttentionMixer, qwen2's Qwen2Attention);
     `merge` the merge modules, or None for no TransV."""
     if hidden.shape[0] != 1:
         raise ValueError("pdrop runs on packed batch-1 rows")

@@ -42,10 +42,16 @@ rows), and with the merge modules the suffix rows cross-attend each stage's
 cached TransV K/V (`ca_kv`) before its layer
 (timeviper_tpu/models/prefix_cache.py:294-329, :456-470).
 
+`qwen2_forward_continue` is the Qwen2 counterpart: every layer is an
+attention layer, and suffix row i rotates at the logical position
+(length - valid_from) + i, as the decode step rotates its token
+(timeviper_tpu/models/prefix_cache.py:333-420). After a pdrop prefill a
+layer's own `kv_len` takes the place of `length` in the position too
+(models/qwen2.py says why).
+
 Not ported yet: a cache with slot-validity masks (`kv_valid`, made only by
 the sequence-parallel masked prefill) and the speculative verify pass
-(`logits_all`, the `chunk_size` override), which raise NotImplementedError,
-and `qwen2_forward_continue`, which waits for the qwen2 backbone.
+(`logits_all`, the `chunk_size` override), which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,14 +64,15 @@ from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.models.nano import (
     AttentionMixer,
     MambaMixer,
-    cached_merges,
     compute_logits,
     mamba_in_proj,
     mlp_mixer_forward,
 )
-from timeviper_tpu_torch.models.pdrop import merge_dropped_cached
+from timeviper_tpu_torch.models.pdrop import cached_merges, merge_dropped_cached
 from timeviper_tpu_torch.ops.block_attention import block_attn_lse, merge_parts
 from timeviper_tpu_torch.ops.conv import causal_conv1d
+from timeviper_tpu_torch.models.qwen2 import Qwen2Attention, project_qkv, mlp_forward
+from timeviper_tpu_torch.models.qwen2 import compute_logits as qwen2_compute_logits
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
 from timeviper_tpu_torch.ops.ssd_kernel import ssd_scan
 
@@ -139,6 +146,15 @@ def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
     return m.o_proj(out.reshape(B, S, Hq * hd)), lc
 
 
+def _refuse_unported(cache: Dict[str, Any], logits_all: bool, chunk_size) -> None:
+    if logits_all or chunk_size is not None:
+        raise NotImplementedError("the speculative verify pass (logits_all, chunk_size) "
+                                  "is not ported")
+    if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
+        raise NotImplementedError("a cache with slot-validity masks (kv_valid, the "
+                                  "sequence-parallel masked prefill's) is not ported")
+
+
 @torch.no_grad()
 def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
                           cache: Dict[str, Any], pdrop_params=None, logits_all: bool = False,
@@ -149,12 +165,7 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
     last row, the updated cache with length += S). The input cache is left
     untouched. `pdrop_params` (the merge modules) merge the suffix rows with
     a pdrop cache's `ca_kv`."""
-    if logits_all or chunk_size is not None:
-        raise NotImplementedError("the speculative verify pass (logits_all, chunk_size) "
-                                  "is not ported")
-    if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
-        raise NotImplementedError("a cache with slot-validity masks (kv_valid, the "
-                                  "sequence-parallel masked prefill's) is not ported")
+    _refuse_unported(cache, logits_all, chunk_size)
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.layer_norm_epsilon
@@ -178,3 +189,66 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
     if "ca_kv" in cache:
         new_cache["ca_kv"] = cache["ca_kv"]
     return compute_logits(model, hidden), new_cache
+
+
+def _qwen2_attention_continue(attn: Qwen2Attention, cfg, x: torch.Tensor,
+                              cache_layer: Dict[str, Any], length: int, valid_from: int
+                              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry whose
+    buffers are copies of the input's with the suffix's K/V, after RoPE at
+    (length - valid_from) + i, written at [length, length + S). A layer's
+    own `kv_len` takes the place of `length`."""
+    B, S, _ = x.shape
+    length = cache_layer.get("kv_len", length)
+    if length + S > cache_layer["k"].shape[1]:
+        raise ValueError(f"a suffix of {S} rows after {length} overflows the cache's "
+                         f"{cache_layer['k'].shape[1]} slots")
+    positions = (length - valid_from) + torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k_new, v_new = project_qkv(attn, cfg, x, positions)
+    k, v = cache_layer["k"].clone(), cache_layer["v"].clone()
+    k[:, length:length + S] = k_new.to(k.dtype)
+    v[:, length:length + S] = v_new.to(v.dtype)
+    out = attention_suffix(q, k, v, length, valid_from)
+    lc = {"k": k, "v": v}
+    if "kv_len" in cache_layer:
+        lc["kv_len"] = length + S
+    return attn.o_proj(out.reshape(B, S, -1)), lc
+
+
+@torch.no_grad()
+def qwen2_forward_continue(model, cfg, inputs_embeds: torch.Tensor, cache: Dict[str, Any],
+                           pdrop_params=None, logits_all: bool = False,
+                           chunk_size: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the S real suffix rows inputs_embeds (B, S, D) on top of a filled
+    qwen2 cache. Returns (the f32 logits (B, V) of the last row, the updated
+    cache with length += S); the input cache is left untouched.
+    `pdrop_params` (the merge modules) merge the suffix rows with a pdrop
+    cache's `ca_kv`."""
+    _refuse_unported(cache, logits_all, chunk_size)
+    S = inputs_embeds.shape[1]
+    length, valid_from = int(cache["length"]), int(cache["valid_from"])
+    eps = cfg.rms_norm_eps
+    hidden = inputs_embeds
+    merges = cached_merges(cfg, cache, pdrop_params)
+    new_layers = []
+    for idx, (layer, lc) in enumerate(zip(model.layers, cache["layers"])):
+        if idx in merges:
+            hidden = merge_dropped_cached(hidden, *merges[idx], cfg)
+        a, lc = _qwen2_attention_continue(
+            layer.self_attn, cfg, rms_norm(hidden, layer.input_layernorm.weight, eps), lc,
+            length, valid_from)
+        hidden = hidden + a
+        hidden = hidden + mlp_forward(
+            layer.mlp, rms_norm(hidden, layer.post_attention_layernorm.weight, eps))
+        new_layers.append(lc)
+    hidden = rms_norm(hidden[:, -1], model.norm_f.weight, eps)
+    new_cache = {"layers": new_layers, "length": length + S, "valid_from": valid_from}
+    if "ca_kv" in cache:
+        new_cache["ca_kv"] = cache["ca_kv"]
+    return qwen2_compute_logits(model, hidden), new_cache
+
+
+def forward_continue(arch):
+    """The continuation of the arch's backbone family."""
+    return qwen2_forward_continue if arch.llm_family == "qwen2" else nano_forward_continue

@@ -6,8 +6,11 @@ one gather. `vlm_loss` is the training loss over a batch of rows that share
 one plan: the rows run as a written-out batch dimension where the JAX package
 vmaps its one-row loss. A pdrop config with `merge_module == "CrossAttention"`
 gives the model its TransV modules (`merge_modules`, models/pdrop.py), and
-`vlm_forward(use_pdrop=True)` runs the stages. Left out for now: the qwen2
-backbone, training with pdrop and heterogeneous batches (per-row plans).
+`vlm_forward(use_pdrop=True)` runs the stages. The backbone is Nemotron-H
+(`llm_family` "nano", models/nano.py) or Qwen2 ("qwen2", models/qwen2.py);
+`vlm_forward`, `init_cache` and `decode_step` dispatch by family. Left out
+for now: training on qwen2, training with pdrop and heterogeneous batches
+(per-row plans).
 
 Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
 (models/internvideo2.py, clips of 4 frames merged jointly by the projector),
@@ -33,11 +36,12 @@ from torch import nn
 from timeviper_tpu_torch.config import VLMConfig
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan
 from timeviper_tpu_torch.device import resolve_device
-from timeviper_tpu_torch.models.cache import init_nano_cache
+from timeviper_tpu_torch.models.cache import init_nano_cache, init_qwen2_cache
 from timeviper_tpu_torch.models.internvideo2 import InternVideo2, encode_frames_iv2
 from timeviper_tpu_torch.models.nano import NanoModel, nano_decode_step, nano_forward
 from timeviper_tpu_torch.models.pdrop import init_merge_modules, make_pdrop_spec
 from timeviper_tpu_torch.models.projector import Projector, projector_forward
+from timeviper_tpu_torch.models.qwen2 import Qwen2Model, qwen2_decode_step, qwen2_forward
 from timeviper_tpu_torch.models.vit import ViT, vit_forward
 
 VIT_FAMILIES = ("siglip", "dinov2")
@@ -51,8 +55,8 @@ class VLMArch:
 
     vlm: VLMConfig
     vision: Any  # ViTConfig | InternVideo2Config
-    llm: Any  # NanoConfig
-    llm_family: str = "nano"
+    llm: Any  # NanoConfig | Qwen2Config
+    llm_family: str = "nano"  # "nano" | "qwen2"
     vision_family: str = "siglip"
     vision_backbones: Optional[Tuple[Tuple[str, str, Any], ...]] = None
 
@@ -104,7 +108,7 @@ class TimeViperVLM(nn.Module):
 
     def __init__(self, arch: VLMArch, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if arch.llm_family != "nano":
+        if arch.llm_family not in ("nano", "qwen2"):
             raise NotImplementedError(f"the {arch.llm_family} backbone is not ported")
         device = resolve_device(device)
         self.arch = arch
@@ -117,7 +121,8 @@ class TimeViperVLM(nn.Module):
             self.projector = nn.ModuleDict({k: v[1] for k, v in towers.items()})
         else:
             self.vision_backbone, self.projector = towers[""]
-        self.llm_backbone = NanoModel(arch.llm, dtype, device)
+        backbone = NanoModel if arch.llm_family == "nano" else Qwen2Model
+        self.llm_backbone = backbone(arch.llm, dtype, device)
         self.merge_modules = init_merge_modules(arch.llm, dtype, device)
 
     def tower(self, key: str) -> Tuple[nn.Module, Projector]:
@@ -203,7 +208,8 @@ def vlm_forward(
     """Prefill over one fused row: encode pixels unless visual embeddings are
     given, fuse them into the text by the plan, run the backbone. `fused_conv`
     (inference only) fuses each Mamba layer's conv into its scan
-    (timeviper_tpu/models/vlm.py:227).
+    (timeviper_tpu/models/vlm.py:227); the qwen2 backbone has no Mamba layer
+    and ignores it.
 
     `use_pdrop` on a pdrop config runs its stages (vlm.py:219-288) over one
     sample spanning the row, as the Generator's bucketed prefill lays it
@@ -229,11 +235,18 @@ def vlm_forward(
         nv = plan.num_visual
         spec = make_pdrop_spec([(pdrop_vision_start, nv, fused.shape[1] - pdrop_vision_start - nv)],
                                arch.llm.pdrop_stages, [pdrop_query_pos])
-    return nano_forward(model.llm_backbone, arch.llm, inputs_embeds=fused, seq_idx=seq_idx,
-                        fill_cache=fill_cache, cache_max_len=cache_max_len,
-                        valid_from=valid_from, logits_to_keep=logits_to_keep,
-                        fused_conv=fused_conv, pdrop_spec=spec,
-                        pdrop_params=model.merge_modules)
+    return llm_forward(model.llm_backbone, arch, fused_conv, inputs_embeds=fused,
+                       seq_idx=seq_idx, fill_cache=fill_cache, cache_max_len=cache_max_len,
+                       valid_from=valid_from, logits_to_keep=logits_to_keep, pdrop_spec=spec,
+                       pdrop_params=model.merge_modules)
+
+
+def llm_forward(llm: nn.Module, arch: VLMArch, fused_conv: bool = False, **kw) -> Dict[str, Any]:
+    """The backbone's full-sequence forward: nano_forward (which takes
+    `fused_conv`) or qwen2_forward, by the arch's family."""
+    if arch.llm_family == "qwen2":
+        return qwen2_forward(llm, arch.llm, **kw)
+    return nano_forward(llm, arch.llm, fused_conv=fused_conv, **kw)
 
 
 def vlm_loss(
@@ -251,6 +264,8 @@ def vlm_loss(
     Returns (loss, {"n_tokens": labelled tokens summed over the rows})."""
     if "gather_idx" in batch:
         raise NotImplementedError("heterogeneous batches (per-row plans) are not ported")
+    if arch.llm_family != "nano":
+        raise NotImplementedError(f"training the {arch.llm_family} backbone is not ported")
     ids = batch["input_ids"].long()
     Bsz = ids.shape[0]
     emb = model.llm_backbone.embeddings
@@ -283,12 +298,14 @@ def vlm_loss(
 def init_cache(arch: VLMArch, batch_size: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """An empty decode cache, on the card unless `device` names another."""
-    return init_nano_cache(arch.llm, batch_size, max_len, dtype, resolve_device(device))
+    init = init_qwen2_cache if arch.llm_family == "qwen2" else init_nano_cache
+    return init(arch.llm, batch_size, max_len, dtype, resolve_device(device))
 
 
 def decode_step(model: TimeViperVLM, arch: VLMArch, token: torch.Tensor, cache):
     """One token per row; the cache's lengths are host integers or one per
-    row (models/nano.py:nano_decode_step). The TransV modules ride along: a
-    cache from a pdrop prefill merges each token again (vlm.py:396-406)."""
-    return nano_decode_step(model.llm_backbone, arch.llm, token, cache,
-                            pdrop_params=model.merge_modules)
+    row (models/nano.py:nano_decode_step, models/qwen2.py:qwen2_decode_step).
+    The TransV modules ride along: a cache from a pdrop prefill merges each
+    token again (vlm.py:396-406)."""
+    step = qwen2_decode_step if arch.llm_family == "qwen2" else nano_decode_step
+    return step(model.llm_backbone, arch.llm, token, cache, pdrop_params=model.merge_modules)

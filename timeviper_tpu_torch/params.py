@@ -5,7 +5,8 @@ Linear kernels are stored (in, out) in the JAX package and become
 `nn.Linear.weight` (out, in); the ViT patch kernel (p, p, 3, D) becomes the
 (D, p*p*3) weight of the patch matmul, InternVideo2's flattened tubelet
 kernel (tb*ps*ps*3, D) is transposed like any linear; conv taps are
-(channels, K) in both. A multi-tower pytree holds one tower and one
+(channels, K) in both. A qwen2 backbone (`qwen2_state_dict`) keeps its
+q/k/v biases and, with tied embeddings, has no lm_head. A multi-tower pytree holds one tower and one
 projector per backbone key.
 LoRA factors planted by the JAX package's add_lora (lora_a, lora_b,
 lora_scale) come across unchanged; load them into a model that went through
@@ -142,6 +143,24 @@ def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def qwen2_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A qwen2 backbone: q/k/v biases where the tree has them, and no
+    lm_head when the embeddings are tied (the tree then has none)."""
+    sd: Dict[str, torch.Tensor] = {"embeddings.weight": to_tensor(tree["embeddings"])}
+    for i, layer in enumerate(tree["layers"]):
+        pre = f"layers.{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{pre}.{norm}.weight"] = to_tensor(layer[norm]["weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(sd, f"{pre}.self_attn.{name}", layer["self_attn"][name])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _linear(sd, f"{pre}.mlp.{name}", layer["mlp"][name])
+    sd["norm_f.weight"] = to_tensor(tree["norm_f"]["weight"])
+    if "lm_head" in tree:
+        _linear(sd, "lm_head", tree["lm_head"])
+    return sd
+
+
 def merge_state_dict(merge_modules) -> Dict[str, torch.Tensor]:
     """The TransV list (None for a stage without a module) -> a
     models/pdrop.py:MergeModules state_dict, keyed by stage index."""
@@ -156,7 +175,9 @@ def merge_state_dict(merge_modules) -> Dict[str, torch.Tensor]:
 
 def from_jax_numpy(tree: Dict[str, Any], arch) -> Dict[str, torch.Tensor]:
     """The JAX VLM pytree (init_vlm_params's layout) -> TimeViperVLM state_dict."""
-    parts = [("llm_backbone", nano_state_dict(tree["llm_backbone"], arch.llm))]
+    llm = (qwen2_state_dict(tree["llm_backbone"]) if arch.llm_family == "qwen2"
+           else nano_state_dict(tree["llm_backbone"], arch.llm))
+    parts = [("llm_backbone", llm)]
     for key, family, cfg in arch.towers():
         vis, proj = tree["vision_backbone"], tree["projector"]
         dot = f".{key}" if key else ""

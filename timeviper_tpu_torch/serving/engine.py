@@ -61,6 +61,12 @@ model has no attention biases). The port keeps each attention layer's
 tensors for each step. A pdrop prefix state is refused in a slot, as in the
 JAX engine.
 
+The qwen2 backbone serves the same way over its K/V-only cache: every layer
+is an attention layer, a slot's state is its K/V rows, a continuation's
+suffix bucket is a multiple of 16 rows (config.py:suffix_chunk), and the
+decode rotates each row at its own logical position. pdrop serving takes the
+nano family only, as the JAX engine asserts (engine.py:144-145).
+
 Not ported yet: sequence-parallel serving (`mesh`, ROADMAP Queue 1 item 8),
 which raises NotImplementedError; without a mesh the JAX engine's
 `batch_prefill` switch has no use, and text prompts always prefill in
@@ -76,11 +82,17 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from timeviper_tpu_torch.config import suffix_chunk
 from timeviper_tpu_torch.models.generate import Generator, PrefixState, _fused_conv_default
-from timeviper_tpu_torch.models.nano import nano_forward
 from timeviper_tpu_torch.models.pdrop import pdrop_drop_counts
-from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue
-from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch, decode_step, init_cache
+from timeviper_tpu_torch.models.prefix_cache import forward_continue
+from timeviper_tpu_torch.models.vlm import (
+    TimeViperVLM,
+    VLMArch,
+    decode_step,
+    init_cache,
+    llm_forward,
+)
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 
@@ -143,7 +155,7 @@ class ServingEngine:
         self.max_len = max_len
         self.sampling = sampling
         self.terminators = tuple(int(t) for t in terminator_ids)
-        chunk = arch.llm.chunk_size
+        chunk = suffix_chunk(arch.llm)
         if prefill_chunk_tokens is not None:  # rounded up to whole SSD chunks
             prefill_chunk_tokens = -(-prefill_chunk_tokens // chunk) * chunk
         self.prefill_chunk_tokens = prefill_chunk_tokens
@@ -172,6 +184,8 @@ class ServingEngine:
         slot-batched TransV K/V buffers ({} for a stage that merges
         nothing) and each attention layer's kv_len per slot (host)."""
         llm = self.arch.llm
+        if self.arch.llm_family != "nano":
+            raise ValueError("pdrop serving: nano family only")
         if not (llm.use_pdrop and llm.pdrop_stages):
             raise ValueError("pdrop_frames requires a pdrop-configured llm")
         if any(st.layer >= llm.num_hidden_layers for st in llm.pdrop_stages):
@@ -245,7 +259,7 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.request_id}: empty suffix on a cached"
                 " prefix")
-        chunk = self.arch.llm.chunk_size
+        chunk = suffix_chunk(self.arch.llm)
         sb = max(chunk, -(-len(ids) // chunk) * chunk)
         if sb > st.suffix_budget:
             raise ValueError(
@@ -260,7 +274,7 @@ class ServingEngine:
                 f" exceeds engine max_len {self.max_len}")
         llm = self.model.llm_backbone
         embeds = llm.embeddings(torch.as_tensor([ids], dtype=torch.long, device=self.device))
-        logits, cache1 = nano_forward_continue(llm, self.arch.llm, embeds, st.cache)
+        logits, cache1 = forward_continue(self.arch)(llm, self.arch.llm, embeds, st.cache)
         return self._pending(req, slot, logits, cache1, total, st.pad)
 
     def _free_slots(self) -> List[int]:
@@ -286,7 +300,8 @@ class ServingEngine:
         llm = self.model.llm_backbone
         embeds = llm.embeddings(torch.as_tensor([ids[pos:pos + n]], dtype=torch.long,
                                                 device=self.device))
-        logits, st["cache"] = nano_forward_continue(llm, self.arch.llm, embeds, st["cache"])
+        logits, st["cache"] = forward_continue(self.arch)(llm, self.arch.llm, embeds,
+                                                          st["cache"])
         st["pos"] = pos + n
         if st["pos"] < len(ids):
             return None
@@ -335,7 +350,7 @@ class ServingEngine:
     @torch.inference_mode()
     def _dispatch_prefill_batch(self, group) -> List[Dict[str, Any]]:
         """B text-only prompts of one bucket, [(req, slot, plan), ...], as one
-        nano_forward of batch B: each row its own left pad (segment -1),
+        backbone forward of batch B: each row its own left pad (segment -1),
         which becomes the slot's valid_from on insert. Returns one pending
         record per request."""
         llm = self.model.llm_backbone
@@ -349,9 +364,9 @@ class ServingEngine:
         gather = stack(4, torch.long)
         fused = torch.gather(emb, 1, gather[..., None].expand(-1, -1, emb.shape[-1]))
         pads = [plan[2] for _, _, plan in group]
-        out = nano_forward(llm, self.arch.llm, inputs_embeds=fused, seq_idx=stack(5, torch.int32),
-                           fill_cache=True, cache_max_len=bucket, logits_to_keep=1,
-                           fused_conv=_fused_conv_default())
+        out = llm_forward(llm, self.arch, _fused_conv_default(), inputs_embeds=fused,
+                          seq_idx=stack(5, torch.int32), fill_cache=True, cache_max_len=bucket,
+                          logits_to_keep=1)
         logits = out["logits"][:, -1]
         return [self._pending(req, slot, logits, out["cache"], bucket, pad, row)
                 for row, ((req, slot, _), pad) in enumerate(zip(group, pads))]
