@@ -2,10 +2,11 @@
 """Drive the PyTorch port of TimeViper once on one CUDA card: the two
 microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
-slot-batched serving engine, pdrop with TransV, LoRA training, int8 serving
-with the fused kernels, then serving with the InternVideo2 tower (bf16, then
-int8) and with the two-tower DINOv2 + SigLIP encoder, and last the Qwen2.5-7B
-backbone.
+slot-batched serving engine, pdrop with TransV, speculative decoding, LoRA
+training, int8 serving with the fused kernels, then serving with the
+InternVideo2 tower (bf16, then int8) and with the two-tower DINOv2 + SigLIP
+encoder, and last the Qwen2.5-7B backbone (serving, speculative decoding,
+LoRA training).
 
     python3 chip_smoke.py
 
@@ -46,7 +47,11 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    compare the kernels' bits across runs and machines. Last, the qwen2
    backbones' GQA groups (Hq / Hkv 28 / 4, 16 / 2 and 12 / 2: blocks of 1, 8
    and 2 query heads): K2 at L 4,096 segmented and not, and K9 at 1 and 40
-   rows x 8,448 keys at 28 / 4 (the qwen2.5-7b decode step and a question).
+   rows x 8,448 keys at 28 / 4 (the qwen2.5-7b decode step and a question);
+   K2-bwd at the three groups at L 4,096, segmented and not (qwen2 training),
+   against SDPA's backward alone; K9 at the speculative verify's shapes, 8
+   queries x an 8,448-row prefix and the 8 x 8 causal own block, at 32 / 8
+   and 28 / 4.
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
    heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
@@ -108,6 +113,25 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    forward's argmax; (d) K9 on the TransV calls the paths made (32 suffix
    rows x 820 / 819 dropped tokens at prefill, 1 x 820 / 819 per decode
    step, B 8 in the engine) against its plain version and SDPA.
+5d. speculative decoding (models/speculative.py, n_draft 7), on the same
+   bf16 9B: the plain and the speculative greedy loop on a text and a
+   64-frame prompt with repeated n-grams (32 tokens; tokens/s of each, drafts
+   proposed and accepted, verify passes, partial commits; where the tokens
+   part, each speculative token within MISS_GAP_LIMIT of the f32 teacher-
+   forcing argmax; K1 and K9 launched exactly as the prefill and the rounds
+   make them); a speculative question on a PrefixState of 8 tokens + 64
+   frames, the prefix's SHA-256 unchanged; the successor rig (one-hot
+   embeddings, a shifted lm_head over a cycle of 64 ids, every out_proj /
+   o_proj / down_proj zeroed): every draft accepted and the cycle's tokens,
+   tokens/s against the plain loop, then one wrong id in the prompt's cycle
+   (a partial commit, the same tokens); one verify of 8 rows and one partial
+   commit of 4 on the model's own prefill cache of the 64-frame prompt
+   against 8 decode steps from copies of it (each row's logits to a cosine
+   of 0.999, the caches after both within SPEC_CACHE_TOL, a step after the
+   commit, the cache before the verify unchanged), K1's 8- and 4-row calls
+   from the carried states and K9's verify and commit blocks against their
+   plain versions, and the K/V copy a continuation makes timed against the
+   verify.
 6. training: LoRA (rank 8, alpha 16) on the same 9B with the projector
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
@@ -166,7 +190,13 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    the plain versions' own set (or of 99%); (d)
    ServingEngine with 4 slots, a text request and four of 64 frames, each
    the offline Generator's tokens or within MISS_GAP_LIMIT of an f32
-   teacher-forcing argmax. The launches of (a) add to the kernels line.
+   teacher-forcing argmax; (e) phase 5d on this model; (f) LoRA (rank 8)
+   with the projector unfrozen, four steps at 1,064 tokens and one at 4,136
+   through Trainer.train: losses and grad norms finite, the 4th loss below
+   the 1st, K2-bwd launched at pack 1 and held against its plain version on
+   a layer's own inputs, the first step's LoRA gradient against the plain K2
+   and K2-bwd (cosine above 0.99); step s and peak memory. The launches of
+   (a), (e) and (f) add to the kernels line.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -182,6 +212,7 @@ the device's busy share).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -194,6 +225,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+if __name__ == "__main__" and not (Path(__file__).resolve().parent
+                                   / "timeviper_tpu_torch").is_dir():
+    # refuse before the seconds of importing torch
+    sys.exit("chip_smoke: run it from a checkout of the repository")
 
 import torch
 
@@ -218,8 +254,12 @@ from timeviper_tpu_torch.models.pdrop import (  # noqa: E402
     init_merge_modules,
     make_pdrop_spec,
 )
-from timeviper_tpu_torch.models.prefix_cache import nano_forward_continue  # noqa: E402
+from timeviper_tpu_torch.models.prefix_cache import (  # noqa: E402
+    forward_continue,
+    nano_forward_continue,
+)
 from timeviper_tpu_torch.models.vlm import (  # noqa: E402
+    decode_step,
     encode_visual,
     init_vlm_params,
     llm_forward,
@@ -956,6 +996,63 @@ def kernel_cases(g: torch.Generator):
                     repeat=True, launch=f"{n_split} key split(s), {blocks} blocks, {pack} "
                                         "heads a block"))
         del q9, k9, v9, out9, lib_in
+    # K2-bwd at the qwen2 packs (qwen2 LoRA training), as the 9B's rows above
+    do2 = None
+    for Hq2, Hkv2 in QWEN2_GQA:
+        q2, k2, v2 = rq(1, L, Hq2, hd), rq(1, L, Hkv2, hd), rq(1, L, Hkv2, hd)
+        do2 = rq(1, L, Hq2, hd)
+        pack = gqa_pack(Hq2, Hkv2)
+        plan2 = (f"dkv {Hkv2 * -(-L // kb)} blocks of {kb} keys, each walking {Hq2 // Hkv2} "
+                 f"heads' {qt}-query tiles; dq {-(-L * pack // rows_q) * (Hq2 // pack)} blocks "
+                 f"of {rows_q} (row, head) pairs ({rows_q // pack} tokens x {pack} heads)")
+        for sq in (seq, None):
+            o2, l2 = flash_attention_fwd(q2, k2, v2, sq, with_lse=True)
+            lib2, lib2_in = sdpa(q2, k2, v2, sq) if sq is not None else sdpa(q2, k2, v2,
+                                                                             flash=True)
+            leaves = [x.detach().requires_grad_() for x in lib2_in]
+            lib2_out, lib2_g = lib2(*leaves), do2.transpose(1, 2).contiguous()
+            yield ("flash_bwd", lambda sq=sq, q2=q2, k2=k2, v2=v2, o2=o2, l2=l2, do2=do2:
+                   flash_attention_bwd(q2, k2, v2, o2, do2, l2, sq),
+                   lambda sq=sq, q2=q2, k2=k2, v2=v2, do2=do2:
+                   flash_attention_bwd_plain(q2, k2, v2, do2, sq),
+                   lambda o=lib2_out, lv=leaves, gg=lib2_g:
+                   torch.autograd.grad(o, lv, gg, retain_graph=True),
+                   (10 * Hq2 * hd * (pairs if sq is not None else L * (L + 1) // 2),
+                    nbytes(q2, k2, v2, o2, do2, l2, sq, q2, k2, v2)),
+                   dict(variant=f"qwen2 Hq/Hkv {Hq2}/{Hkv2}, "
+                                + ("segmented; library: SDPA's backward alone, masked backend"
+                                   if sq is not None else "unsegmented; library: SDPA flash "
+                                   "backend's backward alone, is_causal"), main=False,
+                        repeat=True, launch=plan2, split=True))
+            del o2, l2, lib2_in, leaves, lib2_out, lib2_g
+        del q2, k2, v2
+    del do2
+    # K9 at the speculative verify's shapes (n_draft 7: 8 rows): the 8 queries
+    # over an 8,448-row prefix, and their 8 x 8 causal own block, at the 9B's
+    # 32 / 8 and qwen2.5-7b's 28 / 4
+    for Hq2, Hkv2 in ((32, 8), QWEN2_GQA[0]):
+        for Lk, causal in ((8448, False), (8, True)):
+            q9, k9, v9 = rq(1, 8, Hq2, hd), rq(1, Lk, Hkv2, hd), rq(1, Lk, Hkv2, hd)
+            out9 = block_attn_lse(q9, k9, v9, causal=causal)
+            pack, n_split, _ = block_attn_plan(1, 8, Lk, Hq2, Hkv2, causal)
+            blocks = -(-8 * pack // BLOCK_ROWS) * (Hq2 // pack) * n_split
+            lib_in = [x.transpose(1, 2).contiguous() for x in (q9, k9, v9)]
+
+            def lib9(lib_in=lib_in, causal=causal):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *lib_in, is_causal=causal, enable_gqa=True)
+
+            yield ("block_attn",
+                   lambda q9=q9, k9=k9, v9=v9, c=causal: block_attn_lse(q9, k9, v9, causal=c),
+                   lambda q9=q9, k9=k9, v9=v9, c=causal: block_attn_lse_plain(q9, k9, v9,
+                                                                               causal=c),
+                   lib9, (4 * Hq2 * hd * (36 if causal else 8 * Lk), nbytes(q9, k9, v9, *out9)),
+                   dict(variant=f"verify, Hq/Hkv {Hq2}/{Hkv2}, "
+                                + ("causal 8 x 8 (the own block)" if causal
+                                   else "non-causal 8 x 8448 (the prefix)"),
+                        main=False, repeat=True,
+                        launch=f"{n_split} key split(s), {blocks} blocks, {pack} heads a block"))
+            del q9, k9, v9, out9, lib_in
 
 
 def output_digest(out) -> str:
@@ -2215,6 +2312,434 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
                      lambda: trainer.train_step(long_))
 
 
+# the speculative phases: the JAX Generator's n_draft, the new tokens a
+# request, and the successor rig's cycle of ids (below every model's hidden
+# width) and its new tokens
+SPEC_DRAFT = 7
+SPEC_NEW = 32
+SPEC_COMMIT = 4  # the partial commit's rows in phase 5d (4): three drafts accepted
+# phase 5d (4): the largest relative error (norm of the difference over the
+# norm) of a cache's K/V rows and Mamba states after a verify or commit
+# against decode steps. Both round their bf16 activations at other places;
+# phase 5's streamed continuation holds its last SSM state to 2.8e-2 of the
+# one-shot prefill's after 12,288 rows (NVIDIA H100 80GB HBM3, 700 W).
+SPEC_CACHE_TOL = 0.05
+SPEC_LONG_ROWS = 8448  # the 256-frame bucket and a 256-row suffix budget, as in phase 3
+RIG_CYCLE = 64
+RIG_NEW = 64
+
+
+def spec_requests(arch):
+    """Prompts with repeated n-grams: 40 text tokens whose first 8-token
+    phrase comes back twice, alone and with 64 frames after its first 8
+    tokens."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    size = arch.vision.image_size
+    phrase = torch.randint(10, 130000, (8,), generator=g, device=DEV).tolist()
+    rest = torch.randint(10, 130000, (16,), generator=g, device=DEV).tolist()
+    text = phrase + rest[:8] + phrase + rest[8:] + phrase
+    pixels = torch.rand(64, size, size, 3, generator=g, device=DEV) * 2 - 1
+    return [("text", (text, None)),
+            ("64 frames", (text[:8] + [IMAGE_TOKEN] * 64 + text[8:], pixels))]
+
+
+@contextlib.contextmanager
+def plain_versions(family: str):
+    """Every kernel of the family's path swapped for its plain version."""
+    if family == "qwen2":
+        route_qwen2(PLAIN)
+    else:
+        use_plain_versions()
+    try:
+        yield
+    finally:
+        if family == "qwen2":
+            route_qwen2(CALLS)
+        else:
+            use_kernels()
+
+
+def f32_backbone(model, arch):
+    """An f32 copy of the bf16 backbone, the teacher-forcing reference."""
+    cls = qwen2_mod.Qwen2Model if arch.llm_family == "qwen2" else NanoModel
+    llm32 = cls(arch.llm, torch.float32, DEV)
+    llm32.load_state_dict(model.llm_backbone.state_dict())
+    return llm32
+
+
+def near_tie_gate(tag: str, llm32, arch, gen, ids, visual, tokens, first: int) -> float:
+    """Phase 5b's gate on tokens that part from the plain loop's at `first`:
+    from there every token that is not the argmax of an f32 teacher-forcing
+    forward (plain versions) must lie within MISS_GAP_LIMIT of it."""
+    with torch.inference_mode(), plain_versions(arch.llm_family):
+        rows = forced_logits(llm32, arch, gen, ids + tokens[:-1], visual, len(tokens))
+    gaps = [(rows[j].max() - rows[j, tok]).item() for j, tok in enumerate(tokens)]
+    worst = max(gaps[first:])
+    log(f"[{tag}] the tokens part from the plain loop's at {first}: largest gap below the "
+        f"f32 argmax from there {worst:.3e} (limit {MISS_GAP_LIMIT})")
+    if worst > MISS_GAP_LIMIT:
+        raise AssertionError(f"{tag}: a token {worst:.3e} below the f32 argmax")
+    return worst
+
+
+def spec_launches(tag: str, arch, stats: dict) -> dict:
+    """The launches since the last reset_launches against what a speculative
+    generate makes: the prefill's own (K1 once a Mamba layer; no K9 on
+    either backbone) and, each verify and commit being one continuation,
+    two K9 blocks an attention layer and K1 a Mamba layer; a plain round is
+    one decode step (K9 a layer on qwen2, none on nano: its decode attention
+    is the plain masked one). Raises where they differ; returns them."""
+    cfg, runs = arch.llm, stats["verify"] + stats["partial"]
+    if arch.llm_family == "qwen2":
+        want = {"block_attn": cfg.num_hidden_layers * (2 * runs + stats["plain"])}
+    else:
+        kinds = cfg.layers_block_type
+        want = {"block_attn": 2 * kinds.count("attention") * runs,
+                "ssd_fwd": kinds.count("mamba") * (1 + runs)}
+    for name, count in want.items():
+        if WRAPPERS[name].launches != count:
+            raise AssertionError(f"{tag}: {name} launched {WRAPPERS[name].launches} times, "
+                                 f"the prefill and the loop's rounds make {count}")
+    return want
+
+
+@contextlib.contextmanager
+def successor_rig(model, arch):
+    """tests/test_speculative.py:98's successor model at full width: the
+    embedding rows of ids below RIG_CYCLE one-hot, lm_head row (i + 1) %
+    RIG_CYCLE reading dimension i, every out_proj / o_proj / down_proj
+    zeroed, so that the greedy token after i is (i + 1) % RIG_CYCLE. The
+    weights come back afterwards."""
+    llm = model.llm_backbone
+    if llm.lm_head is None:
+        raise ValueError("the successor rig needs an untied lm_head")
+    saved = []
+
+    def swap(p, new):
+        saved.append((p, p.data))
+        p.data = new
+
+    eye = torch.eye(RIG_CYCLE, dtype=llm.embeddings.weight.dtype, device=DEV)
+    emb = torch.zeros_like(llm.embeddings.weight)
+    emb[:RIG_CYCLE, :RIG_CYCLE] = eye
+    head = torch.zeros_like(llm.lm_head.weight)
+    head[:RIG_CYCLE, :RIG_CYCLE] = eye.roll(1, 0)
+    swap(llm.embeddings.weight, emb)
+    swap(llm.lm_head.weight, head)
+    for name, p in llm.named_parameters():
+        if any(f"{proj}." in name for proj in ("out_proj", "o_proj", "down_proj")):
+            swap(p, torch.zeros_like(p))
+    try:
+        yield
+    finally:
+        for p, data in reversed(saved):
+            p.data = data
+
+
+def clone_cache(tree):
+    """A copy of a decode cache whose tensors are new."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_cache(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_cache(v) for v in tree]
+    return tree
+
+
+def cache_rel_err(got, want, rows: int) -> float:
+    """The largest relative error (norm of the difference over the norm) of
+    got's K/V rows [0, rows) and Mamba states against want's."""
+    pairs = []
+    for lg, lw in zip(got["layers"], want["layers"]):
+        if "k" in lw:
+            pairs += [(lg[n][:, :rows], lw[n][:, :rows]) for n in ("k", "v")]
+        if "ssm_state" in lw:
+            pairs.append((lg["ssm_state"], lw["ssm_state"]))
+            pairs += [(lg["conv_state"][n], lw["conv_state"][n]) for n in lw["conv_state"]]
+    return max(((g.float() - w.float()).norm() / w.float().norm()).item() for g, w in pairs)
+
+
+@torch.inference_mode()
+def verify_against_steps(model, arch, gen, ids, px, kernel_results: dict, tag: str) -> None:
+    """Phase 5d (4): the speculative loop's verify (1 + SPEC_DRAFT rows,
+    logits_all) and a partial commit (SPEC_COMMIT rows) on the model's own
+    prefill cache of `ids`, against decode steps from copies of it. The rows
+    are the greedy tokens of those steps, so the drafts are the model's own.
+    Holds each verify row's logits to its step's (cosine 0.999, as phase 5's
+    streamed continuation), the caches after the verify and the commit to
+    the steps' within SPEC_CACHE_TOL, a step after the commit to the step
+    there, and the cache before the verify to itself, bitwise; K1 (nano) and
+    K9 on the inputs the verify and the commit gave them against their plain
+    versions. Times the K/V copy a continuation makes against the verify."""
+    llm, cfg = model.llm_backbone, arch.llm
+    cont = forward_continue(arch)
+    S = SPEC_DRAFT + 1
+    visual = gen.encode_frames(px)
+    plan, bucket, pad, ids_arr, gather_idx, seq_idx = gen._plan_prompt(ids, IMAGE_TOKEN)
+    first, pre = gen.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
+                             bucket + gen.max_new_tokens + gen._spec_margin)
+    length, digest = int(pre["length"]), cache_digest(pre)
+    seq, rows, stepped = [int(first[0].argmax())], [], clone_cache(pre)
+    for i in range(S):
+        step, stepped = decode_step(model, arch, torch.tensor([[seq[i]]], device=DEV), stepped)
+        rows.append(step[0])
+        seq.append(int(step[0].argmax()))
+        if i + 1 == SPEC_COMMIT:
+            at_commit = clone_cache(stepped)
+    embeds = llm.embeddings(torch.tensor([seq[:S]], device=DEV))
+    k1 = CallLog(pc_mod.ssd_scan, by_length)
+    k9 = CallLog(pc_mod.block_attn_lse, by_transv_shape)
+    pc_mod.ssd_scan, pc_mod.block_attn_lse = k1, k9
+    try:
+        logits, verified = cont(llm, cfg, embeds, pre, pdrop_params=model.merge_modules,
+                                logits_all=True, chunk_size=S)
+        _, committed = cont(llm, cfg, embeds[:, :SPEC_COMMIT], pre,
+                            pdrop_params=model.merge_modules, logits_all=True, chunk_size=S)
+    finally:
+        pc_mod.ssd_scan, pc_mod.block_attn_lse = k1.fn, k9.fn
+    cos = [cosine(logits[0, i], rows[i]) for i in range(S)]
+    same = sum(int(logits[0, i].argmax()) == int(rows[i].argmax()) for i in range(S))
+    err_v = cache_rel_err(verified, stepped, length + S)
+    err_c = cache_rel_err(committed, at_commit, length + SPEC_COMMIT)
+    after, _ = decode_step(model, arch, torch.tensor([[seq[SPEC_COMMIT]]], device=DEV),
+                           committed)
+    cos_after = cosine(after[0], rows[SPEC_COMMIT])
+    log(f"[{tag} verify] {S} rows after {length} on the prefill cache against {S} decode "
+        f"steps: logits cosine per row {', '.join(f'{c:.6f}' for c in cos)}, argmax equal "
+        f"on {same} of {S}; cache relative error after the verify {err_v:.3e}, after the "
+        f"{SPEC_COMMIT}-row commit {err_c:.3e} (limit {SPEC_CACHE_TOL}); the step after the "
+        f"commit, cosine {cos_after:.6f}")
+    if cache_digest(pre) != digest:
+        raise AssertionError(f"{tag} verify: the continuations wrote the cache before them")
+    if min(cos + [cos_after]) <= 0.999 or max(err_v, err_c) > SPEC_CACHE_TOL:
+        raise AssertionError(f"{tag} verify: the verify or the commit parts from the steps")
+    if arch.llm_family != "qwen2":
+        h0 = max(kw["initial_state"].abs().max().item() for _, kw in k1.calls.values())
+        log(f"[{tag} verify] K1 from the carried states (|h0| max {h0:.3e}) at rows "
+            f"{sorted(k1.calls)}")
+        if sorted(k1.calls) != [SPEC_COMMIT, S]:
+            raise AssertionError(f"{tag} verify: K1 ran at {sorted(k1.calls)} rows")
+        compare_logged("ssd_fwd", k1.calls, f"{tag} verify", kernel_results)
+    compare_logged("block_attn", k9.calls, f"{tag} verify", kernel_results)
+    verify_ms = timed_ms(lambda: cont(llm, cfg, embeds, pre, pdrop_params=model.merge_modules,
+                                      logits_all=True, chunk_size=S))
+    kv = [lc[n] for lc in pre["layers"] for n in ("k", "v") if n in lc]
+    # and the same buffers at SPEC_LONG_ROWS rows
+    kv_long = [t.new_empty((t.shape[0], SPEC_LONG_ROWS) + t.shape[2:]) for t in kv]
+    for rows, bufs in ((kv[0].shape[1], kv), (SPEC_LONG_ROWS, kv_long)):
+        copy_ms = timed_ms(lambda: [t.clone() for t in bufs])
+        moved = 2 * nbytes(*bufs)
+        log(f"[{tag} verify] the K/V copy a continuation makes of a {rows:,}-row cache: "
+            f"{moved / 2 ** 20:.1f} MiB moved in {copy_ms:.4f} ms (bound "
+            f"{moved / PEAK_BYTES * 1e3:.4f}), against the verify's {verify_ms:.4f} ms on "
+            f"this prompt (events, host gaps included): {copy_ms / verify_ms:.2%}")
+
+
+def phase_speculative(model, arch, smi: str, kernel_results: dict, tag: str) -> None:
+    """N-gram speculative decoding (models/speculative.py, n_draft
+    SPEC_DRAFT) on `model`: (1) the text and 64-frame prompts of
+    spec_requests, SPEC_NEW tokens, plain and speculative greedy loops in
+    one call (tokens/s of each; the speculative tokens the plain ones or,
+    where they part, within MISS_GAP_LIMIT of the f32 teacher-forcing
+    argmax: the verify runs K1 and K9 over 8 rows where a step runs one, so
+    bf16 near-ties may part); the launches exactly spec_launches'; (2) a speculative question on a PrefixState of 8 tokens
+    + 64 frames: the prefix's SHA-256 unchanged; (3) the successor rig:
+    every draft accepted, the cycle's tokens, tokens/s against the plain
+    loop; then with one wrong id in the prompt's cycle: a partial commit,
+    the same tokens; (4) verify_against_steps on the 64-frame prompt. The
+    launches of (1) and (3) add to the kernels' records."""
+    for var in FUSIONS:
+        os.environ[var] = "0"
+    kw = dict(terminator_ids=[], max_new_tokens=SPEC_NEW)
+    plain = Generator(model, arch, **kw)
+    spec = Generator(model, arch, speculative="ngram", n_draft=SPEC_DRAFT, **kw)
+    llm32 = None
+    requests = spec_requests(arch)
+    launched = {}
+    for label, (ids, px) in requests:
+        base = plain.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+        reset_launches()
+        out = spec.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+        st = out.spec_stats
+        want = spec_launches(f"{tag} {label}", arch, st)
+        for name, count in want.items():
+            launched[name] = launched.get(name, 0) + count
+        if not torch.isfinite(out.first_logits).all():
+            raise AssertionError(f"{tag} {label}: non-finite first logits")
+        tps_p = (base.num_generated - 1) / base.decode_s
+        tps_s = (out.num_generated - 1) / out.decode_s
+        log(f"[{tag}] {label}: {out.num_generated} tokens; drafts proposed {st['proposed']}, "
+            f"accepted {st['accepted']}; verify passes {st['verify']}, partial commits "
+            f"{st['partial']}, plain steps {st['plain']}; decode {tps_s:.2f} tok/s "
+            f"speculative, {tps_p:.2f} plain ({tps_s / tps_p:.2f}x); launches {want}; {smi}")
+        log(f"[{tag}] {label}: tokens speculative {out.token_ids.tolist()}, plain "
+            f"{base.token_ids.tolist()}")
+        tokens, ref = out.token_ids.tolist(), base.token_ids.tolist()
+        first = next((j for j, (a, b) in enumerate(zip(tokens, ref)) if a != b), None)
+        if first is not None:
+            llm32 = llm32 if llm32 is not None else f32_backbone(model, arch)
+            with torch.inference_mode():
+                visual = plain.encode_frames(px) if px is not None else None
+            near_tie_gate(f"{tag} {label}", llm32, arch, plain, ids, visual, tokens, first)
+
+    # (2) a speculative question on a cached prefix
+    text, px = requests[0][1][0], requests[1][1][1]
+    prefix_ids, question = text[:8] + [IMAGE_TOKEN] * 64, text[8:]
+    state = spec.prefill_prefix(prefix_ids, pixels=px, image_token_id=IMAGE_TOKEN,
+                                suffix_budget=64)
+    before = cache_digest(state.cache)
+    o = spec.generate(question, prefix=state)
+    after = cache_digest(state.cache)
+    p = plain.generate(question, prefix=state)
+    log(f"[{tag} prefix] a {len(question)}-token question on 8 tokens + 64 frames: "
+        f"speculative {o.token_ids.tolist()} ({o.spec_stats}), plain {p.token_ids.tolist()}; "
+        f"prefix SHA-256 {before[:16]} before, {after[:16]} after")
+    if before != after or cache_digest(state.cache) != before:
+        raise AssertionError(f"{tag} prefix: the speculative question wrote the prefix cache")
+    first = next((j for j, (a, b) in enumerate(zip(o.token_ids.tolist(),
+                                                   p.token_ids.tolist())) if a != b), None)
+    if first is not None:
+        llm32 = llm32 if llm32 is not None else f32_backbone(model, arch)
+        with torch.inference_mode():
+            visual = plain.encode_frames(px)
+        near_tie_gate(f"{tag} prefix", llm32, arch, plain, prefix_ids + question, visual,
+                      o.token_ids.tolist(), first)
+    del state, llm32
+    torch.cuda.empty_cache()
+
+    # (3) the successor rig: the loop's best case, then one wrong id in the
+    # history (a draft rejected where the cycle passes it: a partial commit)
+    rig_kw = dict(terminator_ids=[], max_new_tokens=RIG_NEW, pad_token_id=RIG_CYCLE)
+    prompt = list(range(RIG_CYCLE)) + list(range(8))
+    wrong = prompt[:12] + [RIG_CYCLE + 1] + prompt[13:]
+    cycle = [(8 + t) % RIG_CYCLE for t in range(RIG_NEW)]
+    with successor_rig(model, arch):
+        plain_rig = Generator(model, arch, **rig_kw)
+        spec_rig = Generator(model, arch, speculative="ngram", n_draft=SPEC_DRAFT, **rig_kw)
+        plain_rig.generate(prompt)  # warm
+        runs = {"plain": plain_rig.generate(prompt)}
+        spec_rig.generate(prompt)
+        for label, ids in (("speculative", prompt), ("one wrong id", wrong)):
+            reset_launches()
+            runs[label] = spec_rig.generate(ids)
+            for name, count in spec_launches(f"{tag} rig, {label}", arch,
+                                             runs[label].spec_stats).items():
+                launched[name] += count
+    for name, count in launched.items():
+        kernel_results[name]["launches"] += count
+    tps = {k: (o.num_generated - 1) / o.decode_s for k, o in runs.items()}
+    for label in ("speculative", "one wrong id"):
+        st = runs[label].spec_stats
+        log(f"[{tag} rig] successor rig, cycle of {RIG_CYCLE} ids, {RIG_NEW} tokens, {label}: "
+            f"drafts proposed {st['proposed']}, accepted {st['accepted']}, verify passes "
+            f"{st['verify']}, partial commits {st['partial']}, plain steps {st['plain']}; "
+            f"decode {tps[label]:.2f} tok/s, plain {tps['plain']:.2f} "
+            f"({tps[label] / tps['plain']:.2f}x); {smi}")
+    for name, o in runs.items():
+        if o.token_ids.tolist() != cycle:
+            raise AssertionError(f"{tag} rig: {name} tokens {o.token_ids.tolist()}")
+    st, st_w = runs["speculative"].spec_stats, runs["one wrong id"].spec_stats
+    if not (st["verify"] > 0 and st["accepted"] == st["proposed"] and st["partial"] == 0):
+        raise AssertionError(f"{tag} rig: not every draft accepted: {st}")
+    if not st_w["partial"] > 0:
+        raise AssertionError(f"{tag} rig: the wrong id made no partial commit: {st_w}")
+
+    # (4) a verify and a commit on the model's own cache against decode steps
+    verify_against_steps(model, arch, spec, *requests[1][1], kernel_results, tag)
+
+
+def phase_qwen2_training(model, arch, kernel_results: dict) -> None:
+    """10(f): LoRA (rank 8, alpha 16) on qwen2.5-7b with the projector
+    unfrozen, through Trainer.train, as phase 6 trains the 9B: four steps on
+    one repeated row of 64 frames + 40 text tokens (1,064 tokens), one at
+    256 frames (4,136). Every loss and grad norm finite, the 4th loss below
+    the 1st, K2 and K2-bwd launched (K2-bwd at pack 1); K2-bwd against its
+    plain version on the inputs and cotangent the first step gave one layer;
+    the first step's LoRA gradient against a run with the plain K2 and K2-bwd
+    (route_qwen2), cosine above 0.99."""
+    add_lora(model, rank=8, alpha=16.0,
+             generator=torch.Generator(device=DEV).manual_seed(SEED + 2))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    short, long_ = training_row(arch, 64, g), training_row(arch, 256, g)
+    opt_cfg = OptimConfig(learning_rate=1e-3, schedule="constant", max_grad_norm=1.0)
+    cfg = arch.llm
+    with tempfile.TemporaryDirectory() as run_dir:
+        tcfg = TrainerConfig(run_dir=run_dir, max_steps=5, log_every=1, save_every=10**9,
+                             lora=True, trainable_modules="projector", remat="full",
+                             resume=False)
+        trainer = Trainer(arch, model, opt_cfg, tcfg, device=DEV)
+        n_lora = sum(p.numel() for n, p in trainer.opt.params.items() if ".lora_" in n)
+        log(f"[qwen2 train] LoRA rank 8 on {sum('.lora_a' in n for n in trainer.opt.params)} "
+            f"linears: {n_lora / 1e6:.2f} M factor parameters, "
+            f"{sum(p.numel() for p in trainer.opt.params.values()) / 1e6:.2f} M trainable "
+            f"with the projector; Hq/Hkv {cfg.num_attention_heads}/{cfg.num_key_value_heads}, "
+            f"pack {gqa_pack(cfg.num_attention_heads, cfg.num_key_value_heads)}")
+        start = {n: p.detach().clone() for n, p in trainer.opt.params.items()}
+        cap = Capture(flash_attention)
+        qwen2_mod.flash_attention = cap
+        cap.armed = True
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            trainer.train([short] * 4)
+            cap.armed = False
+            trainer.train([long_])
+        finally:
+            qwen2_mod.flash_attention = flash_attention
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"[qwen2 train] launches during the five steps: {launches}")
+    for h, cb in zip(trainer.history, [short] * 4 + [long_]):
+        tokens = cb.plan.fused_len * cb.batch["input_ids"].shape[0]
+        log(f"[qwen2 train] step {h['step']}: {tokens} tokens, loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['seconds']:.3f} s, {tokens / h['seconds']:.1f} trained "
+            f"tokens/s, peak memory {h.get('max_memory_gib', math.nan):.2f} GiB")
+    losses = [h["loss"] for h in trainer.history]
+    norms = [h["grad_norm"] for h in trainer.history]
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"qwen2 training losses {losses}, grad norms {norms}")
+    if not losses[3] < losses[0]:
+        raise AssertionError(f"qwen2: the 4th loss {losses[3]} is not below the 1st {losses[0]}")
+    for name in ("flash_fwd", "flash_bwd", "vit_attn_qkv"):
+        if launches[name] == 0:
+            raise AssertionError(f"qwen2 training: {name} was never launched")
+    for name in ("flash_fwd", "flash_bwd"):
+        kernel_results[name]["launches"] += launches[name]
+
+    # K2-bwd on the inputs and the cotangent the first step gave a layer
+    leaves = [a.clone().requires_grad_() for a in cap.args[:3]]
+    seg = cap.kwargs.get("segment_ids")
+    got = torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, cap.grad)
+    err = compare("flash_bwd", tuple(got), tuple(flash_attention_bwd_plain(*cap.args[:3],
+                                                                             cap.grad, seg)))
+    log(f"[qwen2 train] flash_bwd on the first step's own inputs "
+        f"{[tuple(a.shape) for a in cap.args[:3]]}: max abs err {err:.3e}")
+    kernel_results["flash_bwd"]["max_abs_err"] = max(kernel_results["flash_bwd"]["max_abs_err"],
+                                                     err)
+    del cap, leaves, got
+    torch.cuda.empty_cache()
+
+    # the first step's gradient again from the same start, kernels vs plain versions
+    with torch.no_grad():
+        for n, p in trainer.opt.params.items():
+            p.copy_(start[n])
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in short.batch.items()}
+    m_k, g_k = grad_step(model, arch, trainer.opt.params, batch, short.plan)
+    with plain_versions("qwen2"):
+        m_p, g_p = grad_step(model, arch, trainer.opt.params, batch, short.plan)
+    names = [n for n in g_k if ".lora_" in n]
+    vk = torch.cat([g_k[n].flatten() for n in names])
+    vp = torch.cat([g_p[n].flatten() for n in names])
+    cos = torch.nn.functional.cosine_similarity(vk, vp, dim=0).item()
+    lk, lp = float(m_k["loss"]), float(m_p["loss"])
+    log(f"[qwen2 train] first step, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f} "
+        f"(logged {losses[0]:.6f}); LoRA gradient cosine {cos:.6f} (limit 0.99), norms "
+        f"{vk.norm().item():.4e} vs {vp.norm().item():.4e}")
+    # bf16 activations and gradients through 28 layers round at other places
+    if not (abs(lk - lp) <= 1e-2 * abs(lp) and cos > 0.99):
+        raise AssertionError("qwen2: the first training step disagrees with the plain versions")
+
+
 def set_fusions(on: bool) -> None:
     for var in FUSIONS:
         os.environ[var] = "1" if on else "0"
@@ -2692,6 +3217,9 @@ def phase_qwen2(smi: str, kernel_results: dict) -> None:
         raise AssertionError(f"qwen2 engine requests failed: {bad}")
     del eng
     check_qwen2_engine(model, arch, mix, out)
+    # (e) speculative decoding, (f) LoRA training
+    phase_speculative(model, arch, smi, kernel_results, "qwen2 spec")
+    phase_qwen2_training(model, arch, kernel_results)
     del model, gen, gen_p
     gc.collect()
     torch.cuda.empty_cache()
@@ -2763,6 +3291,7 @@ def main() -> int:
     phase_long_video(model, arch, results)
     phase_engine(model, arch, smi, results)
     phase_pdrop(model, arch, smi, results)
+    phase_speculative(model, arch, smi, results, "spec")
     phase_training(model, arch, results, profile=args.profile)
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()

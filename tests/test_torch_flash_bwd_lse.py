@@ -69,9 +69,12 @@ def test_the_kernels_backward_matches_jax_vjp(Hq, Hkv):
     out = flash_attention_plain(tq, tk, tv, tseg)
     lse = flash_lse_plain(tq, tk, tseg)
     got = bwd_as_the_kernels_run_it(tq, tk, tv, out, t(dout), lse, tseg)
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, segment_ids=jnp.asarray(seg)),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    for g, w in zip(got, vjp(jnp.asarray(dout))):
+    @jax.jit  # one compile a case, not one per primitive
+    def grads(a, b, c, g):
+        return jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, segment_ids=jnp.asarray(seg)),
+                       a, b, c)[1](g)
+
+    for g, w in zip(got, grads(*(jnp.asarray(x) for x in (q, k, v, dout)))):
         np.testing.assert_allclose(n(g), n(w), rtol=1e-5, atol=1e-5)
 
 

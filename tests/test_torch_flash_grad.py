@@ -34,8 +34,12 @@ def test_flash_grads_match_jax(Hq, Hkv, packed):
     def f(q, k, v):
         return jax_flash_attention(q, k, v, segment_ids=None if seg is None else jnp.asarray(seg))
 
-    want_out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = vjp(jnp.asarray(g))
+    @jax.jit  # one compile a case, not one per primitive
+    def fwd_bwd(q, k, v, g):
+        o, vjp = jax.vjp(f, q, k, v)
+        return o, vjp(g)
+
+    want_out, want = fwd_bwd(*(jnp.asarray(a) for a in (q, k, v, g)))
     np.testing.assert_allclose(n(out), n(want_out), **TOL)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(n(a), n(b), err_msg=name, **TOL)

@@ -2,9 +2,13 @@
 (kernel_q and kernel_scale bitwise equal), the W8A8 and weight-only applies
 and the prequantized product, the fused in_proj leaf, and calibrated
 activation scales (within f32 rounding: the forwards sum in other orders
-before the amax). JAX parameters are made eagerly, so their dicts keep
-insertion order, the order the JAX calibration pairs maxima with leaves by;
-the port's calibration pairs them by module, whatever the order."""
+before the amax). JAX parameters are made by jax.jit with their dicts put
+back in insertion order (`jit_in_order`), the order the JAX calibration
+pairs maxima with leaves by; the port's calibration pairs them by module,
+whatever the order."""
+
+import functools
+
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
+from test_torch_int8_generate import jit_in_order
 from torch_parity import n, rng, t
 
 from timeviper_tpu.config import tiny_nano_config, tiny_vit_config
@@ -37,17 +42,26 @@ from timeviper_tpu_torch.train.quantize import (
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _init(which: str, dtype):
+    """The JAX init, jitted once a (model, dtype), its dicts in the init's
+    order; callers get the same (immutable) arrays."""
+    if which == "nano":
+        cfg = tiny_nano_config()
+        return cfg, jit_in_order(lambda key: jax_init_nano(key, cfg, dtype), jax.random.PRNGKey(0))
+    cfg = tiny_vit_config()
+    return cfg, jit_in_order(lambda key: jax_init_vit(key, cfg, dtype), jax.random.PRNGKey(1))
+
+
 def _nano(dtype=jnp.float32):
-    cfg = tiny_nano_config()
-    params = jax_init_nano(jax.random.PRNGKey(0), cfg, dtype)
+    cfg, params = _init("nano", dtype)
     model = NanoModel(cfg, torch.float32 if dtype == jnp.float32 else torch.bfloat16, "cpu")
     model.load_state_dict(nano_state_dict(params, cfg))
     return cfg, params, model
 
 
 def _vit():
-    cfg = tiny_vit_config()
-    params = jax_init_vit(jax.random.PRNGKey(1), cfg, jnp.float32)
+    cfg, params = _init("vit", jnp.float32)
     model = ViT(cfg, torch.float32, "cpu")
     model.load_state_dict(vit_state_dict(params, cfg))
     return cfg, params, model

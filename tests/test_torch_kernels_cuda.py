@@ -41,11 +41,18 @@ head-grid kernel) at 1, 2 and 4 heads a block, with the exp and without it,
 both to 1e-2 of the largest magnitude like the other forward kernels (K10a
 with no floor of 1: its outputs are averages of v, far below 1).
 
+The qwen2 backbones' GQA groups (28 / 4, 16 / 2, 12 / 2: query-head packs of
+1, 8 and 2) run K2, K9 and, for qwen2 training, K2-bwd; the speculative
+verify runs K9 at 8 queries over an 8,448-row prefix and an 8 x 8 causal
+block, and K1 on 8 rows from a carried state.
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
 than 0.1% of elements (ties of y * act_inv, whose sums differ in order).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -646,6 +653,122 @@ def test_flash_backward_kernel_matches_plain(L, packed, Hq, Hkv):
         else:
             _close(a, b, BWD_TOL, floor=0.0)
     assert all(torch.equal(a, b) for a, b in zip(got, kernel_grads()))
+
+
+@pytest.mark.parametrize("Hq,Hkv", QWEN2_GQA)
+@pytest.mark.parametrize("L,packed", [(300, None), (300, (13, 140)), (4096, None),
+                                      (4096, (1000, 2500))])
+def test_flash_backward_kernel_at_the_qwen2_gqa_groups(Hq, Hkv, L, packed):
+    """K2-bwd at query-head packs of 1, 8 and 2 (the dQ kernel's (64, pack,
+    64 / pack) boxes; the dK/dV kernel's walk over the group's 7, 8 or 6
+    query heads), segmented and not, at L 300 (B 2) and 4,096 (B 1), against
+    autograd through the plain version to BWD_TOL; one launch; bitwise
+    repeatable."""
+    dev = require_cuda()
+    r = rng(23)
+    B, D = (1 if L == 4096 else 2), 128
+    q, k, v = (t(r.standard_normal((B, L, h, D), np.float32)).to(dev, torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    g = t(r.standard_normal((B, L, Hq, D), np.float32)).to(dev, torch.bfloat16)
+    seg = t(packed_seq(B, L, *packed)).to(dev) if packed else None
+
+    def kernel_grads():
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, g)
+
+    before = flash_attention_bwd.launches
+    got = kernel_grads()
+    assert flash_attention_bwd.launches == before + 1
+    for a, b in zip(got, flash_attention_bwd_plain(q, k, v, g, seg)):
+        _close(a, b, BWD_TOL, floor=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernel_grads()))
+
+
+def test_flash_backward_kernel_as_a_fresh_threads_first_cuda_work():
+    """PyTorch runs a backward in a thread of its own. K2-bwd as that
+    thread's first CUDA work (no segment ids, so no PyTorch kernel runs
+    before it there) once had no current context, and
+    cuTensorMapEncodeTiled refused its tensor maps (CUDA error 1); the entry
+    point now makes the tensors' device current. Run in a new thread, and
+    through autograd."""
+    dev = require_cuda()
+    r = rng(26)
+    q, k, v = (t(r.standard_normal((1, 300, h, 128), np.float32)).to(dev, torch.bfloat16)
+               for h in (28, 4, 4))
+    g = t(r.standard_normal((1, 300, 28, 128), np.float32)).to(dev, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, None, with_lse=True)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["grads"] = flash_attention_bwd(q, k, v, out, g, lse)
+        except Exception as e:  # noqa: BLE001 (re-raised below)
+            res["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in res:
+        raise res["error"]
+    want = flash_attention_bwd_plain(q, k, v, g)
+    for a, b in zip(res["grads"], want):
+        _close(a, b, BWD_TOL, floor=0.0)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    for a, b in zip(torch.autograd.grad(flash_attention(*leaves), leaves, g), want):
+        _close(a, b, BWD_TOL, floor=0.0)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (28, 4)])
+@pytest.mark.parametrize("part", ["prefix", "own"])
+def test_block_attention_kernel_at_the_verify_shapes(Hq, Hkv, part):
+    """The speculative verify's two K9 blocks per attention layer (n_draft 7:
+    8 rows): the 8 queries against an 8,448-row prefix [2, 8450) of a cache
+    buffer, non-causal (split keys), and the 8 x 8 causal own block, at the
+    9B's 32 / 8 and qwen2.5-7b's 28 / 4. Against the plain version to 1e-2;
+    one launch; a repeat gives the same bits."""
+    dev = require_cuda()
+    r = rng(24)
+    bf = lambda *s: t(r.standard_normal(s, np.float32)).to(dev, torch.bfloat16)  # noqa: E731
+    q = bf(1, 8, Hq, 128)
+    if part == "prefix":
+        buf_k, buf_v = bf(1, 8466, Hkv, 128), bf(1, 8466, Hkv, 128)
+        k, v, kw = buf_k[:, 2:8450], buf_v[:, 2:8450], {}
+        assert block_attn_plan(1, 8, k.shape[1], Hq, Hkv)[1] > 1
+    else:
+        buf_k, buf_v = bf(1, 8466, Hkv, 128), bf(1, 8466, Hkv, 128)
+        k, v, kw = buf_k[:, 8450:8458], buf_v[:, 8450:8458], dict(causal=True)
+    before = block_attn_lse.launches
+    got = block_attn_lse(q, k, v, **kw)
+    assert block_attn_lse.launches == before + 1
+    for a, b in zip(got, block_attn_lse_plain(q, k, v, **kw)):
+        _close(a, b, 1e-2)
+    assert all(torch.equal(a, b) for a, b in zip(got, block_attn_lse(q, k, v, **kw)))
+
+
+@pytest.mark.parametrize("S", [8, 5])
+def test_ssd_kernel_on_verify_rows_from_a_carried_state(S):
+    """K1 on a verify's S rows (n_draft + 1, or a partial commit's a + 1)
+    from a carried state at the 9B's widths, as the continuation runs it with
+    chunk_size=S (models/prefix_cache.py:scan_chunk: one chunk at either size,
+    run at the config's 256): against ssd_chunked at chunk S, JAX's override,
+    and at 256, y and the final state to 1e-2."""
+    dev = require_cuda()
+    r = rng(25)
+    H, G, P, N = 128, 8, 64, 128
+    bf = lambda *s, k=1.0: t(r.standard_normal(s, np.float32) * k).to(dev, torch.bfloat16)  # noqa: E731
+    x, dt, Bm, Cm = bf(1, S, H, P), bf(1, S, H, k=0.5), bf(1, S, G, N), bf(1, S, G, N)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    D, dtb = (t(r.standard_normal(H).astype(np.float32)).to(dev) for _ in range(2))
+    h0 = t(r.standard_normal((1, H, P, N), np.float32)).to(dev)
+    kw = dict(D=D, dt_bias=dtb, initial_state=h0)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk_size=256, **kw)
+    assert ssd_scan.launches == before + 1
+    for cs in (S, 256):
+        yp, sp = ssd_chunked(x, dt, A, Bm, Cm, chunk_size=cs, **kw)
+        _close(y, yp, 1e-2)
+        _close(st, sp, 1e-2)
 
 
 def _int8_close(got, want):

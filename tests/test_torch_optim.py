@@ -55,11 +55,15 @@ def test_adamw_matches_optax(cfg_kw, trainable):
                for k, v in _flat(_trees(0)).items()}
     opt = topt.apply_freeze(topt.build_optimizer(topt.OptimConfig(**cfg_kw), tparams),
                             trainable)
+    @jax.jit  # one compile a case, not one per primitive and shape
+    def jstep(g, state, params):
+        updates, state = tx.update(g, state, params)
+        return optax.apply_updates(params, updates), state
+
     for step in range(6):
         grads = _trees(100 + step)
         jg = jax.tree_util.tree_map(lambda g: jnp.asarray(g * (1 + step)), grads)
-        updates, jstate = tx.update(jg, jstate, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, jstate = jstep(jg, jstate, jparams)
         opt.update({k: torch.from_numpy(v * (1 + step)) for k, v in _flat(grads).items()})
         for k, want in _flat(jax.tree_util.tree_map(np.asarray, jparams)).items():
             np.testing.assert_allclose(tparams[k].detach().numpy(), want, rtol=1e-5,

@@ -21,6 +21,9 @@ Tolerance 1e-4 of the largest magnitude (tests/test_torch_prefix_cache.py's);
 keep sets, labels and segment ids exactly equal.
 """
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,11 +55,18 @@ def _configs(pdrop_type, **kw):
     return jcfg.tiny_nano_config(**over), tcfg.tiny_nano_config(**over)
 
 
+@functools.lru_cache(maxsize=None)
+def _init_params(base):
+    return jax.jit(jax_nano.init_nano_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), base, jnp.float32)
+
+
 def _models(jc, tc, alphas):
     """JAX nano params and merge list (alpha per stage) and their port
-    copies."""
-    params = jax.jit(jax_nano.init_nano_params, static_argnums=(1, 2))(
-        jax.random.PRNGKey(0), jc, jnp.float32)
+    copies. The init draws no weight for the pdrop fields, so the params
+    are those of the config without them, compiled once."""
+    params = _init_params(dataclasses.replace(jc, use_pdrop=False, pdrop_type=None,
+                                              merge_module="no_merge"))
     merge = jax_pdrop.init_merge_modules(jax.random.PRNGKey(1), jc, jnp.float32)
     merge = [dict(m, alpha=jnp.asarray(a, jnp.float32)) for m, a in zip(merge, alphas)]
     model = NanoModel(tc, torch.float32)

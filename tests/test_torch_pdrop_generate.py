@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from test_torch_int8_generate import jit_in_order
 from torch_parity import n, rng, t
 
 from timeviper_tpu.config import VLMConfig, tiny_nano_config, tiny_vit_config
@@ -69,7 +70,10 @@ def _setup():
     jllm, tllm = tiny_nano_config(**PDROP), tcfg.tiny_nano_config(**PDROP)
     arch = VLMArch(vlm=vlm, vision=tiny_vit_config(), llm=tllm)
     jarch = jax_vlm.VLMArch(vlm=vlm, vision=arch.vision, llm=jllm, llm_family="nano")
-    params = jax_vlm.init_vlm_params(jax.random.PRNGKey(0), jarch, jnp.float32)
+    # jitted, its dicts in the init's order (the JAX calibration pairs scales
+    # by dict order)
+    params = jit_in_order(lambda key: jax_vlm.init_vlm_params(key, jarch, jnp.float32),
+                          jax.random.PRNGKey(0))
     params["merge_modules"] = [dict(m, alpha=jnp.asarray(a, jnp.float32))
                                for m, a in zip(params["merge_modules"], ALPHAS)]
     model = TimeViperVLM(arch, torch.float32, device="cpu")

@@ -513,6 +513,17 @@ bool encode_f32_rows(CUtensorMap* map, const float* base, int ld, int rows, int 
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Make the device that holds `ptr` current in the calling thread. PyTorch
+// runs a backward in a thread of its own; where this entry point is that
+// thread's first CUDA work, no context is current there and
+// cuTensorMapEncodeTiled refuses every tensor map, which came back as CUDA
+// error 1 at launch.
+cudaError_t bind_device(const void* ptr) {
+  cudaPointerAttributes a;
+  const cudaError_t err = cudaPointerGetAttributes(&a, ptr);
+  return err != cudaSuccess ? err : cudaSetDevice(a.device);
+}
+
 }  // namespace
 
 // q, o, dO, dq (B, L, Hq, 128), k, v, dk, dv (B, L, Hkv, 128) bf16, 16-byte
@@ -537,6 +548,8 @@ extern "C" int tv_flash_bwd(const void* q, const void* k, const void* v, const v
     return cudaErrorInvalidValue;
   if (dkv_keys != kBK || dkv_queries != kBQ || dq_rows != kRows || dq_keys != kBKV)
     return cudaErrorInvalidValue;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
   const int Lp = (L + 3) / 4 * 4;
   const long long hs = D, rq = (long long)Hq * D, rk = (long long)Hkv * D;
   BwdParams p{};
@@ -565,7 +578,6 @@ extern "C" int tv_flash_bwd(const void* q, const void* k, const void* v, const v
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if ((err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kDkvSmem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

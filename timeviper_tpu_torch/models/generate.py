@@ -8,7 +8,11 @@
   2. device: encode the frames clip by clip, then one prefill that fills the
      decode cache and gives the last row's f32 logits;
   3. host loop: one `decode_step` per token until a terminator or
-     `max_new_tokens`.
+     `max_new_tokens`; with `speculative="ngram"` and greedy sampling, the
+     prompt-lookup loop of models/speculative.py instead (one verify pass of
+     `n_draft + 1` rows where the history proposes drafts), token-identical.
+     Every cache then holds `n_draft + 2` rows more (`_spec_margin`), for
+     the verify's rows past the last accepted one.
 
 Questions on a cached video: `prefill_prefix` prefills the shared part of
 the prompt (system text and the video) once and returns a `PrefixState`;
@@ -26,7 +30,7 @@ package); the cache then carries each layer's `kv_len` and the TransV
 `ca_kv`, which the continuation and every decode step merge again
 (timeviper_tpu/models/generate.py:259-297, :528-553, :651-668).
 
-Left out for now: sequence parallelism and speculative decoding.
+Left out for now: sequence parallelism.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from timeviper_tpu_torch.models.vlm import (
     vlm_forward,
 )
 from timeviper_tpu_torch.models.prefix_cache import forward_continue
+from timeviper_tpu_torch.models.speculative import spec_decode, text_history
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
@@ -87,6 +92,8 @@ class GenerationOutput:
     encode_s: float  # host seconds, each phase ended by a device synchronize
     prefill_s: float
     decode_s: float
+    # the speculative loop's counts (models/speculative.py:spec_decode), or None
+    spec_stats: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -119,7 +126,13 @@ class Generator:
         max_new_tokens: int = 128,
         sampling: SamplingParams = SamplingParams(),
         clip_size: int = 256,
+        speculative: Optional[str] = None,
+        n_draft: int = 7,
     ) -> None:
+        if speculative not in (None, "ngram"):
+            raise ValueError(f"unknown speculative mode {speculative!r}")
+        self.speculative = speculative
+        self.n_draft = n_draft
         self.model = model
         self.arch = arch
         self.terminators = tuple(int(t) for t in terminator_ids)
@@ -128,6 +141,16 @@ class Generator:
         self.sampling = sampling
         self.clip_size = clip_size
         self.device = model.llm_backbone.embeddings.weight.device
+
+    @property
+    def _spec_on(self) -> bool:
+        """Speculation takes the greedy decode (acceptance compares argmax)."""
+        return self.speculative == "ngram" and self.sampling.temperature == 0.0
+
+    @property
+    def _spec_margin(self) -> int:
+        """Cache rows a verify pass may write past max_new_tokens."""
+        return self.n_draft + 2 if self._spec_on else 0
 
     @torch.inference_mode()
     def encode_frames(self, pixels) -> torch.Tensor:
@@ -221,11 +244,12 @@ class Generator:
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(
             list(input_ids), image_token_id)
         visual = self._check_visual(plan, visual)
-        need = bucket + suffix_budget + self.max_new_tokens
+        need = bucket + suffix_budget + self.max_new_tokens + self._spec_margin
         cache_len = need if cache_len is None else cache_len
         if cache_len < need:
             raise ValueError(f"cache_len {cache_len} < prefix bucket {bucket} + suffix_budget "
-                             f"{suffix_budget} + max_new_tokens {self.max_new_tokens}")
+                             f"{suffix_budget} + max_new_tokens {self.max_new_tokens} + "
+                             f"the speculative margin {self._spec_margin}")
         _, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad, cache_len,
                                 self._pdrop_start(plan, pad, use_pdrop))
         return PrefixState(cache=cache, bucket=bucket, cache_len=cache_len,
@@ -266,15 +290,27 @@ class Generator:
         plan, bucket, pad, ids_arr, gather_idx, seq_idx = self._plan_prompt(ids, image_token_id)
         visual = self._check_visual(plan, visual)
         first_logits, cache = self.prefill(ids_arr, gather_idx, seq_idx, visual, pad,
-                                           bucket + self.max_new_tokens,
+                                           bucket + self.max_new_tokens + self._spec_margin,
                                            self._pdrop_start(plan, pad, use_pdrop))
         _sync(self.device)
         t2 = time.perf_counter()
-        tokens = self.decode(first_logits, cache, rng_seed)
+        tokens, stats = self._run_decode(ids, first_logits, cache, rng_seed, image_token_id)
         t3 = time.perf_counter()
         return GenerationOutput(token_ids=tokens, num_generated=len(tokens),
                                 first_logits=first_logits, encode_s=t1 - t0,
-                                prefill_s=t2 - t1, decode_s=t3 - t2)
+                                prefill_s=t2 - t1, decode_s=t3 - t2, spec_stats=stats)
+
+    def _run_decode(self, ids, first_logits, cache, rng_seed: int, image_token_id=None):
+        """(tokens, the speculative counts or None): the speculative loop when
+        it is on, mining the prompt `ids` for drafts, else the plain one.
+        The cache must be the loop's own."""
+        if self._spec_on:
+            buf, buf_len = text_history(ids, image_token_id, self.pad_token_id,
+                                        self.max_new_tokens, self.n_draft)
+            return spec_decode(self.model, self.arch, first_logits, cache, buf, buf_len,
+                               max_new_tokens=self.max_new_tokens,
+                               terminators=self.terminators, n_draft=self.n_draft)
+        return self.decode(first_logits, cache, rng_seed), None
 
     def _generate_on_prefix(self, ids, pixels, prefix: PrefixState, rng_seed: int
                             ) -> GenerationOutput:
@@ -298,8 +334,10 @@ class Generator:
                 llm, self.arch.llm, embeds, prefix.cache, pdrop_params=self.model.merge_modules)
         _sync(self.device)
         t1 = time.perf_counter()
-        tokens = self.decode(first_logits, cache, rng_seed)
+        # the continuation's cache holds copies of the prefix's K/V buffers
+        # and new Mamba states: the loop may write it
+        tokens, stats = self._run_decode(ids, first_logits, cache, rng_seed)
         t2 = time.perf_counter()
         return GenerationOutput(token_ids=tokens, num_generated=len(tokens),
                                 first_logits=first_logits, encode_s=0.0, prefill_s=t1 - t0,
-                                decode_s=t2 - t1)
+                                decode_s=t2 - t1, spec_stats=stats)

@@ -465,8 +465,9 @@ def nano_forward(
 
 
 def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
-    """lm_head in float32; an int8 lm_head by its f32 dequant, formed once
-    (timeviper_tpu/models/nano.py:684)."""
+    """f32 logits (..., V) of hidden rows (B, D) or (B, S, D) (the verify
+    pass's); lm_head in float32, an int8 lm_head by its f32 dequant, formed
+    once (timeviper_tpu/models/nano.py:684)."""
     lm = model.lm_head
     w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
     return F.linear(hidden.float(), w)

@@ -49,9 +49,17 @@ attention layer, and suffix row i rotates at the logical position
 layer's own `kv_len` takes the place of `length` in the position too
 (models/qwen2.py says why).
 
+The speculative verify pass (models/speculative.py) runs through both
+continuations: `logits_all=True` returns the f32 logits of every suffix row,
+and `chunk_size` overrides the config's SSD chunk as in the JAX package. JAX
+passes `chunk_size=S` only to keep its padded S-row scan off the Pallas grid;
+here only the S real rows run, and a suffix that fits one chunk of both sizes
+is one chunk at either: it runs at the config's chunk, the one K1 takes (K1
+refuses a chunk that is not a multiple of 64 in 64-1,024). A longer suffix
+runs at the override.
+
 Not ported yet: a cache with slot-validity masks (`kv_valid`, made only by
-the sequence-parallel masked prefill) and the speculative verify pass
-(`logits_all`, the `chunk_size` override), which raise NotImplementedError.
+the sequence-parallel masked prefill), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -87,8 +95,18 @@ def _conv_continue(raw: torch.Tensor, window: torch.Tensor, weight, bias, activa
     return out, ext[:, -K:].transpose(1, 2).to(window.dtype).contiguous()
 
 
+def scan_chunk(cfg: NanoConfig, S: int, chunk_size: Optional[int] = None) -> int:
+    """The SSD chunk of an S-row continuation: `chunk_size` where given,
+    except that a suffix of at most both sizes is one chunk at either and
+    takes the config's."""
+    if chunk_size is None or S <= min(chunk_size, cfg.chunk_size):
+        return cfg.chunk_size
+    return chunk_size
+
+
 def _mamba_continue(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor,
-                    cache_layer: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                    cache_layer: Dict[str, Any], chunk_size: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x (B, S, D) normed rows that follow those the cache entry has seen ->
     (out (B, S, D), new cache entry). An `ssm_state` of None starts from
     zero; longctx.py runs its chunks through here."""
@@ -102,8 +120,8 @@ def _mamba_continue(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor,
     Cs, win_C = _conv_continue(Cr, cs["C"], cv["C"].weight, cv["C"].bias, act)
     y, final_state = ssd_scan(
         xs.reshape(B, S, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, S, G, N),
-        Cs.reshape(B, S, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
-        dt_limit=cfg.time_step_limit, initial_state=cache_layer["ssm_state"])
+        Cs.reshape(B, S, G, N), chunk_size=scan_chunk(cfg, S, chunk_size), D=m.D,
+        dt_bias=m.dt_bias, dt_limit=cfg.time_step_limit, initial_state=cache_layer["ssm_state"])
     y = gated_rms_norm(y.reshape(B, S, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
                        group_size=di // G)
     return m.out_proj(y), {"conv_state": {"x": win_x, "B": win_B, "C": win_C},
@@ -122,34 +140,41 @@ def attention_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: 
     return merge_parts([prefix, own])[0]
 
 
-def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
-                        cache_layer: Dict[str, Any], length: int, valid_from: int
-                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry whose
-    buffers are copies of the input's with the suffix rows written). A
-    layer's own `kv_len` (after a pdrop prefill) takes the place of
-    `length`."""
-    B, S, _ = x.shape
-    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    length = cache_layer.get("kv_len", length)
+def _append_kv(cache_layer: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Tensor,
+               length: int) -> Dict[str, Any]:
+    """The layer's cache entry with the suffix's K/V rows written at
+    [length, length + S) of copies of its buffers. A pdrop entry's `kv_len`
+    grows by S."""
+    S = k_new.shape[1]
     if length + S > cache_layer["k"].shape[1]:
         raise ValueError(f"a suffix of {S} rows after {length} overflows the cache's "
                          f"{cache_layer['k'].shape[1]} slots")
-    q = m.q_proj(x).reshape(B, S, Hq, hd)
     k, v = cache_layer["k"].clone(), cache_layer["v"].clone()
-    k[:, length:length + S] = m.k_proj(x).reshape(B, S, Hkv, hd).to(k.dtype)
-    v[:, length:length + S] = m.v_proj(x).reshape(B, S, Hkv, hd).to(v.dtype)
-    out = attention_suffix(q, k, v, length, valid_from)
+    k[:, length:length + S] = k_new.to(k.dtype)
+    v[:, length:length + S] = v_new.to(v.dtype)
     lc = {"k": k, "v": v}
     if "kv_len" in cache_layer:
         lc["kv_len"] = length + S
+    return lc
+
+
+def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
+                        cache_layer: Dict[str, Any], length: int, valid_from: int
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry with the
+    suffix rows written, `_append_kv`). A layer's own `kv_len` (after a pdrop
+    prefill) takes the place of `length`."""
+    B, S, _ = x.shape
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    length = cache_layer.get("kv_len", length)
+    q = m.q_proj(x).reshape(B, S, Hq, hd)
+    lc = _append_kv(cache_layer, m.k_proj(x).reshape(B, S, Hkv, hd),
+                    m.v_proj(x).reshape(B, S, Hkv, hd), length)
+    out = attention_suffix(q, lc["k"], lc["v"], length, valid_from)
     return m.o_proj(out.reshape(B, S, Hq * hd)), lc
 
 
-def _refuse_unported(cache: Dict[str, Any], logits_all: bool, chunk_size) -> None:
-    if logits_all or chunk_size is not None:
-        raise NotImplementedError("the speculative verify pass (logits_all, chunk_size) "
-                                  "is not ported")
+def _refuse_unported(cache: Dict[str, Any]) -> None:
     if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
         raise NotImplementedError("a cache with slot-validity masks (kv_valid, the "
                                   "sequence-parallel masked prefill's) is not ported")
@@ -162,10 +187,11 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run a suffix on top of a filled cache. inputs_embeds (B, S, D) holds
     the S real suffix rows, no pads. Returns (the f32 logits (B, V) of its
-    last row, the updated cache with length += S). The input cache is left
-    untouched. `pdrop_params` (the merge modules) merge the suffix rows with
-    a pdrop cache's `ca_kv`."""
-    _refuse_unported(cache, logits_all, chunk_size)
+    last row, or (B, S, V) of every row with `logits_all`, the updated cache
+    with length += S). The input cache is left untouched. `pdrop_params`
+    (the merge modules) merge the suffix rows with a pdrop cache's `ca_kv`;
+    `chunk_size` overrides the SSD chunk (`scan_chunk`)."""
+    _refuse_unported(cache)
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.layer_norm_epsilon
@@ -177,14 +203,14 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
             hidden = merge_dropped_cached(hidden, *merges[idx], cfg)
         normed = rms_norm(hidden, block.norm.weight, eps)
         if block.block_type == "mamba":
-            out, lc = _mamba_continue(block.mixer, cfg, normed, lc)
+            out, lc = _mamba_continue(block.mixer, cfg, normed, lc, chunk_size)
         elif block.block_type == "attention":
             out, lc = _attention_continue(block.mixer, cfg, normed, lc, length, valid_from)
         else:
             out, lc = mlp_mixer_forward(block.mixer, cfg, normed), {}
         hidden = hidden + out
         new_layers.append(lc)
-    hidden = rms_norm(hidden[:, -1], model.norm_f.weight, eps)
+    hidden = rms_norm(hidden if logits_all else hidden[:, -1], model.norm_f.weight, eps)
     new_cache = {"layers": new_layers, "length": length + S, "valid_from": valid_from}
     if "ca_kv" in cache:
         new_cache["ca_kv"] = cache["ca_kv"]
@@ -194,24 +220,16 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
 def _qwen2_attention_continue(attn: Qwen2Attention, cfg, x: torch.Tensor,
                               cache_layer: Dict[str, Any], length: int, valid_from: int
                               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry whose
-    buffers are copies of the input's with the suffix's K/V, after RoPE at
-    (length - valid_from) + i, written at [length, length + S). A layer's
-    own `kv_len` takes the place of `length`."""
+    """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry with the
+    suffix's K/V, after RoPE at (length - valid_from) + i, written at
+    [length, length + S), `_append_kv`). A layer's own `kv_len` takes the
+    place of `length`."""
     B, S, _ = x.shape
     length = cache_layer.get("kv_len", length)
-    if length + S > cache_layer["k"].shape[1]:
-        raise ValueError(f"a suffix of {S} rows after {length} overflows the cache's "
-                         f"{cache_layer['k'].shape[1]} slots")
     positions = (length - valid_from) + torch.arange(S, device=x.device)[None].expand(B, S)
     q, k_new, v_new = project_qkv(attn, cfg, x, positions)
-    k, v = cache_layer["k"].clone(), cache_layer["v"].clone()
-    k[:, length:length + S] = k_new.to(k.dtype)
-    v[:, length:length + S] = v_new.to(v.dtype)
-    out = attention_suffix(q, k, v, length, valid_from)
-    lc = {"k": k, "v": v}
-    if "kv_len" in cache_layer:
-        lc["kv_len"] = length + S
+    lc = _append_kv(cache_layer, k_new, v_new, length)
+    out = attention_suffix(q, lc["k"], lc["v"], length, valid_from)
     return attn.o_proj(out.reshape(B, S, -1)), lc
 
 
@@ -221,11 +239,12 @@ def qwen2_forward_continue(model, cfg, inputs_embeds: torch.Tensor, cache: Dict[
                            chunk_size: Optional[int] = None
                            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the S real suffix rows inputs_embeds (B, S, D) on top of a filled
-    qwen2 cache. Returns (the f32 logits (B, V) of the last row, the updated
-    cache with length += S); the input cache is left untouched.
-    `pdrop_params` (the merge modules) merge the suffix rows with a pdrop
-    cache's `ca_kv`."""
-    _refuse_unported(cache, logits_all, chunk_size)
+    qwen2 cache. Returns (the f32 logits (B, V) of the last row, or (B, S, V)
+    of every row with `logits_all`, the updated cache with length += S); the
+    input cache is left untouched. `pdrop_params` (the merge modules) merge
+    the suffix rows with a pdrop cache's `ca_kv`. `chunk_size` is accepted for the speculative loop's one call and unused: the backbone
+    has no SSD scan."""
+    _refuse_unported(cache)
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.rms_norm_eps
@@ -242,7 +261,7 @@ def qwen2_forward_continue(model, cfg, inputs_embeds: torch.Tensor, cache: Dict[
         hidden = hidden + mlp_forward(
             layer.mlp, rms_norm(hidden, layer.post_attention_layernorm.weight, eps))
         new_layers.append(lc)
-    hidden = rms_norm(hidden[:, -1], model.norm_f.weight, eps)
+    hidden = rms_norm(hidden if logits_all else hidden[:, -1], model.norm_f.weight, eps)
     new_cache = {"layers": new_layers, "length": length + S, "valid_from": valid_from}
     if "ca_kv" in cache:
         new_cache["ca_kv"] = cache["ca_kv"]

@@ -7,12 +7,16 @@ or, with tied embeddings, from the embedding table. Modules hold the weights
 under the JAX package's names (params.py maps one onto the other); the
 forward passes are plain functions named as in the JAX package:
 
-* `qwen2_forward` (prefill): positions restart at each packed segment (the
-  bucketed prefill's left pad, segment -1, is a segment of its own, so the
-  first real token sits at position 0); each layer's causal, segment-masked
-  attention runs on q and k after RoPE through ops/flash_attention.py (K2 on
-  the card). With a `pdrop_spec` the stages run before their layers and the
-  positions are numbered again over the kept rows.
+* `qwen2_forward` (prefill and training): positions restart at each packed
+  segment (the bucketed prefill's left pad, segment -1, is a segment of its
+  own, so the first real token sits at position 0); each layer's causal,
+  segment-masked attention runs on q and k after RoPE through
+  ops/flash_attention.py (K2 on the card, and under autograd K2-bwd for its
+  backward). With `remat` each layer keeps only its input for the backward
+  and is recomputed there (one checkpoint a layer, the JAX package's
+  `_remat_wrap` with policy "full"). With a `pdrop_spec` the stages run
+  before their layers and the positions are numbered again over the kept
+  rows.
 * `qwen2_decode_step`: one token per row. It rotates at the logical position
   `length - valid_from`, writes its K/V in place at `length` and attends
   over the slots [valid_from, length]: K9's non-causal mode
@@ -37,9 +41,9 @@ Where the port leaves the JAX code behind, and why:
   no layer precedes a stage the two agree; elsewhere the port agrees with a
   teacher-forced pdrop forward (tests/test_torch_qwen2_generate.py).
 
-Not ported yet: training (remat, LoRA through K2-bwd), W8A8 serving and the
-JAX forward's `attention_mask` and `position_ids` arguments, which no
-serving path passes.
+Not ported yet: training with pdrop stages, W8A8 serving, and the JAX
+forward's `attention_mask` and `position_ids` arguments, which no serving or
+training path passes.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import Qwen2Config
 from timeviper_tpu_torch.models.nano import RMSNorm
@@ -228,6 +233,22 @@ def attention_decode(attn: Qwen2Attention, cfg: Qwen2Config, x: torch.Tensor,
     return attn.o_proj(out.reshape(B, 1, -1)), cache_layer
 
 
+def _layer_forward(layer: Qwen2Layer, cfg: Qwen2Config, hidden: torch.Tensor,
+                   positions: torch.Tensor, seq_idx: Optional[torch.Tensor],
+                   fill_cache: bool = False, max_len: int = 0
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """One pre-norm block: attention, then the MLP, each added to the
+    residual."""
+    eps = cfg.rms_norm_eps
+    a, lc = attention_forward(layer.self_attn, cfg,
+                              rms_norm(hidden, layer.input_layernorm.weight, eps),
+                              positions, seq_idx, fill_cache, max_len)
+    hidden = hidden + a
+    hidden = hidden + mlp_forward(
+        layer.mlp, rms_norm(hidden, layer.post_attention_layernorm.weight, eps))
+    return hidden, lc
+
+
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
@@ -244,15 +265,21 @@ def qwen2_forward(
     logits_to_keep: int = 0,
     valid_from: int = 0,
     labels: Optional[torch.Tensor] = None,
+    remat=False,
     pdrop_spec=None,
     pdrop_params=None,
 ) -> Dict[str, Any]:
-    """Full-sequence forward (prefill). Returns {"hidden_states", "logits",
-    "labels"} and, with `fill_cache`, the decode `cache`. `logits_to_keep` >
-    0 computes the f32 logits of the last rows only. `pdrop_spec`
+    """Full-sequence forward (prefill or training). Returns {"hidden_states",
+    "logits", "labels"} (the labels passed through, as the JAX forward
+    returns them) and, with `fill_cache`, the decode `cache`.
+    `logits_to_keep` > 0 computes the f32 logits of the last rows only.
+    `remat` (True or "full") recomputes each layer in the backward
+    (qwen2.py:215-218); the other policies are not ported. `pdrop_spec`
     (models/pdrop.py, one row) runs the config's stages before their layers
     with the TransV modules `pdrop_params`; a filled cache then records each
     layer's `kv_len` and each stage's `ca_kv` (qwen2.py:186-238)."""
+    if remat not in (False, True, "full"):
+        raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
     B, L, _ = hidden.shape
     eps = cfg.rms_norm_eps
@@ -269,12 +296,14 @@ def qwen2_forward(
                 merge=pdrop_params)
             ca_kvs.append(ca_kv or {})
             positions = build_positions(seq_idx, B, hidden.shape[1], hidden.device)
-        a, lc = attention_forward(layer.self_attn, cfg,
-                                  rms_norm(hidden, layer.input_layernorm.weight, eps),
-                                  positions, seq_idx, fill_cache, cache_max_len)
-        hidden = hidden + a
-        hidden = hidden + mlp_forward(
-            layer.mlp, rms_norm(hidden, layer.post_attention_layernorm.weight, eps))
+        if remat and not fill_cache:
+            hidden = checkpoint(
+                lambda h, lyr=layer, pos=positions, s=seq_idx: _layer_forward(
+                    lyr, cfg, h, pos, s)[0], hidden, use_reentrant=False)
+            lc = None
+        else:
+            hidden, lc = _layer_forward(layer, cfg, hidden, positions, seq_idx, fill_cache,
+                                        cache_max_len)
         if fill_cache and pdrop_spec is not None:
             lc["kv_len"] = hidden.shape[1]
         new_layers.append(lc or {})
@@ -290,7 +319,8 @@ def qwen2_forward(
 
 
 def compute_logits(model: Qwen2Model, hidden: torch.Tensor) -> torch.Tensor:
-    """f32 logits from lm_head, an int8 lm_head by its f32 dequant, or the
+    """f32 logits (..., V) of hidden rows (B, D) or (B, S, D) (the verify
+    pass's): from lm_head, an int8 lm_head by its f32 dequant, or the
     embedding table when the embeddings are tied (qwen2.py:241-251)."""
     lm = model.lm_head
     if lm is None:

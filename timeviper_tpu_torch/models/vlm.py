@@ -8,8 +8,8 @@ vmaps its one-row loss. A pdrop config with `merge_module == "CrossAttention"`
 gives the model its TransV modules (`merge_modules`, models/pdrop.py), and
 `vlm_forward(use_pdrop=True)` runs the stages. The backbone is Nemotron-H
 (`llm_family` "nano", models/nano.py) or Qwen2 ("qwen2", models/qwen2.py);
-`vlm_forward`, `init_cache` and `decode_step` dispatch by family. Left out
-for now: training on qwen2, training with pdrop and heterogeneous batches
+`vlm_forward`, `vlm_loss`, `init_cache` and `decode_step` dispatch by
+family. Left out for now: training with pdrop and heterogeneous batches
 (per-row plans).
 
 Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
@@ -258,14 +258,14 @@ def vlm_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Shifted cross-entropy over fused rows that share `plan`; the mean of the
     rows' own token means, as the JAX package's vmapped `vlm_loss` gives.
+    Either backbone (nano_forward or qwen2_forward, `remat` one checkpoint a
+    block or layer); a tied qwen2 takes its logits from the embeddings.
 
     batch: {"input_ids": (B, Lt), "labels": (B, fused_len) already fused,
     "pixels": (B, F, H, W, 3) or "visual_embeddings": (B, Nv, D), optional}.
     Returns (loss, {"n_tokens": labelled tokens summed over the rows})."""
     if "gather_idx" in batch:
         raise NotImplementedError("heterogeneous batches (per-row plans) are not ported")
-    if arch.llm_family != "nano":
-        raise NotImplementedError(f"training the {arch.llm_family} backbone is not ported")
     ids = batch["input_ids"].long()
     Bsz = ids.shape[0]
     emb = model.llm_backbone.embeddings
@@ -285,8 +285,8 @@ def vlm_loss(
     if plan.seq_idx is not None:
         seq_idx = torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
                                   device=src.device).expand(Bsz, -1).contiguous()
-    out = nano_forward(model.llm_backbone, arch.llm, inputs_embeds=src[:, idx],
-                       seq_idx=seq_idx, labels=batch["labels"], remat=remat)
+    out = llm_forward(model.llm_backbone, arch, inputs_embeds=src[:, idx], seq_idx=seq_idx,
+                      labels=batch["labels"], remat=remat)
     logits, labels = out["logits"][:, :-1], out["labels"][:, 1:].long()
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                           ignore_index=IGNORE_INDEX, reduction="none").view(labels.shape)
