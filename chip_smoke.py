@@ -51,7 +51,10 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    K2-bwd at the three groups at L 4,096, segmented and not (qwen2 training),
    against SDPA's backward alone; K9 at the speculative verify's shapes, 8
    queries x an 8,448-row prefix and the 8 x 8 causal own block, at 32 / 8
-   and 28 / 4.
+   and 28 / 4. Last, K2-bwd's non-causal mode (TransV's cross-attention
+   backward, given K9's output and row log-sum-exp m + log(l)): 32 text rows
+   x 205, 820 and 819 dropped tokens at 32 / 8 and 28 / 4, B 2, 1,000 x 820
+   and 4,096 x 4,096, against SDPA's non-causal backward alone.
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
    heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
@@ -136,10 +139,31 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    unfrozen, through Trainer.train: four steps on one repeated row of 64
    frames + 40 text tokens (labels on the last 32), then one step on a row of
    256 frames (4,136 tokens). Every loss finite, the 4th below the 1st, every
-   kernel of the path launched (K1, K2, K3 forward, K4, K2-bwd). K4 and K2-bwd
-   are held against their plain versions on the inputs and output cotangents
-   the first step gave one Mamba and one attention layer, and the first step's
-   loss and LoRA gradient against a run with the plain versions swapped in.
+   kernel of the path launched (K1, K2, K3 forward, K4, K2-bwd). K1 / K4 and
+   K2 / K2-bwd are held against their plain versions on the inputs and output
+   cotangents the first step gave the first Mamba and attention layer, and
+   the first step's loss and LoRA gradient against a run with the plain
+   versions swapped in.
+   Then the same model trains with pdrop and TransV (PDROP; merge modules as
+   in 5c, tanh(alpha) 0.5, q_proj tempered; trainable_modules
+   "projector,merge", use_pdrop): four steps on a 64-frame row whose 12
+   question tokens carry no labels (1,064 -> 859 -> 654 rows) and one on a
+   256-frame row (4,136 -> 3,316 -> 2,497). Every loss finite, the 4th below
+   the 1st; K1, K2, K3, K4, K9, K2-bwd and its non-causal mode launched, K9
+   and the non-causal mode exactly twice a step; on the first step's own
+   inputs and cotangents, K1 / K4 and K2 / K2-bwd at every row count (1,064,
+   859, 654), K3 on the tower's first call and the non-causal mode on the
+   first TransV call against their plain versions; the first step's
+   gradients on the same keep sets, by group (LoRA factors, projector, merge
+   q/k/v/o_proj, alpha), against every plain version but K3, cosine 0.99
+   each, every merge group's norm non-zero. K3 is the same on both sides of
+   that gate: no gradient passes the frozen tower, and one bf16 ulp at its
+   place moves ~300 of the 1,024 visual tokens wholly (a discrete choice
+   downstream), which the bisection printed beside the gate shows: every
+   kernel, each kernel alone among plain versions and the plain versions
+   under rounding noise, each against every plain version, with how far
+   TransV's inputs and the visual tokens moved. Step s and peak memory
+   beside the plain LoRA steps'.
 7. int8 serving: the training model is freed and the same seeded bf16
    weights are made again; the ViT and the 9B are quantized to W8A8 as
    bench.py does (train/quantize.py), calibrated on one 64-frame clip, and the
@@ -195,8 +219,10 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    through Trainer.train: losses and grad norms finite, the 4th loss below
    the 1st, K2-bwd launched at pack 1 and held against its plain version on
    a layer's own inputs, the first step's LoRA gradient against the plain K2
-   and K2-bwd (cosine above 0.99); step s and peak memory. The launches of
-   (a), (e) and (f) add to the kernels line.
+   and K2-bwd (cosine above 0.99); step s and peak memory; then pdrop
+   training as in phase 6 with docs/USAGE.md's "uni_14_0.8-attn_21_0.6" (K2,
+   K3, K9, K2-bwd and its non-causal mode). The launches of (a), (e) and (f)
+   add to the kernels line.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -237,7 +263,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
 from timeviper_tpu_torch.bench import device_ms, microbench_flash, microbench_vit_attn  # noqa: E402
-from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan  # noqa: E402
+from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
 from timeviper_tpu_torch.models import internvideo2 as iv2_mod  # noqa: E402
 from timeviper_tpu_torch.models import longctx as longctx_mod  # noqa: E402
@@ -246,6 +272,7 @@ from timeviper_tpu_torch.models import pdrop as pdrop_mod  # noqa: E402
 from timeviper_tpu_torch.models import prefix_cache as pc_mod  # noqa: E402
 from timeviper_tpu_torch.models import qwen2 as qwen2_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
+from timeviper_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
 from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
 from timeviper_tpu_torch.models.longctx import nano_forward_longctx  # noqa: E402
@@ -267,11 +294,14 @@ from timeviper_tpu_torch.models.vlm import (  # noqa: E402
 )
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops import attention as attn_mod  # noqa: E402
+from timeviper_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
+from timeviper_tpu_torch.ops import ssd_kernel as ssd_kernel_mod  # noqa: E402
 from timeviper_tpu_torch.ops.block_attention import (  # noqa: E402
     BLOCK_ROWS,
     block_attn_lse,
     block_attn_lse_plain,
     block_attn_plan,
+    row_lse,
 )
 from timeviper_tpu_torch.ops.block_attention import gqa_pack  # noqa: E402
 from timeviper_tpu_torch.ops.decode_fused import (  # noqa: E402
@@ -282,6 +312,8 @@ from timeviper_tpu_torch.ops.flash_attention import (  # noqa: E402
     FLASH_BWD_TILE,
     FLASH_TILE,
     FLASH_TILES,
+    cross_attention_bwd,
+    cross_attention_bwd_plain,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -373,6 +405,11 @@ KERNELS = {
     "flash_bwd": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
                       replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
                       rel_tol=3e-2),
+    # K2-bwd's non-causal, rectangular mode (TransV's cross-attention
+    # backward; the bundled kernels with causal=False): as its causal mode
+    "flash_bwd_noncausal": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
+                                replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+                                rel_tol=3e-2),
     # K5 reads the same bf16 raw streams as its plain version and rounds the
     # convolved streams to bf16 as it does; from there the K1 argument holds
     "ssd_conv_fwd": dict(source="timeviper_tpu_torch/csrc/ssd_fwd.cu",
@@ -399,12 +436,16 @@ KERNELS = {
 }
 WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "vit_attn_qkv": vit_attention_qkv, "ssd_bwd": ssd_scan_bwd,
-            "flash_bwd": flash_attention_bwd, "ssd_conv_fwd": ssd_conv_scan_fused,
+            "flash_bwd": flash_attention_bwd, "flash_bwd_noncausal": cross_attention_bwd,
+            "ssd_conv_fwd": ssd_conv_scan_fused,
             "decode_fused": fused_mamba_decode, "layernorm": fused_ln,
             "vit_attn": vit_attention, "block_attn": block_attn_lse,
             "headgrid_attn": headgrid_attention}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
+# five pdrop training steps of two stages, each stage's TransV one K9 forward
+# and one backward in K2-bwd's non-causal mode
+TRANSV_TRAIN_LAUNCHES = {"block_attn": 10, "flash_bwd_noncausal": 10}
 FUSED = ("ssd_conv_fwd", "decode_fused", "layernorm")
 # where the model calls each forward kernel, and the kernel's plain version
 ROUTES = {"ssd_fwd": (nano_mod, "ssd_scan"), "flash_fwd": (nano_mod, "flash_attention"),
@@ -445,7 +486,7 @@ def compare(name: str, got, want) -> float:
     plain result (K9's m of a row that saw no key) must be one of the
     kernel's too."""
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-    floor = KERNELS[name].get("floor", 0.0 if name.endswith("_bwd") else 1.0)
+    floor = KERNELS[name].get("floor", 0.0 if "_bwd" in name else 1.0)
     tols = KERNELS[name]["rel_tol"]
     worst, parts = 0.0, []
     for i, (g, w) in enumerate(pairs):
@@ -1053,6 +1094,46 @@ def kernel_cases(g: torch.Generator):
                         main=False, repeat=True,
                         launch=f"{n_split} key split(s), {blocks} blocks, {pack} heads a block"))
             del q9, k9, v9, out9, lib_in
+    # K2-bwd's non-causal mode (TransV's cross-attention backward), from a
+    # generator of its own, last, so that the other cases stay as they were:
+    # 32 text rows over the 205 tokens a 64-frame stage drops and the 820 /
+    # 819 of a 256-frame one, at the 9B's 32 / 8 and qwen2.5-7b's 28 / 4; B
+    # 2; 1,000 x 820 (several tiles on both sides); a whole 4,096 x 4,096
+    # layer. It takes K9's output and row log-sum-exp m + log(l); the library
+    # yardstick is SDPA's non-causal backward alone (GQA heads repeated)
+    gx = torch.Generator(device=DEV).manual_seed(SEED + 15)
+
+    def rx(*shape):
+        return torch.randn(*shape, generator=gx, device=DEV).to(torch.bfloat16)
+
+    for Bx, Lq, Lk, (Hqx, Hkvx) in ((1, 32, 820, (32, 8)), (1, 32, 819, (32, 8)),
+                                     (1, 32, 205, (32, 8)), (1, 32, 820, QWEN2_GQA[0]),
+                                     (1, 32, 819, QWEN2_GQA[0]), (1, 32, 205, QWEN2_GQA[0]),
+                                     (2, 32, 820, (32, 8)), (1, 1000, 820, (32, 8)),
+                                     (1, 4096, 4096, (32, 8))):
+        qx, kx, vx = rx(Bx, Lq, Hqx, hd), rx(Bx, Lk, Hkvx, hd), rx(Bx, Lk, Hkvx, hd)
+        dox = rx(Bx, Lq, Hqx, hd)
+        ox, lx, mx = block_attn_lse(qx, kx, vx)
+        lsex = row_lse(lx, mx)
+        packx = gqa_pack(Hqx, Hkvx)
+        planx = (f"dkv {Hkvx * -(-Lk // kb) * Bx} blocks of {kb} keys, each walking {Hqx // Hkvx} "
+                 f"heads' {-(-Lq // qt)} {qt}-query tiles; dq "
+                 f"{-(-Lq * packx // rows_q) * (Hqx // packx) * Bx} blocks of {rows_q} (row, head) "
+                 f"pairs ({rows_q // packx} tokens x {packx} heads), {-(-Lk // kt)} {kt}-key tiles")
+        libx, libx_in = sdpa(qx, kx, vx, causal=False)
+        leaves = [x.detach().requires_grad_() for x in libx_in]
+        libx_out, libx_g = libx(*leaves), dox.transpose(1, 2).contiguous()
+        yield ("flash_bwd_noncausal",
+               lambda a=(qx, kx, vx, ox, dox, lsex): cross_attention_bwd(*a),
+               lambda a=(qx, kx, vx, ox, dox): cross_attention_bwd_plain(*a),
+               lambda o=libx_out, lv=leaves, gg=libx_g: torch.autograd.grad(o, lv, gg,
+                                                                            retain_graph=True),
+               (10 * Hqx * hd * Lq * Lk * Bx, nbytes(qx, kx, vx, ox, dox, lsex, qx, kx, vx)),
+               dict(variant=f"B {Bx}, {Lq} x {Lk}, Hq/Hkv {Hqx}/{Hkvx}; library: SDPA's "
+                            "non-causal backward alone",
+                    main=(Bx, Lq, Lk, Hqx) == (1, 32, 820, 32), repeat=True, launch=planx,
+                    split=True))
+        del qx, kx, vx, dox, ox, lx, mx, lsex, libx_in, leaves, libx_out, libx_g
 
 
 def output_digest(out) -> str:
@@ -1074,7 +1155,7 @@ def phase_kernels(g: torch.Generator) -> dict:
         want = plain()
         err = compare(name, got, want)
         worst[name] = max(worst.get(name, 0.0), err)
-        if name.endswith("_bwd"):  # no atomics: a repeat gives the same bits
+        if "_bwd" in name:  # no atomics: a repeat gives the same bits
             again = kern()
             if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: a repeat gave other gradients")
@@ -1202,22 +1283,16 @@ def clone_arg(v):
 
 
 class Capture:
-    """Records the first call's inputs of a wrapper while `armed`, and the
-    cotangent that reaches that call's (first) output in the backward."""
+    """Records the first call's inputs of a wrapper while `armed`."""
 
     def __init__(self, fn):
-        self.fn, self.armed, self.args, self.kwargs, self.grad = fn, False, None, None, None
+        self.fn, self.armed, self.args, self.kwargs = fn, False, None, None
 
     def __call__(self, *args, **kwargs):
-        first = self.armed and self.args is None
-        if first:
+        if self.armed and self.args is None:
             self.args = tuple(clone_arg(a) for a in args)
             self.kwargs = {k: clone_arg(v) for k, v in kwargs.items()}
-        out = self.fn(*args, **kwargs)
-        head = out[0] if isinstance(out, tuple) else out
-        if first and head.requires_grad:
-            head.register_hook(lambda grad: setattr(self, "grad", grad.detach().clone()))
-        return out
+        return self.fn(*args, **kwargs)
 
 
 def route(calls: dict) -> None:
@@ -1881,17 +1956,44 @@ def transv_witness(model, arch_p, gen, ids, px, tag: str, min_cos=None) -> dict:
 
 class CallLog:
     """Wraps a kernel wrapper: keeps the inputs (args, kwargs) of the first
-    call at each key(*args) while armed."""
+    call at each key(*args) while armed, and in `grads` the cotangent that
+    reaches that call's (first) output in the backward, if one does."""
 
     def __init__(self, fn, key):
-        self.fn, self.key, self.armed, self.calls = fn, key, True, {}
+        self.fn, self.key, self.armed, self.calls, self.grads = fn, key, True, {}, {}
 
     def __call__(self, *args, **kw):
         key = self.key(*args)
-        if self.armed and key not in self.calls:
+        first = self.armed and key not in self.calls
+        if first:
             self.calls[key] = (tuple(clone_arg(a) for a in args),
                                {k: clone_arg(v) for k, v in kw.items()})
-        return self.fn(*args, **kw)
+        out = self.fn(*args, **kw)
+        head = out[0] if isinstance(out, tuple) else out
+        if first and head.requires_grad:
+            head.register_hook(lambda grad: self.grads.__setitem__(key, grad.detach().clone()))
+        return out
+
+
+@contextlib.contextmanager
+def logging_calls(places: dict, key=None):
+    """While installed, each place (name -> (module, attribute)) calls
+    through a CallLog keyed by `key` (by_length by default); yields the logs
+    by name."""
+    logs = {name: CallLog(getattr(mod, attr), key or by_length)
+            for name, (mod, attr) in places.items()}
+    for name, (mod, attr) in places.items():
+        setattr(mod, attr, logs[name])
+    try:
+        yield logs
+    finally:
+        for name, (mod, attr) in places.items():
+            setattr(mod, attr, logs[name].fn)
+
+
+def first_call(*args):
+    """CallLog's key that keeps only the first call."""
+    return 0
 
 
 def by_length(x, *args):
@@ -2169,12 +2271,14 @@ def check_pdrop_engine(model, arch_p, mix, out) -> None:
     torch.cuda.empty_cache()
 
 
-def training_row(arch, n_frames: int, g: torch.Generator):
+def training_row(arch, n_frames: int, g: torch.Generator, question: int = 0):
     """One row, collated as a user's data would be: 8 text tokens, the frames,
-    32 text tokens, with labels on those last 32."""
+    32 text tokens, with labels on those last 32 but the first `question`
+    (a question without labels, whose last row a training "attn" pdrop
+    stage ranks by)."""
     text = torch.randint(10, 130000, (40,), generator=g, device=DEV).tolist()
     ids = text[:8] + [IMAGE_TOKEN] * n_frames + text[8:]
-    labels = [IGNORE_INDEX] * (8 + n_frames) + text[8:]
+    labels = [IGNORE_INDEX] * (8 + n_frames + question) + text[8 + question:]
     size = arch.vision.image_size
     pixels = torch.rand(n_frames, size, size, 3, generator=g, device=DEV) * 2 - 1
     return collate([{"input_ids": torch.tensor(ids).numpy(),
@@ -2213,6 +2317,44 @@ def profile_call(label: str, fn, top: int = 25) -> None:
                 f"  {what}")
 
 
+# where each family's training path calls K1 and K2 (their autograd
+# functions, whose backwards are K4 and K2-bwd)
+TRAINING_PLACES = {"nano": {"ssd_fwd": (nano_mod, "ssd_scan"),
+                            "flash_fwd": (nano_mod, "flash_attention")},
+                   "qwen2": {"flash_fwd": (qwen2_mod, "flash_attention")}}
+
+
+def check_training_calls(tag: str, logs: dict, kernel_results: dict) -> None:
+    """K1 and K2, and their backwards K4 and K2-bwd, on the calls a training
+    run's CallLogs kept (the first at each row count): each forward against
+    its plain version (compare_logged), each backward, given the cotangent
+    that call's output got, against autograd through the plain version."""
+    for name, calls in logs.items():
+        compare_logged(name, calls.calls, tag, kernel_results)
+        bwd = {"ssd_fwd": "ssd_bwd", "flash_fwd": "flash_bwd"}[name]
+        for key, (args, kw) in sorted(calls.calls.items()):
+            if key not in calls.grads:
+                raise AssertionError(f"{tag}: no cotangent reached {name} at {key}")
+            g = calls.grads[key]
+            if name == "ssd_fwd":
+                leaves = [a.clone().requires_grad_() for a in (*args[:5], kw["D"], kw["dt_bias"])]
+                y, _ = ssd_scan(*leaves[:5], chunk_size=kw["chunk_size"], D=leaves[5],
+                                dt_bias=leaves[6], dt_limit=kw["dt_limit"], seq_idx=kw["seq_idx"])
+                got = torch.autograd.grad(y, leaves, g)
+                want = ssd_scan_bwd_plain(*args[:5], kw["D"], kw["dt_bias"], kw["seq_idx"], g,
+                                          None, kw["chunk_size"], kw["dt_limit"])[:7]
+            else:
+                leaves = [a.clone().requires_grad_() for a in args[:3]]
+                seg = kw.get("segment_ids")
+                got = torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, g)
+                want = flash_attention_bwd_plain(*args[:3], g, seg)
+            err = compare(bwd, tuple(got), tuple(want))
+            log(f"[{tag}] {bwd} at {key} on the first step's own inputs and cotangent "
+                f"{[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}: max abs err "
+                f"{err:.3e}")
+            kernel_results[bwd]["max_abs_err"] = max(kernel_results[bwd]["max_abs_err"], err)
+
+
 def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> None:
     add_lora(model, rank=8, alpha=16.0,
              generator=torch.Generator(device=DEV).manual_seed(SEED + 2))
@@ -2230,18 +2372,14 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
             f"linears: {n_lora / 1e6:.2f} M factor parameters, {n_train / 1e6:.2f} M "
             f"trainable with the projector")
         start = {n: p.detach().clone() for n, p in trainer.opt.params.items()}
-
-        captures = capture_all()
-        for c in captures.values():
-            c.armed = True
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        trainer.train([short] * 4)
-        for c in captures.values():
-            c.armed = False
-        trainer.train([long_])
+        with logging_calls(TRAINING_PLACES["nano"]) as logs:
+            trainer.train([short] * 4)
+            for c in logs.values():
+                c.armed = False
+            trainer.train([long_])
         launches = {name: w.launches for name, w in WRAPPERS.items()}
-        use_kernels()
     log(f"[train] launches during the five steps: {launches}")
     for h, cb in zip(trainer.history, [short] * 4 + [long_]):
         tokens = cb.plan.fused_len * cb.batch["input_ids"].shape[0]
@@ -2259,30 +2397,8 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
     for name in ("ssd_bwd", "flash_bwd"):
         kernel_results[name]["launches"] = launches[name]
 
-    # K4 and K2-bwd on the inputs and cotangents the first step gave them
-    c = captures["ssd_fwd"]
-    x, dt, A, Bm, Cm = c.args
-    kw = c.kwargs
-    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, kw["D"], kw["dt_bias"])]
-    y, _ = ssd_scan(*leaves[:5], chunk_size=kw["chunk_size"], D=leaves[5], dt_bias=leaves[6],
-                    dt_limit=kw["dt_limit"], seq_idx=kw["seq_idx"])
-    got = torch.autograd.grad(y, leaves, c.grad)
-    want = ssd_scan_bwd_plain(x, dt, A, Bm, Cm, kw["D"], kw["dt_bias"], kw["seq_idx"], c.grad,
-                              None, kw["chunk_size"], kw["dt_limit"])
-    errs = {"ssd_bwd": compare("ssd_bwd", tuple(got), tuple(want[:7]))}
-    c = captures["flash_fwd"]
-    leaves = [t.clone().requires_grad_() for t in c.args[:3]]
-    seg = c.kwargs.get("segment_ids")
-    got = torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, c.grad)
-    errs["flash_bwd"] = compare("flash_bwd", tuple(got),
-                                tuple(flash_attention_bwd_plain(*c.args[:3], c.grad, seg)))
-    for name, cap in (("ssd_bwd", "ssd_fwd"), ("flash_bwd", "flash_fwd")):
-        shapes = [tuple(a.shape) for a in captures[cap].args]
-        log(f"[train] {name} on the first step's own inputs {shapes}: max abs err "
-            f"{errs[name]:.3e}")
-        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"],
-                                                  errs[name])
-    del captures, c, leaves, got, want
+    check_training_calls("train", logs, kernel_results)
+    del logs
     torch.cuda.empty_cache()
 
     # the first step's gradient again from the same start, kernels vs plain versions
@@ -2310,6 +2426,329 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
     if profile:
         profile_call(f"one training step at {long_.plan.fused_len} tokens",
                      lambda: trainer.train_step(long_))
+    phase_pdrop_training(model, arch, pdrop_arch(arch), kernel_results, "train pdrop",
+                         trainer.history)
+
+
+# the parameter groups whose first-step gradients the pdrop training holds
+# against the plain versions' (K3 a kernel on both sides), each to a cosine
+# of PDROP_GRAD_COS
+PDROP_GRAD_COS = 0.99
+PDROP_GRAD_GROUPS = {
+    "LoRA factors": lambda n: ".lora_" in n,
+    "projector": lambda n: n.startswith("projector."),
+    **{f"merge {proj}": (lambda n, proj=proj: f".cross_attn.{proj}." in n)
+       for proj in ("q_proj", "k_proj", "v_proj", "o_proj")},
+    "merge alpha": lambda n: n.startswith("merge_modules.") and n.endswith(".alpha"),
+}
+# the runs of the gradient bisection: one kernel (or a forward kernel and
+# its backward) on, every other call its plain version
+BISECTION = {"nano": {"K1 (K4 plain)": ("K1",), "K1 + K4": ("K1", "K4"),
+                      "K2 (K2-bwd plain)": ("K2",), "K2 + K2-bwd": ("K2", "K2-bwd"),
+                      "K3": ("K3",), "TransV": ("TransV",)},
+             "qwen2": {"K2 (K2-bwd plain)": ("K2",), "K2 + K2-bwd": ("K2", "K2-bwd"),
+                       "K3": ("K3",), "TransV": ("TransV",)}}
+
+
+def kernel_switches(family: str) -> dict:
+    """The calls of a family's pdrop training path that the gradient
+    bisection turns between a kernel and its plain version, by kernel:
+    (module, attribute, kernel, plain version). K4 and K2-bwd are the
+    backwards of K1's and K2's autograd functions, so they run only while
+    K1 and K2 do; TransV is K9 forward and K2-bwd's non-causal mode."""
+    table = {"K2": (qwen2_mod if family == "qwen2" else nano_mod, "flash_attention",
+                    CALLS["flash_fwd"], PLAIN["flash_fwd"]),
+             "K2-bwd": (flash_mod, "flash_attention_bwd", flash_attention_bwd,
+                        lambda q, k, v, out, dout, lse, seg:
+                        flash_attention_bwd_plain(q, k, v, dout, seg)),
+             "K3": (vit_mod, "encoder_attention_qkv", CALLS["vit_attn_qkv"],
+                    PLAIN["vit_attn_qkv"]),
+             "TransV": (pdrop_mod, "cross_attention", attn_mod.cross_attention,
+                        attn_mod.attention)}
+    if family == "qwen2":
+        return table
+    return {"K1": (nano_mod, "ssd_scan", CALLS["ssd_fwd"], PLAIN["ssd_fwd"]),
+            "K4": (ssd_kernel_mod, "ssd_scan_bwd", ssd_scan_bwd,
+                   lambda x, dt, A, B_, C, D, dt_bias, seq_idx, states, dy, dfinal, cs, lim:
+                   ssd_scan_bwd_plain(x, dt, A, B_, C, D, dt_bias, seq_idx, dy, dfinal, cs,
+                                      lim)),
+            **table}
+
+
+def rounding_noise(x: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """x with each element moved by a uniform draw of up to 2^-8 of itself
+    and rounded to x's dtype again: in bf16, about a quarter of the elements
+    move one ulp, as a rounding made at another place moves them."""
+    u = torch.rand(x.shape, generator=g, device=x.device) * 2 - 1
+    return (x.float() * (1 + u * 2.0**-8)).to(x.dtype)
+
+
+class NoisyGrad(torch.autograd.Function):
+    """The identity, with rounding noise on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rounding_noise(grad, ctx.g), None
+
+
+def with_rounding_noise(fn, g: torch.Generator):
+    """A plain version with rounding noise on its (first) output and on the
+    gradients of its tensor arguments: the bisection's control, a run that
+    rounds where the kernels run, at other places than the plain run."""
+    def call(*args, **kw):
+        args = [NoisyGrad.apply(a, g) if torch.is_tensor(a) and a.requires_grad else a
+                for a in args]
+        out = fn(*args, **kw)
+        head = out[0] if isinstance(out, tuple) else out
+        head = head + (rounding_noise(head.detach(), g) - head.detach())
+        return (head, *out[1:]) if isinstance(out, tuple) else head
+    return call
+
+
+def pdrop_first_step(model, arch_p, params, batch, plan, family: str, on, keeps=None,
+                     noise=None):
+    """grad_step(use_pdrop=True) with the kernels named in `on` (of
+    kernel_switches) and every other call its plain version; `noise` =
+    (generator, names): those plain versions under rounding noise. The
+    "attn" stage keeps `keeps` (in stage order) if given, else ranks its
+    own. -> (loss, the gradients, the visual tokens, TransV's first (q, k,
+    v), the keep sets it ranked)."""
+    table = kernel_switches(family)
+    for name, (mod, attr, kern, plain) in table.items():
+        noisy = noise is not None and name in noise[1]
+        setattr(mod, attr, kern if name in on else
+                with_rounding_noise(plain, noise[0]) if noisy else plain)
+    seen = []
+
+    def encode(*args, **kw):
+        seen.append(encode_visual(*args, **kw))
+        return seen[-1]
+
+    vlm_mod.encode_visual = encode
+    try:
+        with StageLog(replay=keeps) as kept, logging_calls(
+                {"transv": (pdrop_mod, "cross_attention")}, key=first_call) as rec:
+            m, g = grad_step(model, arch_p, params, batch, plan, use_pdrop=True)
+    finally:
+        vlm_mod.encode_visual = encode_visual
+        for mod, attr, kern, _ in table.values():
+            setattr(mod, attr, kern)
+    return (float(m["loss"]), g, seen[0].detach(), rec["transv"].calls[0][0][:3],
+            kept.keeps)
+
+
+def group_cosines(g_a: dict, g_b: dict) -> dict:
+    """Per PDROP_GRAD_GROUPS group: (cosine, norm of a, norm of b)."""
+    out = {}
+    for group, pick in PDROP_GRAD_GROUPS.items():
+        names = [n for n in g_a if pick(n)]
+        a, b = (torch.cat([g[n].float().flatten() for n in names]) for g in (g_a, g_b))
+        out[group] = (cosine(a, b), a.norm().item(), b.norm().item())
+    return out
+
+
+def token_drift(got, want, limit: float = 0.05) -> str:
+    """How many visual tokens of one run lie further than `limit` of their
+    norm from the plain run's, and the largest such distance: a rounding
+    moves a token by ~1e-2 of itself, a different ToMe merge by ~1."""
+    rel = ((got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)).flatten()
+    return (f"{int((rel > limit).sum())} of {rel.numel()} visual tokens moved by more than "
+            f"{limit:g} of their norm (largest {rel.max().item():.3f})")
+
+
+def input_drift(got, want) -> str:
+    """How far TransV's first (q, k, v) in one run lie from the plain run's:
+    the norm of the difference over the norm, whole and, for k and v, less
+    each head's mean over the keys (what the merge q/k gradients read)."""
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def centred(x):
+        return x.float() - x.float().mean(1, keepdim=True)
+
+    parts = [f"{n} {rel(a, b):.3e}" for n, a, b in zip("qkv", got, want)]
+    parts += [f"{n} less its key mean {rel(centred(a), centred(b)):.3e}"
+              for n, a, b in zip("kv", got[1:], want[1:])]
+    return ", ".join(parts)
+
+
+def noncausal_bwd_check(tag: str, q, k, v, g) -> float:
+    """K2-bwd's non-causal mode on one TransV call of the path (through
+    cross_attention under autograd: K9, then the backward kernel) against
+    its plain version given K9's output, to the kernel's tolerance."""
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(attn_mod.cross_attention(*leaves), leaves, g)
+    with torch.no_grad():
+        want = cross_attention_bwd_plain(q, k, v, block_attn_lse(q, k, v)[0], g)
+    err = compare("flash_bwd_noncausal", tuple(got), want)
+    log(f"[{tag}] flash_bwd_noncausal on the first step's first TransV call "
+        f"{[tuple(a.shape) for a in (q, k, v)]}: max abs err {err:.3e}")
+    return err
+
+
+def phase_pdrop_training(model, arch, arch_p, kernel_results: dict, tag: str,
+                         plain_history) -> None:
+    """LoRA (the model's rank-8 factors) with pdrop and TransV: the merge
+    modules attached from a generator of their own, tanh(alpha) 0.5, q_proj
+    tempered on the 64-frame request (as phase 5c does), then trained with
+    the projector and the LoRA factors (trainable_modules "projector,merge",
+    use_pdrop) through Trainer.train: four steps on a 64-frame row (8 text
+    tokens, the frames, 12 question tokens without labels, 20 answer tokens)
+    and one on a 256-frame row. Every loss finite, the 4th below the 1st;
+    the rows after each stage; every kernel of the path launched, K9 and
+    K2-bwd's non-causal mode exactly twice a step (the two stages' TransV);
+    on the first step's own inputs and cotangents, K1 / K4 and K2 / K2-bwd
+    at each row count (before and after the stages; check_training_calls)
+    and the non-causal mode on the first TransV call (noncausal_bwd_check)
+    against their plain versions. Then the first step again from the same
+    start, on the same keep sets: its gradients, group by group
+    (PDROP_GRAD_GROUPS), against a run with every plain version but K3,
+    cosine PDROP_GRAD_COS each and every merge group's norm non-zero. K3
+    stays a kernel on both sides: no gradient passes the frozen tower, and a
+    rounding at its place moves ~300 of the visual tokens wholly, which
+    changes the dropped tokens and with them the merge q / k gradients by
+    ~8% on the 9B. The bisection beside the gate shows it: every kernel,
+    each alone among plain versions (BISECTION), and the plain versions
+    under rounding noise at every kernel's place (twice) and at K3's alone,
+    each against every plain version. Step s and peak memory beside the
+    plain LoRA steps'."""
+    family = arch.llm_family
+    attach_merge_modules(model, arch_p)
+    requests = make_requests(arch)
+    gen = Generator(model, arch_p, terminator_ids=[], max_new_tokens=MAX_NEW)
+    factors = temper_transv(model, gen, *requests[1][1])
+    del gen
+    log(f"[{tag}] {arch_p.llm.pdrop_type}, CrossAttention, tanh(alpha) 0.5; TransV q_proj "
+        f"rescaled by {', '.join(f'{f:.3e}' for f in factors)} (stage order)")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    short = training_row(arch, 64, g, question=12)
+    long_ = training_row(arch, 256, g, question=12)
+    # the merge modules at the stage-2 recipe's learning rate (docs/USAGE.md:
+    # --learning_rate 1e-5, which the merge group takes), the LoRA factors
+    # and the projector at the plain LoRA phase's
+    opt_cfg = OptimConfig(learning_rate=1e-3, merge_lr=1e-5, schedule="constant",
+                          max_grad_norm=1.0)
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = TrainerConfig(run_dir=run_dir, max_steps=5, log_every=1, save_every=10**9,
+                            lora=True, trainable_modules="projector,merge", use_pdrop=True,
+                            remat="full", resume=False)
+        trainer = Trainer(arch_p, model, opt_cfg, cfg, device=DEV)
+        n_merge = sum(p.numel() for n, p in trainer.opt.params.items()
+                      if n.startswith("merge_modules."))
+        log(f"[{tag}] trainable: {sum(p.numel() for p in trainer.opt.params.values()) / 1e6:.2f}"
+            f" M parameters, {n_merge / 1e6:.2f} M of them in the merge modules")
+        start = {n: p.detach().clone() for n, p in trainer.opt.params.items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with StageLog() as stages, logging_calls(TRAINING_PLACES[family]) as logs, \
+                logging_calls({"transv": (pdrop_mod, "cross_attention"),
+                               "vit_attn_qkv": (vit_mod, "encoder_attention_qkv")},
+                              key=first_call) as once:
+            trainer.train([short] * 4)
+            for c in (*logs.values(), *once.values()):
+                c.armed = False
+            trainer.train([long_])
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"[{tag}] launches during the five steps: {launches}")
+    for h, ph, cb in zip(trainer.history, plain_history, [short] * 4 + [long_]):
+        log(f"[{tag}] step {h['step']}: {cb.plan.fused_len} tokens, loss {h['loss']:.4f}, grad "
+            f"norm {h['grad_norm']:.4f} (merge modules {h['grad_norm/merge_modules']:.4f}), "
+            f"{h['seconds']:.3f} s, peak memory {h.get('max_memory_gib', math.nan):.2f} GiB; "
+            f"the plain LoRA step {ph['seconds']:.3f} s, "
+            f"{ph.get('max_memory_gib', math.nan):.2f} GiB")
+    losses = [h["loss"] for h in trainer.history]
+    norms = [h["grad_norm"] for h in trainer.history]
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{tag}: losses {losses}, grad norms {norms}")
+    if not losses[3] < losses[0]:
+        raise AssertionError(f"{tag}: the 4th loss {losses[3]} is not below the 1st {losses[0]}")
+    want_rows = []
+    for cb in [short] * 4 + [long_]:
+        rows = [cb.plan.fused_len]
+        for drop in pdrop_mod.pdrop_drop_counts(arch_p.llm, cb.plan.num_visual):
+            rows.append(rows[-1] - drop)
+        want_rows += list(zip(rows, rows[1:]))
+    log(f"[{tag}] rows before and after each stage: {stages.lengths[:2]} (64 frames), "
+        f"{stages.lengths[-2:]} (256 frames)")
+    if stages.lengths != want_rows:
+        raise AssertionError(f"{tag}: stage rows {stages.lengths}, want {want_rows}")
+    need = dict(TRANSV_TRAIN_LAUNCHES)
+    path = (("flash_fwd", "vit_attn_qkv", "flash_bwd") if family == "qwen2"
+            else TRAINING) + tuple(need)
+    for name in path:
+        if launches[name] == 0 or launches[name] != need.get(name, launches[name]):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, want "
+                                 f"{need.get(name, 'some')}")
+    for name in path:
+        if name != "vit_attn_qkv":
+            kernel_results[name]["launches"] += launches[name]
+
+    # the kernels of the path on the first step's own inputs and cotangents:
+    # K1 / K4 and K2 / K2-bwd at each row count, before and after the
+    # stages, K3 on the tower's first call, and the non-causal mode on the
+    # first TransV call
+    check_training_calls(tag, logs, kernel_results)
+    compare_logged("vit_attn_qkv", once["vit_attn_qkv"].calls, tag, kernel_results)
+    (args, _), = once["transv"].calls.values()
+    err = noncausal_bwd_check(tag, *args[:3], once["transv"].grads[0])
+    res = kernel_results["flash_bwd_noncausal"]
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    del logs, once, args
+    torch.cuda.empty_cache()
+
+    # the first step again from the same start, on the kernels' keep sets:
+    # every kernel against every plain version but K3 (the gate), against
+    # every plain version, and the bisection: each kernel alone among plain
+    # versions, and the plain versions under rounding noise (the control)
+    with torch.no_grad():
+        for n, p in trainer.opt.params.items():
+            p.copy_(start[n])
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in short.batch.items()}
+    step_args = (model, arch_p, trainer.opt.params, batch, short.plan, family)
+    every = tuple(kernel_switches(family))
+    lk, g_k, v_k, x_k, keeps = pdrop_first_step(*step_args, every)
+    lr, g_r, v_r, _, _ = pdrop_first_step(*step_args, ("K3",), keeps)
+    cos = group_cosines(g_k, g_r)
+    log(f"[{tag}] first step, every kernel vs every plain version but K3 (one keep set): loss "
+        f"{lk:.6f} vs {lr:.6f} (logged {losses[0]:.6f}); gradient cosines by group: "
+        + "; ".join(f"{grp} {c:.6f}, norms {na:.4e} vs {nb:.4e}"
+                    for grp, (c, na, nb) in cos.items())
+        + f"; {token_drift(v_k, v_r)}")
+    del g_r, v_r
+    _, g_p, v_p, x_p, _ = pdrop_first_step(*step_args, (), keeps)
+    def noise(i, names):
+        return torch.Generator(device=DEV).manual_seed(SEED + 20 + i), names
+
+    runs = {"every kernel": (every, None),
+            **{f"{label} alone": (on, None) for label, on in BISECTION[family].items()},
+            "every kernel but TransV": (tuple(n for n in every if n != "TransV"), None),
+            **{f"the plain versions, rounding noise at every kernel's place ({i})":
+               ((), noise(i, every)) for i in (1, 2)},
+            "the plain versions, rounding noise at K3's place alone": ((), noise(3, ("K3",)))}
+    for label, (on, noise_) in runs.items():
+        if label == "every kernel":
+            l_r, g_r, v_r, x_r = lk, g_k, v_k, x_k
+        else:
+            l_r, g_r, v_r, x_r, _ = pdrop_first_step(*step_args, on, keeps, noise_)
+        log(f"[{tag}] bisection, {label}, against every plain version: loss {l_r:.6f}; "
+            + ", ".join(f"{grp} {c:.6f}" for grp, (c, _, _) in group_cosines(g_r, g_p).items())
+            + f"; TransV's first inputs: {input_drift(x_r, x_p)}; {token_drift(v_r, v_p)}")
+        del g_r, v_r, x_r
+    bad = [grp for grp, (c, na, nb) in cos.items() if not c >= PDROP_GRAD_COS]
+    for grp, (c, na, nb) in cos.items():
+        if grp.startswith("merge") and not (na > 0 and nb > 0):
+            raise AssertionError(f"{tag}: no gradient reaches {grp}")
+    if bad or not abs(lk - lr) <= 1e-2 * abs(lr):
+        raise AssertionError(f"{tag}: the first pdrop training step disagrees with the plain "
+                             f"versions ({bad or 'loss'})")
+    model.merge_modules = None
+    del trainer, start, g_k, g_p, v_k, v_p, x_k, x_p
+    torch.cuda.empty_cache()
 
 
 # the speculative phases: the JAX Generator's n_draft, the new tokens a
@@ -2676,17 +3115,12 @@ def phase_qwen2_training(model, arch, kernel_results: dict) -> None:
             f"with the projector; Hq/Hkv {cfg.num_attention_heads}/{cfg.num_key_value_heads}, "
             f"pack {gqa_pack(cfg.num_attention_heads, cfg.num_key_value_heads)}")
         start = {n: p.detach().clone() for n, p in trainer.opt.params.items()}
-        cap = Capture(flash_attention)
-        qwen2_mod.flash_attention = cap
-        cap.armed = True
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        try:
+        with logging_calls(TRAINING_PLACES["qwen2"]) as logs:
             trainer.train([short] * 4)
-            cap.armed = False
+            logs["flash_fwd"].armed = False
             trainer.train([long_])
-        finally:
-            qwen2_mod.flash_attention = flash_attention
         launches = {name: w.launches for name, w in WRAPPERS.items()}
     log(f"[qwen2 train] launches during the five steps: {launches}")
     for h, cb in zip(trainer.history, [short] * 4 + [long_]):
@@ -2706,17 +3140,8 @@ def phase_qwen2_training(model, arch, kernel_results: dict) -> None:
     for name in ("flash_fwd", "flash_bwd"):
         kernel_results[name]["launches"] += launches[name]
 
-    # K2-bwd on the inputs and the cotangent the first step gave a layer
-    leaves = [a.clone().requires_grad_() for a in cap.args[:3]]
-    seg = cap.kwargs.get("segment_ids")
-    got = torch.autograd.grad(flash_attention(*leaves, segment_ids=seg), leaves, cap.grad)
-    err = compare("flash_bwd", tuple(got), tuple(flash_attention_bwd_plain(*cap.args[:3],
-                                                                             cap.grad, seg)))
-    log(f"[qwen2 train] flash_bwd on the first step's own inputs "
-        f"{[tuple(a.shape) for a in cap.args[:3]]}: max abs err {err:.3e}")
-    kernel_results["flash_bwd"]["max_abs_err"] = max(kernel_results["flash_bwd"]["max_abs_err"],
-                                                     err)
-    del cap, leaves, got
+    check_training_calls("qwen2 train", logs, kernel_results)
+    del logs
     torch.cuda.empty_cache()
 
     # the first step's gradient again from the same start, kernels vs plain versions
@@ -2738,6 +3163,9 @@ def phase_qwen2_training(model, arch, kernel_results: dict) -> None:
     # bf16 activations and gradients through 28 layers round at other places
     if not (abs(lk - lp) <= 1e-2 * abs(lp) and cos > 0.99):
         raise AssertionError("qwen2: the first training step disagrees with the plain versions")
+    arch_p = dataclasses.replace(arch, llm=dataclasses.replace(cfg, **QWEN2_PDROP))
+    phase_pdrop_training(model, arch, arch_p, kernel_results, "qwen2 train pdrop",
+                         trainer.history)
 
 
 def set_fusions(on: bool) -> None:

@@ -46,6 +46,14 @@ The qwen2 backbones' GQA groups (28 / 4, 16 / 2, 12 / 2: query-head packs of
 verify runs K9 at 8 queries over an 8,448-row prefix and an 8 x 8 causal
 block, and K1 on 8 rows from a carried state.
 
+K2-bwd's non-causal mode (TransV's cross-attention backward, separate
+query and key lengths) runs through ops/attention.py:cross_attention under
+autograd (BlockAttnFn: K9 forward, one launch of each) at TransV's shapes
+and others, four query-head packs, B 1 and 2, held against its plain
+version (cross_attention_bwd_plain: the same formulas in f32 from K9's
+output) to BWD_TOL and bitwise repeatable; an empty side gives
+zeros with no launch, and it runs as a fresh thread's first CUDA work.
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
@@ -69,6 +77,7 @@ from timeviper_tpu_torch.ops.block_attention import (
     block_attn_lse,
     block_attn_lse_plain,
     block_attn_plan,
+    row_lse,
 )
 from timeviper_tpu_torch.ops.decode_fused import (
     fused_mamba_decode,
@@ -76,6 +85,8 @@ from timeviper_tpu_torch.ops.decode_fused import (
 )
 from timeviper_tpu_torch.ops.flash_attention import (
     FLASH_TILES,
+    cross_attention_bwd,
+    cross_attention_bwd_plain,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -716,6 +727,117 @@ def test_flash_backward_kernel_as_a_fresh_threads_first_cuda_work():
         _close(a, b, BWD_TOL, floor=0.0)
     leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
     for a, b in zip(torch.autograd.grad(flash_attention(*leaves), leaves, g), want):
+        _close(a, b, BWD_TOL, floor=0.0)
+
+
+# K2-bwd's non-causal mode: (Lq, Lk, B) at the 9B's and qwen2's query-head
+# packs. TransV's calls: 32 text rows over the 205 tokens a 64-frame stage
+# drops and the 820 / 819 of a 256-frame one; one row over one key; ragged
+# tiles on both sides (65 x 129); several tiles on both sides (1,000 x 820);
+# and a whole 4,096 x 4,096 layer
+CROSS_BWD_SHAPES = [(1, 1, 2), (32, 205, 2), (32, 820, 1), (32, 820, 2), (32, 819, 2),
+                    (65, 129, 2), (1000, 820, 2), (4096, 4096, 1)]
+
+
+def _bf16(r, dev, *shape):
+    return t(r.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (28, 4), (16, 2), (12, 2)])
+@pytest.mark.parametrize("Lq,Lk,B", CROSS_BWD_SHAPES)
+def test_cross_attention_gradients_run_the_noncausal_backward_kernel(Lq, Lk, B, Hq, Hkv):
+    """The gradients of q, k and v through ops/attention.py:cross_attention
+    under autograd on the card (BlockAttnFn: K9 forward, K2-bwd's non-causal
+    mode backward, one launch each) against autograd through the plain
+    `attention` and against the backward's plain version given the same
+    forward output, each to BWD_TOL of its largest magnitude; the output is K9's
+    own, and a repeat gives the same bits. K9's row log-sum-exp m + log(l)
+    (row_lse), which the backward takes, against the plain one of the same
+    scaled logits to 1e-4."""
+    dev = require_cuda()
+    r = rng(31)
+    q, k, v = _bf16(r, dev, B, Lq, Hq, 128), _bf16(r, dev, B, Lk, Hkv, 128), \
+        _bf16(r, dev, B, Lk, Hkv, 128)
+    g = _bf16(r, dev, B, Lq, Hq, 128)
+
+    def kernel_run():
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        out = cross_attention(*leaves)
+        assert out.grad_fn is not None
+        return (out.detach(),) + torch.autograd.grad(out, leaves, g)
+
+    fwd, bwd = block_attn_lse.launches, cross_attention_bwd.launches
+    got = kernel_run()
+    assert (block_attn_lse.launches, cross_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(got[0], block_attn_lse(q, k, v)[0])
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    autograd_plain = torch.autograd.grad(attention(*leaves), leaves, g)
+    for want in (autograd_plain, cross_attention_bwd_plain(q, k, v, got[0], g)):
+        for name, a, b in zip("qkv", got[1:], want):
+            if Lk == 1 and name != "v":
+                # one key: dq and dk are 0 in exact arithmetic (dP = delta);
+                # the f32 sums of dO . v on each side, in other orders,
+                # cancel to ~1e-6
+                assert torch.isfinite(a).all()
+                assert (a.float() - b.float()).abs().max().item() <= 1e-4
+            else:
+                _close(a, b, BWD_TOL, floor=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernel_run()))
+    _, l, m = block_attn_lse(q, k, v)
+    lse = flash_lse_plain(q, k, causal=False)
+    _close(row_lse(l, m), lse, 1e-4, floor=0.0)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(0, 205), (32, 0), (0, 0)])
+def test_cross_attention_backward_of_an_empty_side_is_zero(Lq, Lk):
+    """An empty side launches no backward kernel and gives zeros: no keys
+    (Lk 0: K9 gives o = 0, l = 0, so the row log-sum-exp is +inf) or no
+    queries."""
+    dev = require_cuda()
+    r = rng(32)
+    q, k, v = _bf16(r, dev, 1, Lq, 32, 128), _bf16(r, dev, 1, Lk, 8, 128), \
+        _bf16(r, dev, 1, Lk, 8, 128)
+    g = _bf16(r, dev, 1, Lq, 32, 128)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    before = cross_attention_bwd.launches
+    out = cross_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    assert cross_attention_bwd.launches == before
+    assert (out == 0).all() and all((a == 0).all() for a in got)
+    assert all(a.shape == b.shape for a, b in zip(got, (q, k, v)))
+
+
+def test_cross_attention_backward_as_a_fresh_threads_first_cuda_work():
+    """The non-causal mode through the entry point that
+    test_flash_backward_kernel_as_a_fresh_threads_first_cuda_work repaired:
+    as a new thread's first CUDA work, then through autograd (whose backward
+    runs in a thread of its own)."""
+    dev = require_cuda()
+    r = rng(33)
+    q, k, v = _bf16(r, dev, 1, 32, 32, 128), _bf16(r, dev, 1, 820, 8, 128), \
+        _bf16(r, dev, 1, 820, 8, 128)
+    g = _bf16(r, dev, 1, 32, 32, 128)
+    o, l, m = block_attn_lse(q, k, v)
+    lse = row_lse(l, m)
+    torch.cuda.synchronize()
+    res = {}
+
+    def run():
+        try:
+            res["grads"] = cross_attention_bwd(q, k, v, o, g, lse)
+        except Exception as e:  # noqa: BLE001 (re-raised below)
+            res["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in res:
+        raise res["error"]
+    want = cross_attention_bwd_plain(q, k, v, o, g)
+    for a, b in zip(res["grads"], want):
+        _close(a, b, BWD_TOL, floor=0.0)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    for a, b in zip(torch.autograd.grad(cross_attention(*leaves), leaves, g), want):
         _close(a, b, BWD_TOL, floor=0.0)
 
 

@@ -76,6 +76,28 @@ def _models(jc, tc, alphas):
     return params, merge, model, mods
 
 
+def _jax_stage(spec_of, stage, jc, mixer, merge, h, labels, seq, scalars=(0, 0), ca_kv=True):
+    """jax_pdrop.apply_pdrop_stage under one jit (op by op, JAX compiles each
+    op on its own). spec_of(sc) makes the spec inside the trace from the
+    int32 scalars `scalars` (vision_start, query_pos), so that the traced
+    branch gets traced layout scalars. Returns ((hidden, labels, seq_idx,
+    ca_kv or None, the new query positions), the new visual counts)."""
+    counts = []
+
+    def fn(hh, lab, sq, mg, mx, sc):
+        out = jax_pdrop.apply_pdrop_stage(hh, lab, sq, spec_of(sc), stage, 0, cfg=jc,
+                                          attn_params=mx, merge_params=mg,
+                                          return_ca_kv=ca_kv)
+        counts.extend(smp.num_vision for smp in out[3].samples)
+        qps = [jnp.asarray(-1 if smp.query_pos is None else smp.query_pos)
+               for smp in out[3].samples]
+        return out[:3] + (out[4] if ca_kv else None, qps)
+
+    want = jax.jit(fn)(*(None if a is None else jnp.asarray(a) for a in (h, labels, seq)),
+                       merge, mixer, jnp.asarray(scalars, jnp.int32))
+    return want, counts
+
+
 def test_drop_counts_and_the_attn_layer_check():
     """The DSL itself is held equal in tests/test_torch_config.py."""
     nine = dict(use_pdrop=True, pdrop_type="uni_14_0.8-attn_18_0.6",
@@ -131,7 +153,8 @@ def test_attn_ranking_with_tied_rows_keeps_the_lower_index():
     spec_j = jax_pdrop.make_pdrop_spec([(vs, nv, ts)], jc.pdrop_stages, [L - 1])
     spec_t = pdrop.make_pdrop_spec([(vs, nv, ts)], tc.pdrop_stages, [L - 1])
     mixer = params["layers"][ATTN_LAYER]["mixer"]
-    scores = jax_pdrop._rank_scores_attn(jnp.asarray(h[0]), mixer, jc, L - 1, vs, nv)
+    scores = jax.jit(lambda hh, mx: jax_pdrop._rank_scores_attn(hh, mx, jc, L - 1, vs, nv))(
+        jnp.asarray(h[0]), mixer)
     want = np.sort(np.asarray(jax.lax.top_k(scores, 6)[1]))
     got = pdrop._keep_indices(tc.pdrop_stages[0], spec_t.samples[0], t(h[0]), None, 6,
                               cfg=tc, attn_mixer=model.layers[ATTN_LAYER].mixer)
@@ -139,8 +162,8 @@ def test_attn_ranking_with_tied_rows_keeps_the_lower_index():
     np.testing.assert_array_equal(got.numpy(), want)
     _close(pdrop._rank_scores_attn(t(h[0]), model.layers[ATTN_LAYER].mixer, tc, L - 1, vs, nv),
            scores, "scores")
-    hj = jax_pdrop.apply_pdrop_stage(jnp.asarray(h), None, None, spec_j, jc.pdrop_stages[0], 0,
-                                     cfg=jc, attn_params=mixer, merge_params=merge)[0]
+    hj = _jax_stage(lambda sc: spec_j, jc.pdrop_stages[0], jc, mixer, merge, h, None, None,
+                    ca_kv=False)[0][0]
     ht = pdrop.apply_pdrop_stage(t(h), None, None, spec_t, tc.pdrop_stages[0], 0, cfg=tc,
                                  attn_mixer=model.layers[ATTN_LAYER].mixer, merge=mods)[0]
     _close(ht, hj, "hidden after the stage")
@@ -165,22 +188,22 @@ def test_stage_matches_both_jax_branches(ptype, alpha):
     got = pdrop.apply_pdrop_stage(t(h), t(labels), t(seq), spec_t, stage_t, 0, cfg=tc,
                                   attn_mixer=mixer_t, merge=mods)
     spec_s = jax_pdrop.make_pdrop_spec([(vs, nv, ts)], jc.pdrop_stages, [L - 1])
-    spec_d = jax_pdrop.PdropSpec(
-        samples=(jax_pdrop.PdropSampleSpec(jnp.asarray(vs, jnp.int32), nv, -1,
-                                           jnp.asarray(L - 1, jnp.int32)),),
-        orig_num_vision=(nv,), ratios=spec_s.ratios)
-    for branch, spec in (("static", spec_s), ("traced", spec_d)):
-        want = jax_pdrop.apply_pdrop_stage(
-            jnp.asarray(h), jnp.asarray(labels), jnp.asarray(seq), spec, stage_j, 0, cfg=jc,
-            attn_params=mixer_j, merge_params=merge, return_ca_kv=True)
+
+    def spec_d(sc):  # the traced branch's layout: device scalars
+        return jax_pdrop.PdropSpec(samples=(jax_pdrop.PdropSampleSpec(sc[0], nv, -1, sc[1]),),
+                                   orig_num_vision=(nv,), ratios=spec_s.ratios)
+
+    for branch, spec_of in (("static", lambda sc: spec_s), ("traced", spec_d)):
+        want, counts = _jax_stage(spec_of, stage_j, jc, mixer_j, merge, h, labels, seq,
+                                  scalars=(vs, L - 1))
         _close(got[0], want[0], f"{branch}: hidden")
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]), err_msg=branch)
         if branch == "traced":  # the static branch numbers segments by sample
             np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-        assert got[3].samples[0].num_vision == want[3].samples[0].num_vision
-        assert got[3].samples[0].query_pos == int(want[3].samples[0].query_pos)
+        assert got[3].samples[0].num_vision == counts[0]
+        assert got[3].samples[0].query_pos == int(want[4][0])
         for key in ("k", "v"):
-            _close(got[4][key], want[4][key], f"{branch}: ca_kv {key}")
+            _close(got[4][key], want[3][key], f"{branch}: ca_kv {key}")
     # the suffix changed (TransV is live), the prefix and kept rows did not
     keep = got[3].samples[0].num_vision
     assert not np.allclose(n(got[0])[0, vs + keep:], h[0, vs + nv:])
@@ -193,17 +216,16 @@ def test_stage_matches_both_jax_branches(ptype, alpha):
     lab2[0, 10:13] = [4, 5, 6]
     lab2[0, L2 - 2:] = [9, 2]
     seq2 = np.repeat([0, 1], [13, 15])[None].astype(np.int32)
-    want = jax_pdrop.apply_pdrop_stage(
-        jnp.asarray(h2), jnp.asarray(lab2), jnp.asarray(seq2),
-        jax_pdrop.make_pdrop_spec(layouts, jc.pdrop_stages), stage_j, 0, cfg=jc,
-        attn_params=mixer_j, merge_params=merge)
+    spec_p = jax_pdrop.make_pdrop_spec(layouts, jc.pdrop_stages)
+    want, counts = _jax_stage(lambda sc: spec_p, stage_j, jc, mixer_j, merge, h2, lab2, seq2,
+                              ca_kv=False)
     got = pdrop.apply_pdrop_stage(t(h2), t(lab2), t(seq2),
                                   pdrop.make_pdrop_spec(layouts, tc.pdrop_stages), stage_t, 0,
                                   cfg=tc, attn_mixer=mixer_t, merge=mods)
     _close(got[0], want[0], "packed: hidden")
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    assert [s.num_vision for s in got[3].samples] == [s.num_vision for s in want[3].samples]
+    assert [s.num_vision for s in got[3].samples] == counts
 
 
 def test_merge_dropped_cached_and_the_bridge():

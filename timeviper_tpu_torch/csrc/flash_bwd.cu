@@ -1,26 +1,31 @@
-// Causal flash-attention backward with GQA and packed segment ids (K2-bwd),
-// for Hopper.
+// Flash-attention backward with GQA (K2-bwd), for Hopper, in two modes: causal
+// with packed segment ids and Lq == Lk (the attention layers' training), and
+// non-causal with separate query and key lengths and no segment ids (TransV's
+// cross-attention of the text rows over a stage's dropped visual tokens, whose
+// forward is K9).
 //
 // Replaces the backward of the TPU kernel that timeviper_tpu/ops/flash_pallas.py
 // wraps: JAX's bundled Pallas TPU flash attention, whose VJP runs
-// _flash_attention_bwd_dkv and _flash_attention_bwd_dq (two pallas_calls).
-// Here, as there, two kernels and no atomics:
+// _flash_attention_bwd_dkv and _flash_attention_bwd_dq (two pallas_calls,
+// each with `causal` and separate q_seq_len / kv_seq_len). Here, as there,
+// two kernels and no atomics, each instantiated for both modes (CAUSAL):
 //   1. dq:    K2's forward structure: one block per (group of `pack` query
 //             heads, 128 (row, head) pairs, batch), the last query tiles
 //             first. Its consumers first compute their rows' D_i =
 //             rowsum(dO_i * O_i) and the forward's row log-sum-exp times
 //             log2(e), and write both, f32, in (B, Hq, Lp) rows for dkv (Lp
-//             = L rounded up to 4, so that TMA can read a row's tiles; 0 /
-//             +inf past L). Q and dO are read once through K2's packed
+//             = Lq rounded up to 4, so that TMA can read a row's tiles; 0 /
+//             +inf past Lq). Q and dO are read once through K2's packed
 //             boxes, K and V (with the keys' segment ids) streamed in
-//             128-key tiles up to the diagonal: S = Q K^T, dP = dO V^T,
-//             dS = P (dP - D), dQ += dS K;
+//             128-key tiles, up to the diagonal (causal) or all Lk keys:
+//             S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K;
 //   2. dkv:   one block per (KV head, 128-key tile, batch), the first key
 //             tiles (the longest query walks) launched first. Two consumer
 //             warpgroups own 64 keys each, their K and V tiles loaded once;
 //             a producer warp streams, for each of the GQA group's query
-//             heads in turn, the query tiles from the diagonal down: Q, dO,
-//             the row statistics and the queries' segment ids. Per tile:
+//             heads in turn, the query tiles from the diagonal down (causal)
+//             or all Lq queries: Q, dO, the row statistics and the queries'
+//             segment ids. Per tile:
 //               S^T  = K Q^T                 wgmma, K and Q from shared memory
 //               dP^T = V dO^T                wgmma
 //               P^T  = 2^(S^T scale log2e - lse2), masked
@@ -52,7 +57,9 @@
 // tile's dQ product in flight over the next tile's S and dP ran out of
 // registers (ptxas serializes the wgmma, C7512) and was 4-7% slower; delta
 // in dq's prologue was 1% faster than a pass of its own. Head dim 128; any
-// length; a -1 left pad is a segment like any other.
+// length; a -1 left pad is a segment like any other. Queries past Lq and keys
+// past Lk are masked by position (TMA fills their rows with zeros), and a row
+// that sees no key (its log-sum-exp +inf) gets probability 0 and gradient 0.
 #include "attn_sm90.cuh"
 
 namespace {
@@ -75,35 +82,39 @@ constexpr int kBKV = 128;             // dq: keys a tile
 constexpr int kRing = 2;              // stages of each ring
 constexpr float kLog2e = 1.4426950408889634f;
 
+// One more int than the causal-only struct had: its size stays 1,280 bytes
+// (a multiple of the tensor maps' 64-byte alignment).
 struct BwdParams {
-  CUtensorMap tq, tdo;        // (D, Hq, L, B), boxes (64, 1, 64): dkv's query tiles
+  CUtensorMap tq, tdo;        // (D, Hq, Lq, B), boxes (64, 1, 64): dkv's query tiles
   CUtensorMap tq_pk, tdo_pk;  // the same, boxes (64, pack, 64 / pack): dq's (row, head) pairs
-  CUtensorMap tk, tv;         // (D, Hkv, L, B), boxes (64, 1, 64)
+  CUtensorMap tk, tv;         // (D, Hkv, Lk, B), boxes (64, 1, 64)
   CUtensorMap tlse, tdelta;   // (Lp, B * Hq) f32, boxes (64, 1)
   CUtensorMap tseg;           // (L rounded up to 4, B) int32 ids, boxes (64, 1), if seg
-  const __nv_bfloat16* o;     // (B, L, Hq, D): the forward's output
+  const __nv_bfloat16* o;     // (B, Lq, Hq, D): the forward's output
   const __nv_bfloat16* dO;
-  const float* lse;           // (B, Hq, L): the forward's row log-sum-exp
+  const float* lse;           // (B, Hq, Lq): the forward's row log-sum-exp
   float* lse2;                // (B, Hq, Lp): lse times log2(e), written by dq for dkv
   float* delta;               // (B, Hq, Lp): rowsum(dO * O), the same
-  const int* seg;             // (B, L) segment ids, or null
+  const int* seg;             // (B, L) segment ids, or null (causal only: Lq == Lk == L)
   const int2* tile_ids;       // (B, ceil(L / 64)): a tile's least and greatest id (with seg)
-  __nv_bfloat16* dq;          // (B, L, Hq, D)
-  __nv_bfloat16* dk;          // (B, L, Hkv, D)
+  __nv_bfloat16* dq;          // (B, Lq, Hq, D)
+  __nv_bfloat16* dk;          // (B, Lk, Hkv, D)
   __nv_bfloat16* dv;
-  int B, L, Lp, Hq, Hkv, pack;
+  int B, Lq, Lk, Lp, Hq, Hkv, pack;
   float scale, scale_log2;
 };
+static_assert(sizeof(BwdParams) == 1280, "BwdParams grew past its 1,280 bytes");
 
 // P = 2^(s scale log2e - lse2) in place for one NC-column tile of this
 // thread's two rows (element e of chunk j: row e >> 1, column 8 j + cq +
 // (e & 1)); lse2 per column (dkv: its queries) or per row (dq). With `mask`,
-// a pair outside the causal and segment mask or past L gives 0.
-template <int NC, bool COL_STATS>
+// a pair outside the causal (CAUSAL) and segment mask, or past Lq or Lk,
+// gives 0.
+template <int NC, bool COL_STATS, bool CAUSAL>
 __device__ __forceinline__ void probs(float (&s)[NC / 2], const float* lse2_col,
                                       const float (&lse2_row)[2], float sl2, bool mask,
                                       const int* seg_col, const int (&seg_row)[2],
-                                      const int (&pos_row)[2], int col0, int L) {
+                                      const int (&pos_row)[2], int col0, int Lq, int Lk) {
   const int cq = (threadIdx.x & 3) * 2;
 #pragma unroll
   for (int j = 0; j < NC / 8; ++j) {
@@ -121,7 +132,8 @@ __device__ __forceinline__ void probs(float (&s)[NC / 2], const float* lse2_col,
         // dkv: rows are keys, columns queries; dq: rows are queries, columns keys
         const int q = COL_STATS ? col : row, k = COL_STATS ? row : col;
         const int id = (e & 1) ? ids.y : ids.x;
-        const bool ok = q < L && k < L && k <= q && (seg_col == nullptr || id == seg_row[e >> 1]);
+        const bool ok = q < Lq && k < Lk && (!CAUSAL || k <= q) &&
+                        (seg_col == nullptr || id == seg_row[e >> 1]);
         x = ok ? x : 0.f;
       }
       s[4 * j + e] = x;
@@ -180,7 +192,8 @@ __device__ __forceinline__ bool mixed(int2 a, int2 b) {
 // Whether no pair of the two tiles shares an id: their id ranges are disjoint.
 __device__ __forceinline__ bool apart(int2 a, int2 b) { return a.y < b.x || b.y < a.x; }
 
-// Kernel 2. grid (Hkv, ceil(L / 128), B), kThreads threads, kDkvSmem bytes.
+// Kernel 2. grid (Hkv, ceil(Lk / 128), B), kThreads threads, kDkvSmem bytes.
+template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
@@ -195,18 +208,20 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant_
   uint64_t* full = kv_full + 1;      // [kRing]: the stage's tiles have landed
   uint64_t* empty = full + kRing;    // [kRing]: every consumer is done with them
 
+  const int Lq = p.Lq, Lk = CAUSAL ? p.Lq : p.Lk;
   const int hk = blockIdx.x, b = blockIdx.z, k0 = blockIdx.y * kBK;
   const int rep = p.Hq / p.Hkv;
-  const int n_qt = (p.L - k0 + kBQ - 1) / kBQ;  // query tiles from the diagonal down
+  const int q_first = CAUSAL ? k0 : 0;  // query tiles from the diagonal down, or all
+  const int n_qt = (Lq - q_first + kBQ - 1) / kBQ;
   const int n_it = rep * n_qt;
-  const int n_active = min(kNWG, (p.L - k0 + 63) / 64);  // consumers with keys
-  const bool seg = p.seg != nullptr;
-  const int2* tile_id = p.tile_ids + (long long)b * ((p.L + 63) / 64);
+  const int n_active = min(kNWG, (Lk - k0 + 63) / 64);  // consumers with keys
+  const bool seg = CAUSAL && p.seg != nullptr;
+  const int2* tile_id = p.tile_ids + (long long)b * ((Lq + 63) / 64);
   // a query tile that no key of the block attends in its segment is skipped
   // by the producer and the consumers alike
   auto skipped = [&](int it) {
     if (!seg) return false;
-    const int2 id_q = tile_id[(k0 + (it % n_qt) * kBQ) / 64];
+    const int2 id_q = tile_id[(q_first + (it % n_qt) * kBQ) / 64];
     bool all = true;
     for (int w = 0; w < n_active; ++w) all = all && apart(tile_id[k0 / 64 + w], id_q);
     return all;
@@ -236,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant_
       }
     for (int it = 0, n = 0; it < n_it; ++it) {
       if (skipped(it)) continue;
-      const int h = hk * rep + it / n_qt, q0 = k0 + (it % n_qt) * kBQ, st = n % kRing;
+      const int h = hk * rep + it / n_qt, q0 = q_first + (it % n_qt) * kBQ, st = n % kRing;
       mbar_wait(&empty[st], ((n / kRing) & 1) ^ 1);
       ++n;
       mbar_expect_tx(&full[st], 2 * kTile + 2 * kBQ * 4 + (seg ? kBQ * 4 : 0));
@@ -261,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant_
     if (seg) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        if (key[r] < p.L) segk[r] = p.seg[(long long)b * p.L + key[r]];
+        if (key[r] < Lk) segk[r] = p.seg[(long long)b * Lk + key[r]];
     }
     const float no_row[2] = {0.f, 0.f};
     float dk[64], dv[64];
@@ -274,22 +289,22 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant_
     __syncwarp();
     for (int it = 0, n = 0; it < n_it; ++it) {
       if (skipped(it)) continue;
-      const int q0 = k0 + (it % n_qt) * kBQ, st = n % kRing;
+      const int q0 = q_first + (it % n_qt) * kBQ, st = n % kRing;
       const uint32_t parity = (n / kRing) & 1;
       ++n;
       const uint32_t q_addr = smem_u32(sQ + st * kTile), g_addr = smem_u32(sG + st * kTile);
-      // a tile that crosses the diagonal, or runs past L, or whose tokens
-      // carry more than one segment id
-      const bool mask = (seg && mixed(id_k, tile_id[q0 / 64])) || q0 < kw + 63 ||
-                        q0 + kBQ > p.L || kw + 64 > p.L;
+      // a tile that crosses the diagonal, or runs past Lq or Lk, or whose
+      // tokens carry more than one segment id
+      const bool mask = (seg && mixed(id_k, tile_id[q0 / 64])) || (CAUSAL && q0 < kw + 63) ||
+                        q0 + kBQ > Lq || kw + 64 > Lk;
       mbar_wait(&full[st], parity);
       __syncwarp();
       issue_qk<kD, 64, kBQ, kBQ>(s, k_addr, q_addr);   // S^T = K Q^T
       issue_qk<kD, 64, kBQ, kBQ>(dp, v_addr, g_addr);  // dP^T = V dO^T
       wg_wait<1>();
       pin(s);
-      probs<kBQ, true>(s, lse_s + st * kBQ, no_row, p.scale_log2, mask,
-                       seg ? segq_s + st * kBQ : nullptr, segk, key, q0, p.L);
+      probs<kBQ, true, CAUSAL>(s, lse_s + st * kBQ, no_row, p.scale_log2, mask,
+                               seg ? segq_s + st * kBQ : nullptr, segk, key, q0, Lq, Lk);
       to_bf16<4>(s, pa);
       issue_pv<kD, 64, kBQ, kBQ>(dv, pa, g_addr);  // dV += P^T dO
       wg_wait<1>();
@@ -309,18 +324,19 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(const __grid_constant_
     __nv_bfloat16* rows_v[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const long long off = (((long long)b * p.L + key[r]) * p.Hkv + hk) * kD;
-      rows_k[r] = key[r] < p.L ? p.dk + off : nullptr;
-      rows_v[r] = key[r] < p.L ? p.dv + off : nullptr;
+      const long long off = (((long long)b * Lk + key[r]) * p.Hkv + hk) * kD;
+      rows_k[r] = key[r] < Lk ? p.dk + off : nullptr;
+      rows_v[r] = key[r] < Lk ? p.dv + off : nullptr;
     }
     store_rows(dk, p.scale, rows_k);
     store_rows(dv, 1.f, rows_v);
   }
 }
 
-// Kernel 1. grid (Hq / pack, ceil(L * pack / 128), B), kThreads threads,
+// Kernel 1. grid (Hq / pack, ceil(Lq * pack / 128), B), kThreads threads,
 // kDqSmem bytes. K and V tiles of kBKV keys come as 64-row boxes (dkv's
 // maps), two to a column band.
+template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__ BwdParams p) {
   constexpr int BKV = kBKV, KV_TILE = kKvTile;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -337,15 +353,16 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
   const int pack = p.pack, tok = 64 / pack, g = blockIdx.x, b = blockIdx.z;
   const int mt = gridDim.y - 1 - blockIdx.y;  // the longest key walks first
   const int t0 = mt * kNWG * tok;
+  const int Lq = p.Lq, Lk = CAUSAL ? p.Lq : p.Lk;
   const int hk = g * pack / (p.Hq / p.Hkv);
-  const int kv_end = min(p.L, t0 + kNWG * tok);
+  const int kv_end = CAUSAL ? min(Lk, t0 + kNWG * tok) : Lk;  // up to the diagonal, or all
   const int n_tiles = (kv_end + BKV - 1) / BKV;
-  const int n_active = min(kNWG, (p.L - t0 + tok - 1) / tok);
-  const bool seg = p.seg != nullptr;
-  const int2* tile_id = p.tile_ids + (long long)b * ((p.L + 63) / 64);
+  const int n_active = min(kNWG, (Lq - t0 + tok - 1) / tok);
+  const bool seg = CAUSAL && p.seg != nullptr;
+  const int2* tile_id = p.tile_ids + (long long)b * ((Lq + 63) / 64);
   // a key tile that no row of the block attends in its segment is skipped by
   // the producer and the consumers alike
-  const int L = p.L;
+  const int L = Lq;
   auto skipped = [&](int i) {
     if (!seg) return false;
     bool all = true;
@@ -400,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
     const int w = wg - 1;
     if (w >= n_active) return;
     const int lane = tid & 31, r_a = ((tid & 127) >> 5) * 16 + (lane >> 2);
-    const int t_lo = t0 + w * tok, t_hi = min(p.L, t_lo + tok) - 1;
+    const int t_lo = t0 + w * tok, t_hi = min(Lq, t_lo + tok) - 1;
     const int tq[2] = {t_lo + r_a / pack, t_lo + (r_a + 8) / pack};
     const int hq[2] = {g * pack + r_a % pack, g * pack + (r_a + 8) % pack};
     float lse2[2], dl[2];
@@ -409,11 +426,11 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
     for (int r = 0; r < 2; ++r) {
       // the row's delta and lse2, its quad's four threads 32 columns each;
       // the last token's row also writes the rows past it up to Lp
-      const bool in = tq[r] < p.L;
+      const bool in = tq[r] < Lq;
       const int quad = tid & 3;
       float d = 0.f;
       if (in) {
-        const long long off = (((long long)b * p.L + tq[r]) * p.Hq + hq[r]) * kD + quad * 32;
+        const long long off = (((long long)b * Lq + tq[r]) * p.Hq + hq[r]) * kD + quad * 32;
         const uint4* x = reinterpret_cast<const uint4*>(p.o + off);
         const uint4* y = reinterpret_cast<const uint4*>(p.dO + off);
 #pragma unroll
@@ -432,17 +449,17 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       const long long row = (long long)b * p.Hq + hq[r];
       dl[r] = d;
-      lse2[r] = in ? p.lse[row * p.L + tq[r]] * kLog2e : INFINITY;
+      lse2[r] = in ? p.lse[row * Lq + tq[r]] * kLog2e : INFINITY;
       if (in && quad == 0) {
         p.delta[row * p.Lp + tq[r]] = d;
         p.lse2[row * p.Lp + tq[r]] = lse2[r];
-        if (tq[r] == p.L - 1)
-          for (int t = p.L; t < p.Lp; ++t) {
+        if (tq[r] == Lq - 1)
+          for (int t = Lq; t < p.Lp; ++t) {
             p.delta[row * p.Lp + t] = 0.f;
             p.lse2[row * p.Lp + t] = INFINITY;
           }
       }
-      if (seg && in) segq[r] = p.seg[(long long)b * p.L + tq[r]];
+      if (seg && in) segq[r] = p.seg[(long long)b * Lq + tq[r]];
     }
     const int2 id_q = seg ? tile_id[t_lo / 64] : make_int2(0, 0);  // rows in one tile
     float dq[64];
@@ -451,7 +468,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
     float s[BKV / 2], dp[BKV / 2];
     uint32_t da[BKV / 16][4];
     const uint32_t q_addr = smem_u32(sQ + w * kTile), g_addr = smem_u32(sG + w * kTile);
-    const int n_own = min(n_tiles, t_hi / BKV + 1);  // tiles at or below this warpgroup's rows
+    // tiles at or below this warpgroup's rows (causal), or all
+    const int n_own = CAUSAL ? min(n_tiles, t_hi / BKV + 1) : n_tiles;
     mbar_wait(q_full, 0);
     __syncwarp();
     int n = 0;  // tiles the producer loaded so far
@@ -465,16 +483,16 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
       if (seg)
 #pragma unroll
         for (int h = 0; h < BKV / 64; ++h)
-          if (kv0 + 64 * h < p.L) mixed_ids |= mixed(id_q, tile_id[kv0 / 64 + h]);
-      const bool mask = mixed_ids || kv0 + BKV > p.L || kv0 + BKV - 1 > t_lo;
+          if (kv0 + 64 * h < Lk) mixed_ids |= mixed(id_q, tile_id[kv0 / 64 + h]);
+      const bool mask = mixed_ids || kv0 + BKV > Lk || (CAUSAL && kv0 + BKV - 1 > t_lo);
       mbar_wait(&full[st], parity);
       __syncwarp();
       issue_qk<kD, 64, BKV, BKV>(s, q_addr, k_addr);   // S = Q K^T
       issue_qk<kD, 64, BKV, BKV>(dp, g_addr, v_addr);  // dP = dO V^T
       wg_wait<1>();
       pin(s);
-      probs<BKV, false>(s, nullptr, lse2, p.scale_log2, mask,
-                        seg ? segk_s + st * BKV : nullptr, segq, tq, kv0, p.L);
+      probs<BKV, false, CAUSAL>(s, nullptr, lse2, p.scale_log2, mask,
+                                seg ? segk_s + st * BKV : nullptr, segq, tq, kv0, Lq, Lk);
       wg_wait<0>();
       pin(dp);
       dsoft<BKV, false>(dp, s, nullptr, dl);
@@ -495,7 +513,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(const __grid_constant__
     __nv_bfloat16* rows[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      rows[r] = tq[r] < p.L ? p.dq + (((long long)b * p.L + tq[r]) * p.Hq + hq[r]) * kD : nullptr;
+      rows[r] = tq[r] < Lq ? p.dq + (((long long)b * Lq + tq[r]) * p.Hq + hq[r]) * kD : nullptr;
     store_rows(dq, p.scale, rows);
   }
 }
@@ -526,39 +544,40 @@ cudaError_t bind_device(const void* ptr) {
 
 }  // namespace
 
-// q, o, dO, dq (B, L, Hq, 128), k, v, dk, dv (B, L, Hkv, 128) bf16, 16-byte
-// aligned; lse (B, Hq, L) f32 from K2; seg (B, L) int32 and seg_pad (its
-// rows padded to 4 ids, pad_key_ids) and tile_ids (B, ceil(L / 64), 2: a
-// tile's least and greatest id), all or none; lse2 and delta
-// (B, Hq, Lp) f32 scratch, Lp = L rounded up to 4. pack: query heads of one KV
-// head a dq block (gqa_pack). A tile (keys a dkv block, queries a dkv tile,
-// pairs a dq block, keys a dq tile) that is not the built one is refused.
+// q, o, dO, dq (B, Lq, Hq, 128), k, v, dk, dv (B, Lk, Hkv, 128) bf16, 16-byte
+// aligned; lse (B, Hq, Lq) f32 from K2 (causal) or formed from K9's row
+// statistics (non-causal); causal takes Lq == Lk; seg (B, L) int32 and
+// seg_pad (its rows padded to 4 ids, pad_key_ids) and tile_ids (B, ceil(L /
+// 64), 2: a tile's least and greatest id), all or none, and only causal; lse2
+// and delta (B, Hq, Lp) f32 scratch, Lp = Lq rounded up to 4. pack: query
+// heads of one KV head a dq block (gqa_pack). A tile (keys a dkv block,
+// queries a dkv tile, pairs a dq block, keys a dq tile) that is not the built
+// one is refused. Lq, Lk >= 1: the caller gives an empty side's zeros itself.
 extern "C" int tv_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                             const void* dO, const void* lse, const void* seg,
                             const void* seg_pad, const void* tile_ids, void* lse2, void* delta,
-                            void* dq, void* dk,
-                            void* dv, int B, int L, int Hq, int Hkv, int D, int pack,
-                            int dkv_keys, int dkv_queries, int dq_rows, int dq_keys,
-                            float scale, void* stream) {
+                            void* dq, void* dk, void* dv, int B, int Lq, int Lk, int Hq, int Hkv,
+                            int D, int pack, int causal, int dkv_keys, int dkv_queries,
+                            int dq_rows, int dq_keys, float scale, void* stream) {
   using namespace tv::sm90;
   const int rep = Hkv > 0 ? Hq / Hkv : 0;
   if (D != kD || Hkv <= 0 || Hq % Hkv != 0 || pack <= 0 || 64 % pack != 0 || rep % pack != 0 ||
-      B < 1 || L < 1 || (seg == nullptr) != (seg_pad == nullptr) ||
-      (seg == nullptr) != (tile_ids == nullptr))
+      B < 1 || Lq < 1 || Lk < 1 || (causal && Lq != Lk) || (!causal && seg != nullptr) ||
+      (seg == nullptr) != (seg_pad == nullptr) || (seg == nullptr) != (tile_ids == nullptr))
     return cudaErrorInvalidValue;
   if (dkv_keys != kBK || dkv_queries != kBQ || dq_rows != kRows || dq_keys != kBKV)
     return cudaErrorInvalidValue;
   cudaError_t err = bind_device(q);
   if (err != cudaSuccess) return err;
-  const int Lp = (L + 3) / 4 * 4;
+  const int Lp = (Lq + 3) / 4 * 4;
   const long long hs = D, rq = (long long)Hq * D, rk = (long long)Hkv * D;
   BwdParams p{};
-  if (!(encode_map(&p.tq, q, D, Hq, L, B, hs, rq, rq * L, 64, 1, 64) &&
-        encode_map(&p.tdo, dO, D, Hq, L, B, hs, rq, rq * L, 64, 1, 64) &&
-        encode_map(&p.tq_pk, q, D, Hq, L, B, hs, rq, rq * L, 64, pack, 64 / pack) &&
-        encode_map(&p.tdo_pk, dO, D, Hq, L, B, hs, rq, rq * L, 64, pack, 64 / pack) &&
-        encode_map(&p.tk, k, D, Hkv, L, B, hs, rk, rk * L, 64, 1, 64) &&
-        encode_map(&p.tv, v, D, Hkv, L, B, hs, rk, rk * L, 64, 1, 64) &&
+  if (!(encode_map(&p.tq, q, D, Hq, Lq, B, hs, rq, rq * Lq, 64, 1, 64) &&
+        encode_map(&p.tdo, dO, D, Hq, Lq, B, hs, rq, rq * Lq, 64, 1, 64) &&
+        encode_map(&p.tq_pk, q, D, Hq, Lq, B, hs, rq, rq * Lq, 64, pack, 64 / pack) &&
+        encode_map(&p.tdo_pk, dO, D, Hq, Lq, B, hs, rq, rq * Lq, 64, pack, 64 / pack) &&
+        encode_map(&p.tk, k, D, Hkv, Lk, B, hs, rk, rk * Lk, 64, 1, 64) &&
+        encode_map(&p.tv, v, D, Hkv, Lk, B, hs, rk, rk * Lk, 64, 1, 64) &&
         encode_f32_rows(&p.tlse, static_cast<const float*>(lse2), Lp, B * Hq, kBQ) &&
         encode_f32_rows(&p.tdelta, static_cast<const float*>(delta), Lp, B * Hq, kBQ) &&
         (seg_pad == nullptr ||
@@ -574,19 +593,21 @@ extern "C" int tv_flash_bwd(const void* q, const void* k, const void* v, const v
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.B = B; p.L = L; p.Lp = Lp; p.Hq = Hq; p.Hkv = Hkv; p.pack = pack;
+  p.B = B; p.Lq = Lq; p.Lk = Lk; p.Lp = Lp; p.Hq = Hq; p.Hkv = Hkv; p.pack = pack;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto dkv = causal ? dkv_kernel<true> : dkv_kernel<false>;
+  auto dqk = causal ? dq_kernel<true> : dq_kernel<false>;
+  if ((err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kDkvSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kDqSmem)) != cudaSuccess)
     return err;
   const int rows_q = kRows / pack;  // tokens a dq block
-  dq_kernel<<<dim3(Hq / pack, (L + rows_q - 1) / rows_q, B), kThreads, kDqSmem, s>>>(p);
+  dqk<<<dim3(Hq / pack, (Lq + rows_q - 1) / rows_q, B), kThreads, kDqSmem, s>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkv_kernel<<<dim3(Hkv, (L + kBK - 1) / kBK, B), kThreads, kDkvSmem, s>>>(p);
+  dkv<<<dim3(Hkv, (Lk + kBK - 1) / kBK, B), kThreads, kDkvSmem, s>>>(p);
   return cudaGetLastError();
 }
 

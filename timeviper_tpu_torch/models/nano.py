@@ -423,11 +423,12 @@ def nano_forward(
     are not ported. `fused_conv` (inference only) fuses each Mamba layer's
     conv into its scan (ops/ssd_kernel.py:ssd_conv_scan_fused).
 
-    `pdrop_spec` (models/pdrop.py, one row) runs the config's pdrop stages
-    before their layers, with the TransV modules `pdrop_params` (a
-    MergeModules or None); the labels and seq_idx shrink with the rows, and a
-    filled cache records each attention layer's `kv_len` and each stage's
-    `ca_kv` (timeviper_tpu/models/nano.py:616-681)."""
+    `pdrop_spec` (models/pdrop.py, shared by the B rows) runs the config's
+    pdrop stages before their layers, outside the blocks' checkpoints as in
+    the JAX package (nano.py:622-646), with the TransV modules
+    `pdrop_params` (a MergeModules or None); the labels and seq_idx shrink
+    with the rows, and a filled cache records each attention layer's
+    `kv_len` and each stage's `ca_kv` (timeviper_tpu/models/nano.py:616-681)."""
     if remat not in (False, True, "full"):
         raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds

@@ -279,27 +279,48 @@ def apply_pdrop_stage(
     attn_mixer=None,
     merge: Optional[MergeModules] = None,
 ):
-    """One stage over every sample of one packed row. hidden (1, L, D),
-    labels and seq_idx (1, L) or None. Returns (hidden, labels, seq_idx,
-    the new spec, ca_kv) with the new length; ca_kv is the stage's TransV
-    K/V {k, v} (Nd, Hkv, hd) when one sample merged, else None.
-    `attn_mixer` is the stage layer's attention module (an "attn" stage:
-    nano's AttentionMixer, qwen2's Qwen2Attention);
-    `merge` the merge modules, or None for no TransV."""
-    if hidden.shape[0] != 1:
-        raise ValueError("pdrop runs on packed batch-1 rows")
+    """One stage over every sample of B rows that share one layout (a
+    training batch: the JAX package vmaps its one-row loss over them).
+    hidden (B, L, D), labels and seq_idx (B, L) or None. Returns (hidden,
+    labels, seq_idx, the new spec, ca_kv) with the new length; ca_kv is the
+    stage's TransV K/V {k, v} when one sample merged, (Nd, Hkv, hd) for one
+    row and (B, Nd, Hkv, hd) for more, else None. Every row ranks its own
+    "attn" keep set (from its own labels in training) and merges its own
+    dropped tokens. `attn_mixer` is the stage layer's attention module (an
+    "attn" stage: nano's AttentionMixer, qwen2's Qwen2Attention); `merge`
+    the merge modules, or None for no TransV."""
     mm = merge.stage(stage_idx) if merge is not None else None
-    h = hidden[0]
-    h_parts, l_parts, s_parts, new_samples = [], [], [], []
+    keeps = [min(int(spec.orig_num_vision[si] * spec.ratios[stage_idx + 1]), samp.num_vision)
+             for si, samp in enumerate(spec.samples)]
+    rows = [_stage_row(hidden[b], None if labels is None else labels[b],
+                       None if seq_idx is None else seq_idx[b], spec, keeps, stage, cfg,
+                       attn_mixer, mm) for b in range(hidden.shape[0])]
+    new_samples = tuple(
+        replace(samp, num_vision=keep, query_pos=None if samp.query_pos is None
+                else samp.query_pos - (samp.num_vision - keep))
+        for samp, keep in zip(spec.samples, keeps))
+    ca_kv = None
+    if rows and rows[0][3] is not None:
+        ca_kv = rows[0][3] if len(rows) == 1 else {
+            key: torch.stack([r[3][key] for r in rows]) for key in ("k", "v")}
+    stack = lambda i: torch.stack([r[i] for r in rows])  # noqa: E731
+    return (stack(0), stack(1) if labels is not None else None,
+            stack(2) if seq_idx is not None else None,
+            replace(spec, samples=new_samples), ca_kv)
+
+
+def _stage_row(h: torch.Tensor, labels: Optional[torch.Tensor], seq_idx: Optional[torch.Tensor],
+               spec: PdropSpec, keeps: List[int], stage: PdropStage, cfg: LLMConfig, attn_mixer,
+               mm: Optional[MergeModule]):
+    """The stage over the samples of one row h (L, D): (hidden, labels,
+    seq_idx, ca_kv of a single merged sample or None)."""
+    h_parts, src_parts = [], []
     ca_kv, offset = None, 0
-    for si, samp in enumerate(spec.samples):
+    for samp, keep in zip(spec.samples, keeps):
         Ls, cur, vs = samp.length, samp.num_vision, samp.vision_start
-        keep = min(int(spec.orig_num_vision[si] * spec.ratios[stage_idx + 1]), cur)
         sh = h[offset:offset + Ls]
-        sl = labels[0, offset:offset + Ls] if labels is not None else None
+        sl = labels[offset:offset + Ls] if labels is not None else None
         keep_idx = _keep_indices(stage, samp, sh, sl, keep, cfg=cfg, attn_mixer=attn_mixer)
-        src = [torch.arange(vs, device=h.device), vs + keep_idx,
-               torch.arange(vs + cur, Ls, device=h.device)]
         suffix = sh[vs + cur:]
         if mm is not None and keep < cur:
             kept = torch.zeros(cur, dtype=torch.int32, device=h.device)
@@ -310,16 +331,9 @@ def apply_pdrop_stage(
             if len(spec.samples) == 1:
                 ca_kv = kv
         h_parts += [sh[:vs], sh[vs + keep_idx], suffix]
-        src = torch.cat(src) + offset
-        if labels is not None:
-            l_parts.append(labels[0, src])
-        if seq_idx is not None:
-            s_parts.append(seq_idx[0, src])
-        qp = samp.query_pos - (cur - keep) if samp.query_pos is not None else None
-        new_samples.append(replace(samp, num_vision=keep, query_pos=qp))
+        src_parts += [torch.arange(vs, device=h.device) + offset, vs + offset + keep_idx,
+                      torch.arange(vs + cur, Ls, device=h.device) + offset]
         offset += Ls
-    return (torch.cat(h_parts)[None],
-            torch.cat(l_parts)[None] if labels is not None else None,
-            torch.cat(s_parts)[None] if seq_idx is not None else None,
-            replace(spec, samples=tuple(new_samples)), ca_kv)
-
+    src = torch.cat(src_parts)
+    return (torch.cat(h_parts), labels[src] if labels is not None else None,
+            seq_idx[src] if seq_idx is not None else None, ca_kv)

@@ -41,9 +41,8 @@ Where the port leaves the JAX code behind, and why:
   no layer precedes a stage the two agree; elsewhere the port agrees with a
   teacher-forced pdrop forward (tests/test_torch_qwen2_generate.py).
 
-Not ported yet: training with pdrop stages, W8A8 serving, and the JAX
-forward's `attention_mask` and `position_ids` arguments, which no serving or
-training path passes.
+Not ported yet: W8A8 serving, and the JAX forward's `attention_mask` and
+`position_ids` arguments, which no serving or training path passes.
 """
 
 from __future__ import annotations
@@ -275,9 +274,10 @@ def qwen2_forward(
     `logits_to_keep` > 0 computes the f32 logits of the last rows only.
     `remat` (True or "full") recomputes each layer in the backward
     (qwen2.py:215-218); the other policies are not ported. `pdrop_spec`
-    (models/pdrop.py, one row) runs the config's stages before their layers
-    with the TransV modules `pdrop_params`; a filled cache then records each
-    layer's `kv_len` and each stage's `ca_kv` (qwen2.py:186-238)."""
+    (models/pdrop.py, shared by the B rows) runs the config's stages before
+    their layers, outside the layers' checkpoints, with the TransV modules
+    `pdrop_params`; a filled cache then records each layer's `kv_len` and
+    each stage's `ca_kv` (qwen2.py:186-238)."""
     if remat not in (False, True, "full"):
         raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds

@@ -6,10 +6,11 @@ one gather. `vlm_loss` is the training loss over a batch of rows that share
 one plan: the rows run as a written-out batch dimension where the JAX package
 vmaps its one-row loss. A pdrop config with `merge_module == "CrossAttention"`
 gives the model its TransV modules (`merge_modules`, models/pdrop.py), and
-`vlm_forward(use_pdrop=True)` runs the stages. The backbone is Nemotron-H
-(`llm_family` "nano", models/nano.py) or Qwen2 ("qwen2", models/qwen2.py);
-`vlm_forward`, `vlm_loss`, `init_cache` and `decode_step` dispatch by
-family. Left out for now: training with pdrop and heterogeneous batches
+`vlm_forward(use_pdrop=True)` and `vlm_loss(use_pdrop=True)` run the stages
+(training through TransV's cross-attention backward on the card). The
+backbone is Nemotron-H (`llm_family` "nano", models/nano.py) or Qwen2
+("qwen2", models/qwen2.py); `vlm_forward`, `vlm_loss`, `init_cache` and
+`decode_step` dispatch by family. Left out for now: heterogeneous batches
 (per-row plans).
 
 Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
@@ -201,7 +202,9 @@ def vlm_forward(
     valid_from: int = 0,
     logits_to_keep: int = 0,
     fused_conv: bool = False,
+    labels: Optional[torch.Tensor] = None,
     use_pdrop: bool = False,
+    pdrop_query_positions: Optional[Tuple[Optional[int], ...]] = None,
     pdrop_vision_start: Optional[int] = None,
     pdrop_query_pos: Optional[int] = None,
 ) -> Dict[str, Any]:
@@ -211,12 +214,17 @@ def vlm_forward(
     (timeviper_tpu/models/vlm.py:227); the qwen2 backbone has no Mamba layer
     and ignores it.
 
-    `use_pdrop` on a pdrop config runs its stages (vlm.py:219-288) over one
-    sample spanning the row, as the Generator's bucketed prefill lays it
-    out: the visual block starts at `pdrop_vision_start` (a left pad
-    included) and `pdrop_query_pos` is the ranking query. The JAX package's
-    other layout, packed samples with labels, is training's, which is not
-    ported with pdrop."""
+    `labels` (fused_len,) are already fused; the output returns them as the
+    stages leave them.
+
+    `use_pdrop` on a pdrop config runs its stages (vlm.py:219-288) in one of
+    the JAX package's two layouts. With `pdrop_vision_start`: one sample
+    spanning the row, as the Generator's bucketed prefill lays it out, its
+    visual block starting at `pdrop_vision_start` (a left pad included) and
+    `pdrop_query_pos` the ranking query. Without: the static branch, the
+    plan's packed samples (`plan.sample_layouts`), each ranked by its entry
+    of `pdrop_query_positions` or, where none is given, by the row before its
+    last answer span in the labels (vlm.py:268-272)."""
     emb = model.llm_backbone.embeddings.weight
     if visual_embeddings is None and pixels is not None:
         ve = encode_visual(model, arch, pixels)
@@ -231,14 +239,27 @@ def vlm_forward(
                                device=emb.device)[None]
                if plan.seq_idx is not None else None)
     spec = None
-    if use_pdrop and arch.llm.use_pdrop:
+    if use_pdrop and arch.llm.use_pdrop and pdrop_vision_start is not None:
         nv = plan.num_visual
         spec = make_pdrop_spec([(pdrop_vision_start, nv, fused.shape[1] - pdrop_vision_start - nv)],
                                arch.llm.pdrop_stages, [pdrop_query_pos])
+    elif use_pdrop:
+        spec = packed_pdrop_spec(arch, plan, pdrop_query_positions)
     return llm_forward(model.llm_backbone, arch, fused_conv, inputs_embeds=fused,
                        seq_idx=seq_idx, fill_cache=fill_cache, cache_max_len=cache_max_len,
-                       valid_from=valid_from, logits_to_keep=logits_to_keep, pdrop_spec=spec,
+                       valid_from=valid_from, logits_to_keep=logits_to_keep,
+                       labels=None if labels is None else labels[None], pdrop_spec=spec,
                        pdrop_params=model.merge_modules)
+
+
+def packed_pdrop_spec(arch: VLMArch, plan: FusionPlan, query_positions=None):
+    """The static pdrop spec of the plan's packed samples (vlm.py:268-272),
+    or None when the config has no pdrop: a sample with no query position
+    ranks by its labels."""
+    if not arch.llm.use_pdrop:
+        return None
+    return make_pdrop_spec(list(plan.sample_layouts), arch.llm.pdrop_stages,
+                           list(query_positions) if query_positions else None)
 
 
 def llm_forward(llm: nn.Module, arch: VLMArch, fused_conv: bool = False, **kw) -> Dict[str, Any]:
@@ -255,16 +276,22 @@ def vlm_loss(
     batch: Dict[str, torch.Tensor],
     plan: FusionPlan,
     remat: bool = True,
+    use_pdrop: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Shifted cross-entropy over fused rows that share `plan`; the mean of the
     rows' own token means, as the JAX package's vmapped `vlm_loss` gives.
     Either backbone (nano_forward or qwen2_forward, `remat` one checkpoint a
     block or layer); a tied qwen2 takes its logits from the embeddings.
+    `use_pdrop` on a pdrop config runs its stages over the plan's packed
+    samples (vlm.py:338-372): each row ranks its own "attn" keep sets by its
+    labels, the labels shrink with the rows, and the TransV modules train.
 
     batch: {"input_ids": (B, Lt), "labels": (B, fused_len) already fused,
     "pixels": (B, F, H, W, 3) or "visual_embeddings": (B, Nv, D), optional}.
     Returns (loss, {"n_tokens": labelled tokens summed over the rows})."""
     if "gather_idx" in batch:
+        if use_pdrop:  # as the JAX package asserts (vlm.py:354)
+            raise ValueError("pdrop needs static sample layouts; use homogeneous batches")
         raise NotImplementedError("heterogeneous batches (per-row plans) are not ported")
     ids = batch["input_ids"].long()
     Bsz = ids.shape[0]
@@ -286,7 +313,9 @@ def vlm_loss(
         seq_idx = torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
                                   device=src.device).expand(Bsz, -1).contiguous()
     out = llm_forward(model.llm_backbone, arch, inputs_embeds=src[:, idx], seq_idx=seq_idx,
-                      labels=batch["labels"], remat=remat)
+                      labels=batch["labels"], remat=remat,
+                      pdrop_spec=packed_pdrop_spec(arch, plan) if use_pdrop else None,
+                      pdrop_params=model.merge_modules)
     logits, labels = out["logits"][:, :-1], out["labels"][:, 1:].long()
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                           ignore_index=IGNORE_INDEX, reduction="none").view(labels.shape)

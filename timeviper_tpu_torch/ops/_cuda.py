@@ -42,7 +42,7 @@ _SIGNATURES = {
     "tv_ssd_fwd": [_P] * 25 + [_I] * 14 + [_F, _F, _P],
     "tv_ssd_bwd": [_P] * 30 + [_I] * 9 + [_F, _F, _P],
     "tv_flash_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
-    "tv_flash_bwd": [_P] * 14 + [_I] * 10 + [_F, _P],
+    "tv_flash_bwd": [_P] * 14 + [_I] * 12 + [_F, _P],
     "tv_block_attn": [_P] * 11 + [_I] * 6 + [_L] + [_I] * 6 + [_F, _P],
     "tv_vit_attn_qkv": [_P, _P] + [_I] * 5 + [_F, _P],
     "tv_headgrid_attn": [_P, _P] + [_I] * 7 + [_F, _P],

@@ -4,7 +4,8 @@
 ops/flash_attention.py, K3 in ops/vit_attention.py) and the decode attention.
 GQA is written into the einsum: query head h reads KV head h // (Hq/Hkv), with
 no repeat of the KV heads. `cross_attention` (TransV, models/pdrop.py) takes
-`attention` on a CPU tensor and K9 (ops/block_attention.py) on a CUDA one.
+`attention` on a CPU tensor, and on a CUDA one K9 (ops/block_attention.py)
+or, under autograd, BlockAttnFn (K9 forward, K2-bwd's non-causal backward).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from timeviper_tpu_torch.ops.block_attention import block_attn_lse
+from timeviper_tpu_torch.ops.block_attention import BlockAttnFn, block_attn_lse
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -71,8 +72,12 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Non-causal GQA attention of q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D)
     (timeviper_tpu/ops/attention.py:128, without its `kv_valid`, which no
     caller passes). A CPU tensor takes `attention`; a CUDA tensor K9's
-    non-causal mode, its row statistics dropped, or raises. All-zero keys and
-    values give exactly 0 on both."""
+    non-causal mode, its row statistics dropped, or raises; under autograd
+    (grad enabled and q, k or v requiring it) a CUDA tensor takes
+    BlockAttnFn, whose backward is K2-bwd's non-causal mode. All-zero keys
+    and values give exactly 0 on both."""
     if q.device.type == "cpu":
         return attention(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return BlockAttnFn.apply(q, k, v)
     return block_attn_lse(q, k, v, causal=False)[0]

@@ -24,6 +24,13 @@ kernel gave NaN there).
 `block_attn_lse_plain`; a CUDA tensor launches the kernel (csrc/block_attn.cu)
 or raises.
 
+`BlockAttnFn` makes the non-causal mode differentiable (TransV's
+cross-attention, ops/attention.py:cross_attention, under autograd on the
+card): its forward is K9, keeping o and the row log-sum-exp m + log(l); its
+backward is K2-bwd's non-causal mode (ops/flash_attention.py:
+cross_attention_bwd). Its plain version is autograd through
+ops/attention.py:attention, which the CPU takes.
+
 The kernel's launch plan is `block_attn_plan`, a function of the shapes
 alone: how many query heads of one KV head a block packs, and whether the
 keys are split across blocks in whole tiles when the blocks of a call would
@@ -196,6 +203,30 @@ def block_attn_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal:
 
 
 block_attn_lse.launches = 0
+
+
+def row_lse(l: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp m + log(l) (B, Hq, Lq) f32 of K9's row statistics,
+    as K2-bwd takes it: +inf for a row that saw no key (l = 0), so that its
+    probabilities, and with them its gradients, are 0."""
+    return torch.where(l > 0, m + torch.log(l), math.inf)
+
+
+class BlockAttnFn(torch.autograd.Function):
+    """Non-causal GQA attention of q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D)
+    on CUDA tensors: K9 forward, K2-bwd's non-causal mode backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, l, m = block_attn_lse(q, k, v, causal=False)
+        ctx.save_for_backward(q, k, v, o, row_lse(l, m))
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        from timeviper_tpu_torch.ops.flash_attention import cross_attention_bwd
+
+        return cross_attention_bwd(*ctx.saved_tensors[:4], dout, ctx.saved_tensors[4])
 
 
 def _check(q, k, v, causal):

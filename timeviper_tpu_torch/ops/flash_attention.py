@@ -1,5 +1,6 @@
 """K2 and K2-bwd: causal flash attention, forward and backward, as hand-written
-CUDA kernels.
+CUDA kernels, and K2-bwd's non-causal mode, the backward of TransV's
+cross-attention.
 
 Counterpart of timeviper_tpu/ops/flash_pallas.py:flash_attention, which runs
 the attention layers of the Nemotron-H prefill and training step through
@@ -15,6 +16,11 @@ differentiated by autograd; `flash_lse_plain` is the plain row log-sum-exp.
 `flash_attention` is the entry point: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernels or raises. Under autograd the CUDA path is
 `FlashAttnFn`, whose backward is `flash_attention_bwd` (K2-bwd's wrapper).
+`cross_attention_bwd` is K2-bwd's non-causal mode (separate query and key
+lengths, no segment ids), the backward of ops/block_attention.py:
+BlockAttnFn, whose forward is K9; its plain version,
+`cross_attention_bwd_plain`, computes the same formulas in f32 from the
+same forward output. Each wrapper counts its own launches.
 A tile is (query (row, head) pairs a block, keys a tile): a block packs
 `gqa_pack(Hq, Hkv)` query heads of one KV head (4 on the 9B: 128 pairs are
 32 tokens). The paths run FLASH_TILE; `flash_attention_fwd(tile=)` runs the
@@ -50,17 +56,20 @@ def flash_attention_plain(q, k, v, segment_ids=None):
     return attention(q, k, v, mask)
 
 
-def flash_lse_plain(q, k, segment_ids=None):
+def flash_lse_plain(q, k, segment_ids=None, causal: bool = True):
     """The row log-sum-exp (B, Hq, Lq) f32 of the masked logits scaled by
-    1/sqrt(D), as K2 writes it for K2-bwd: m + log(l), +inf for a row that
-    sees no key."""
+    1/sqrt(D), as K2 writes it for K2-bwd (and as ops/block_attention.py:
+    row_lse forms it from K9's row statistics, `causal` False): m + log(l),
+    +inf for a row that sees no key."""
     _, Lq, Hq, D = q.shape
     Lk = k.shape[1]
-    mask = make_attention_mask(Lq, Lk, causal=True, q_segment_ids=segment_ids,
+    mask = make_attention_mask(Lq, Lk, causal=causal, q_segment_ids=segment_ids,
                                kv_segment_ids=segment_ids, device=q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.repeat_interleave(Hq // k.shape[2], 2).float()) / math.sqrt(D)
-    lse = torch.logsumexp(s.masked_fill(~mask.reshape(-1, 1, Lq, Lk), -math.inf), dim=-1)
+    if mask is not None:
+        s = s.masked_fill(~mask.reshape(-1, 1, Lq, Lk), -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
     return torch.where(torch.isneginf(lse), math.inf, lse)
 
 
@@ -104,19 +113,71 @@ def flash_attention_bwd(q, k, v, out, dout, lse, segment_ids=None):
     takes the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, segment_ids)
-    B, L, Hq, D = q.shape
-    Hkv = k.shape[2]
     _check(q, k, v, segment_ids)
+    out = _launch_bwd(q, k, v, out, dout, lse, segment_ids, causal=True)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+flash_attention_bwd.launches = 0
+
+
+def cross_attention_bwd(q, k, v, out, dout, lse):
+    """K2-bwd's non-causal mode: (dq, dk, dv) of non-causal GQA attention of
+    q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D), Lq and Lk any, given the
+    output cotangent, the forward's output and its row log-sum-exp (B, Hq,
+    Lq) f32 (+inf for a row that saw no key). An empty side (Lq or Lk 0)
+    launches nothing and gives zeros. A CPU tensor takes the plain version."""
+    if q.device.type == "cpu":
+        return cross_attention_bwd_plain(q, k, v, out, dout)
+    _check(q, k, v, None)
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    out = _launch_bwd(q, k, v, out, dout, lse, None, causal=False)
+    cross_attention_bwd.launches += 1
+    return out
+
+
+cross_attention_bwd.launches = 0
+
+
+def cross_attention_bwd_plain(q, k, v, out, dout):
+    """The non-causal mode's plain version, in f32, from the forward's output
+    as the bundled TPU kernels take it: P = softmax(Q K^T / sqrt(D)), delta
+    = rowsum(dO * out), dS = P (dO V^T - delta); dq = dS K / sqrt(D), dk =
+    dS^T Q / sqrt(D) and dv = P^T dO, each summed over its GQA group. Returns
+    them in the inputs' dtypes."""
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    rep, scale = Hq // Hkv, 1.0 / math.sqrt(D)
+    qf, dof = q.float(), dout.float()
+    kr, vr = (t.float().repeat_interleave(rep, 2) for t in (k, v))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale, dim=-1)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vr) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(B, Lk, Hkv, rep, D).sum(3) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, Lk, Hkv, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, out, dout, lse, segment_ids, causal: bool):
+    """tv_flash_bwd on checked CUDA tensors, in either mode."""
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
         if not (t.dtype == torch.bfloat16 and t.shape == q.shape and t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd kernel: {name} must be contiguous bf16 "
                              f"like q")
-    if not (lse.dtype == torch.float32 and lse.shape == (B, Hq, L) and lse.is_contiguous()):
-        raise ValueError("flash_attention_bwd kernel: lse must be contiguous f32 (B, Hq, L)")
+    if not (lse.dtype == torch.float32 and lse.shape == (B, Hq, Lq) and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd kernel: lse must be contiguous f32 (B, Hq, Lq)")
+    if causal and Lq != Lk:
+        raise ValueError(f"flash_attention_bwd kernel: the causal mode takes Lq == Lk, got "
+                         f"{Lq}, {Lk}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # the row log-sum-exp times log2(e) and rowsum(dO * O), rows padded to 4
-    lse2, delta = torch.empty(2, B, Hq, -(-L // 4) * 4, dtype=torch.float32,
+    lse2, delta = torch.empty(2, B, Hq, -(-Lq // 4) * 4, dtype=torch.float32,
                               device=q.device).unbind(0)
     seg_pad = tile_ids = None
     if segment_ids is not None:
@@ -124,15 +185,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, segment_ids=None):
     p = _cuda.ptr
     err = _cuda.lib().tv_flash_bwd(
         p(q), p(k), p(v), p(out), p(dout), p(lse), p(segment_ids), p(seg_pad), p(tile_ids),
-        p(lse2), p(delta), p(dq), p(dk), p(dv), B, L, Hq, Hkv, D, gqa_pack(Hq, Hkv),
-        *FLASH_BWD_TILE,
-        1.0 / math.sqrt(D), _cuda.stream_of(q))
+        p(lse2), p(delta), p(dq), p(dk), p(dv), B, Lq, Lk, Hq, Hkv, D, gqa_pack(Hq, Hkv),
+        int(causal), *FLASH_BWD_TILE, 1.0 / math.sqrt(D), _cuda.stream_of(q))
     _cuda.check(err, "tv_flash_bwd")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 def tile_segment_ids(segment_ids: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ full and the LoRA step: what differs is the parameter set the optimizer
 holds (`trainable_params`). Gradients are cast to f32 before they are summed
 or reach Adam, as the JAX steps cast theirs. Gradient accumulation splits
 the step into `grad_step`, `accumulate_grads` and `apply_step`, so each
-microbatch may have its own fusion plan.
+microbatch may have its own fusion plan. `use_pdrop` runs the config's pdrop
+stages in the loss (models/vlm.py:vlm_loss), as the JAX step builders take
+it (step.py:42-49).
 """
 
 from __future__ import annotations
@@ -60,11 +62,12 @@ def grad_metrics(loss: torch.Tensor, aux: Dict[str, torch.Tensor],
 
 
 def grad_step(model: TimeViperVLM, arch: VLMArch, params: Dict[str, nn.Parameter],
-              batch: Dict[str, torch.Tensor], plan: FusionPlan, remat=True
+              batch: Dict[str, torch.Tensor], plan: FusionPlan, remat=True,
+              use_pdrop: bool = False
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(metrics, f32 gradients of the mean row loss) for `params`; a
     parameter that takes no gradient gets zeros."""
-    loss, aux = vlm_loss(model, arch, batch, plan, remat=remat)
+    loss, aux = vlm_loss(model, arch, batch, plan, remat=remat, use_pdrop=use_pdrop)
     live = [n for n, p in params.items() if p.requires_grad]
     got = torch.autograd.grad(loss, [params[n] for n in live], allow_unused=True)
     grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
@@ -94,9 +97,9 @@ def apply_step(opt: AdamW, grads: Dict[str, torch.Tensor], denom: float
 
 
 def train_step(model: TimeViperVLM, arch: VLMArch, opt: AdamW,
-               batch: Dict[str, Any], plan: FusionPlan, remat=True
+               batch: Dict[str, Any], plan: FusionPlan, remat=True, use_pdrop: bool = False
                ) -> Dict[str, torch.Tensor]:
     """Forward, backward and one update of `opt`'s parameters."""
-    metrics, grads = grad_step(model, arch, opt.params, batch, plan, remat)
+    metrics, grads = grad_step(model, arch, opt.params, batch, plan, remat, use_pdrop)
     opt.update(grads)
     return metrics

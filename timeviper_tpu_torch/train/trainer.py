@@ -4,11 +4,15 @@
 The JAX trainer shards its step over a mesh; this one runs on one card (or
 on the CPU when asked): the mesh fields of TrainerConfig are accepted and
 must be 1. `remat` is True / "full" (one recompute per block) or False; the
-JAX package's other remat policies and pdrop training are not ported. With
-`lora=True` the optimizer holds the LoRA factors plus the
-`trainable_modules` matches and every other parameter is frozen; otherwise
-it holds every parameter and `trainable_modules` zeroes the others'
-gradients.
+JAX package's other remat policies are not ported. With `lora=True` the
+optimizer holds the LoRA factors plus the `trainable_modules` matches and
+every other parameter is frozen; otherwise it holds every parameter and
+`trainable_modules` zeroes the others' gradients. `use_pdrop` trains with the
+config's pdrop stages; the TransV merge modules train where
+`trainable_modules` names them ("projector,merge" with LoRA, as the JAX
+package's stage-2 recipe, docs/USAGE.md:26-37, unfreezes them), take the
+`merge_lr` group and ride in the checkpoints with the other trained
+parameters.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ class TrainerConfig:
     data_parallel: int = 1
     model_parallel: int = 1
     remat: Union[bool, str] = True
+    use_pdrop: bool = False
     trainable_modules: Optional[str] = None  # comma substrings; None = all
     lora: bool = False
     resume: bool = True
@@ -108,7 +113,8 @@ class Trainer:
         return self._device_step(to_device(cb.batch, self.device), cb.plan)
 
     def _device_step(self, batch, plan) -> Dict[str, torch.Tensor]:
-        metrics = train_step(self.model, self.arch, self.opt, batch, plan, remat=self.cfg.remat)
+        metrics = train_step(self.model, self.arch, self.opt, batch, plan, remat=self.cfg.remat,
+                             use_pdrop=self.cfg.use_pdrop)
         self.step += 1
         return metrics
 
@@ -146,7 +152,7 @@ class Trainer:
                     pending.append(self._device_step(batch, plan))
                 else:
                     metrics, grads = grad_step(self.model, self.arch, self.opt.params, batch,
-                                               plan, remat=cfg.remat)
+                                               plan, remat=cfg.remat, use_pdrop=cfg.use_pdrop)
                     grads_acc = accumulate_grads(grads_acc, grads)
                     pending.append(metrics)
                     n_micro += 1
