@@ -3,10 +3,10 @@
 microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
 slot-batched serving engine, pdrop with TransV, speculative decoding, LoRA
-training, int8 serving with the fused kernels, then serving with the
-InternVideo2 tower (bf16, then int8) and with the two-tower DINOv2 + SigLIP
-encoder, and last the Qwen2.5-7B backbone (serving, speculative decoding,
-LoRA training).
+training (with the vision tower trained too), int8 serving with the fused
+kernels, then serving with the InternVideo2 tower (bf16, then int8) and
+with the two-tower DINOv2 + SigLIP encoder, and last the Qwen2.5-7B backbone
+(serving, speculative decoding, LoRA training, W8A8).
 
     python3 chip_smoke.py
 
@@ -54,7 +54,15 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    and 28 / 4. Last, K2-bwd's non-causal mode (TransV's cross-attention
    backward, given K9's output and row log-sum-exp m + log(l)): 32 text rows
    x 205, 820 and 819 dropped tokens at 32 / 8 and 28 / 4, B 2, 1,000 x 820
-   and 4,096 x 4,096, against SDPA's non-causal backward alone.
+   and 4,096 x 4,096, against SDPA's non-causal backward alone. Last, K3's
+   and K6's LSE variants (the row log-sum-exp to 1e-4) and the ViT attention
+   backward (csrc/vit_attn_bwd.cu, which replaces no Pallas kernel: the JAX
+   package differentiates its oracle) at 64 SigLIP frames (T 729, hd 72,
+   the fused qkv and its fused gradient), 8 DINOv2-L frames (T 734, hd 64)
+   and 16 InternVideo2 clips (T 1,025, hd 88, v a column slice), against
+   its plain version (the formulas in f32 from the kernel's own output and
+   LSE) and, at 8 SigLIP frames, autograd through the plain f32 forward;
+   SDPA's backward alone beside it; bitwise repeatable.
 3b. microbenchmarks: K2 at L 81,920 at each tile against plain f32
    attention on the last 256 query rows of heads 0-3 and the first 256 of
    heads 28-31; then bench/microbench_vit_attn.py at 256 frames (K3, K10a,
@@ -164,6 +172,15 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    under rounding noise, each against every plain version, with how far
    TransV's inputs and the visual tokens moved. Step s and peak memory
    beside the plain LoRA steps'.
+6b. tower training, on the same 9B: LoRA plus trainable_modules=
+   "vision_backbone,projector" at vision_lr 2e-5, four Trainer steps at
+   1,064 tokens (64 frames; the tower is not recomputed, so 256 frames would
+   not fit); K3 (its LSE variant) and the backward kernel exactly one launch
+   a tower block and step; losses and grad norms finite, peak memory under
+   80 GB (printed with the card and its power limit); before them the first
+   step's gradients by group (LoRA, projector, the tower's blocks in thirds,
+   its embeddings) against the same step with the backward's plain version,
+   K3's forward on both sides, cosine 0.99.
 7. int8 serving: the training model is freed and the same seeded bf16
    weights are made again; the ViT and the 9B are quantized to W8A8 as
    bench.py does (train/quantize.py), calibrated on one 64-frame clip, and the
@@ -221,8 +238,13 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    a layer's own inputs, the first step's LoRA gradient against the plain K2
    and K2-bwd (cosine above 0.99); step s and peak memory; then pdrop
    training as in phase 6 with docs/USAGE.md's "uni_14_0.8-attn_21_0.6" (K2,
-   K3, K9, K2-bwd and its non-causal mode). The launches of (a), (e) and (f)
-   add to the kernels line.
+   K3, K9, K2-bwd and its non-causal mode); (g) the weights made again from
+   the seed in W8A8 (tower and backbone, q/k/v with their biases; calibrated
+   on one 64-frame clip): the 64-frame request (K2 28 launches, K9 28 a
+   decode step) against (a)'s bf16 one, first-logit cosine 0.98; a 32-token
+   question on a cached prefix of 8 tokens + 64 frames against that whole
+   prompt; a 2-slot engine. The launches of (a), (e) and (f) add to the
+   kernels line.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -341,12 +363,20 @@ from timeviper_tpu_torch.ops.ssd_kernel import (  # noqa: E402
     ssd_scan_bwd_plain,
     ssd_scan_fwd,
 )
+from timeviper_tpu_torch.ops import vit_attention as vit_attention_mod  # noqa: E402
 from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
     VIT_ATTN_BLOCK_ROWS,
+    VIT_BWD_TILE,
     VIT_QKV_BLOCK_ROWS,
     vit_attention,
+    vit_attention_bwd,
+    vit_attention_bwd_plain,
+    vit_attention_lse_plain,
     vit_attention_plain,
     vit_attention_qkv,
+    vit_attention_qkv_bwd,
+    vit_attention_qkv_bwd_plain,
+    vit_attention_qkv_lse_plain,
     vit_attention_qkv_plain,
 )
 from timeviper_tpu_torch.serving import Request, ServingEngine  # noqa: E402
@@ -396,12 +426,19 @@ KERNELS = {
     # that returns it), f32 sums of bf16 logits in other orders, to 1e-4
     "flash_fwd": dict(source="timeviper_tpu_torch/csrc/flash_fwd.cu",
                       replaces="timeviper_tpu/ops/flash_pallas.py:39", rel_tol=(1e-2, 1e-4)),
+    # K3 and K6: o as the other forward kernels; their LSE variants' row
+    # log-sum-exp as K2's, to 1e-4
     "vit_attn_qkv": dict(source="timeviper_tpu_torch/csrc/vit_attn_qkv.cu",
-                         replaces="timeviper_tpu/ops/vit_attention.py:197", rel_tol=1e-2),
+                         replaces="timeviper_tpu/ops/vit_attention.py:197", rel_tol=(1e-2, 1e-4)),
     "vit_attn": dict(source="timeviper_tpu_torch/csrc/vit_attn.cu",
-                     replaces="timeviper_tpu/ops/vit_attention.py:76", rel_tol=1e-2),
+                     replaces="timeviper_tpu/ops/vit_attention.py:76", rel_tol=(1e-2, 1e-4)),
     "ssd_bwd": dict(source="timeviper_tpu_torch/csrc/ssd_bwd.cu",
                     replaces="timeviper_tpu/ops/ssd_pallas.py:482", rel_tol=3e-2),
+    # the ViT attention backward (a trainable tower): no Pallas kernel in the
+    # JAX package, which differentiates its jnp oracle off the TPU (the
+    # dispatcher at :318); as K2-bwd, bf16 P and dS tiles on the tensor cores
+    "vit_attn_bwd": dict(source="timeviper_tpu_torch/csrc/vit_attn_bwd.cu",
+                         replaces="timeviper_tpu/ops/vit_attention.py:318", rel_tol=3e-2),
     "flash_bwd": dict(source="timeviper_tpu_torch/csrc/flash_bwd.cu",
                       replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:941",
                       rel_tol=3e-2),
@@ -440,7 +477,7 @@ WRAPPERS = {"ssd_fwd": ssd_scan, "flash_fwd": flash_attention,
             "ssd_conv_fwd": ssd_conv_scan_fused,
             "decode_fused": fused_mamba_decode, "layernorm": fused_ln,
             "vit_attn": vit_attention, "block_attn": block_attn_lse,
-            "headgrid_attn": headgrid_attention}
+            "headgrid_attn": headgrid_attention, "vit_attn_bwd": vit_attention_bwd}
 SERVING = ("ssd_fwd", "flash_fwd", "vit_attn_qkv")
 TRAINING = SERVING + ("ssd_bwd", "flash_bwd")
 # five pdrop training steps of two stages, each stage's TransV one K9 forward
@@ -640,6 +677,7 @@ def phase_build() -> None:
         if line.startswith("=="):
             sm90 = line[3:] in ("block_attn.cu", "vit_attn.cu", "flash_fwd.cu",
                                 "vit_attn_qkv.cu", "headgrid_attn.cu", "flash_bwd.cu",
+                                "vit_attn_bwd.cu",
                                 "ssd_bwd.cu", "ssd_fwd.cu", "decode_fused.cu")
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or sm90 and ("entry function" in line or "warning" in line.lower()
@@ -649,7 +687,9 @@ def phase_build() -> None:
     log(f"[build] dynamic shared memory a block: K2-bwd dkv {lib.tv_flash_bwd_smem(0)} B, dq "
         f"{lib.tv_flash_bwd_smem(1)} B (tile {FLASH_BWD_TILE}); K10a (tile {HEADGRID_TILE}) hpp "
         f"1 {lib.tv_headgrid_smem(1)} B, hpp 2 and 4 {lib.tv_headgrid_smem(2)} B; K4 dc / db "
-        f"{lib.tv_ssd_bwd_smem()} B; K1 chunk_scan / chunk_state "
+        f"{lib.tv_ssd_bwd_smem()} B; ViT attention backward dkv / dq at hd 72, 64, 88 "
+        f"{', '.join(f'{lib.tv_vit_attn_bwd_smem(0, h)} / {lib.tv_vit_attn_bwd_smem(1, h)} B' for h in (72, 64, 88))}"
+        f"; K1 chunk_scan / chunk_state "
         f"{' / '.join(f'{smem} B ({threads} threads)' for threads, smem in fwd_blocks())}")
 
 
@@ -1134,6 +1174,84 @@ def kernel_cases(g: torch.Generator):
                     main=(Bx, Lq, Lk, Hqx) == (1, 32, 820, 32), repeat=True, launch=planx,
                     split=True))
         del qx, kx, vx, dox, ox, lx, mx, lsex, libx_in, leaves, libx_out, libx_g
+
+    # K3's and K6's LSE variants (a trainable tower's forward) and the ViT
+    # attention backward (csrc/vit_attn_bwd.cu), from a generator of their
+    # own, last: the backward at the tower-training phase's shape (64 frames
+    # of SigLIP, T 729, hd 72, 16 heads, q, k, v and their gradient in the
+    # fused qkv rows), 8 frames of DINOv2-L (T 734, hd 64) and 16 clips of
+    # InternVideo2 (T 1,025, hd 88, v a column slice of the fused qkv), each
+    # against its plain version (the same formulas in f32 from the kernel's
+    # own output and LSE), SigLIP at 8 frames also against autograd through
+    # the plain f32 forward; the library yardstick is SDPA's backward alone
+    # at the same head dim
+    gv = torch.Generator(device=DEV).manual_seed(SEED + 16)
+
+    def rv(*shape):
+        return torch.randn(*shape, generator=gv, device=DEV).to(torch.bfloat16)
+
+    for Fv, Tv, hdv in ((8, 729, 72), (8, 734, 64)):
+        qkv = rv(Fv, Tv, 3 * nh * hdv)
+        lse_v = vit_attention_qkv(qkv, nh, hdv, lse=True)[1]
+        yield ("vit_attn_qkv", lambda qkv=qkv, hdv=hdv: vit_attention_qkv(qkv, nh, hdv, lse=True),
+               lambda qkv=qkv, hdv=hdv: vit_attention_qkv_lse_plain(qkv, nh, hdv), None,
+               (4 * Fv * nh * Tv * Tv * hdv, nbytes(qkv, lse_v) + nbytes(qkv) // 3),
+               dict(variant=f"LSE variant, T {Tv}, hd {hdv}", main=False, repeat=True))
+        del qkv, lse_v
+    cq, ck = rv(B6, T6, H6, hd6), rv(B6, T6, H6, hd6)
+    cv = rv(B6, T6, 3 * H6 * hd6)[..., 2 * H6 * hd6:].view(B6, T6, H6, hd6)
+    lse_v = vit_attention(cq, ck, cv, lse=True)[1]
+    yield ("vit_attn", lambda: vit_attention(cq, ck, cv, lse=True),
+           lambda: vit_attention_lse_plain(cq, ck, cv), None,
+           (4 * B6 * H6 * T6 * T6 * hd6, nbytes(cq, ck, cq, lse_v) + cv.numel() * 2),
+           dict(variant=f"LSE variant, {B6} clips, T {T6}, hd {hd6}", main=False, repeat=True))
+    del cq, ck, cv, lse_v
+    lib_v = _cuda.lib()
+    for Fv, Tv, hdv, fused, check in ((64, 729, 72, True, "formulas"),
+                                      (8, 729, 72, True, "autograd"),
+                                      (8, 734, 64, True, "formulas"),
+                                      (16, 1025, 88, False, "formulas")):
+        qkv, gv_out = rv(Fv, Tv, 3 * nh * hdv), rv(Fv, Tv, nh * hdv)
+        shape = (Fv, Tv, nh, hdv)
+        if fused:
+            qv, kv, vv = qkv.reshape(Fv, Tv, 3, nh, hdv).unbind(2)
+            ov, lv = vit_attention_qkv(qkv, nh, hdv, lse=True)
+            args = (qkv, ov, gv_out, nh, hdv, lv)
+            kern = lambda args=args: (vit_attention_qkv_bwd(*args),)
+            if check == "autograd":
+                def plain(qkv=qkv, g_=gv_out, hdv=hdv):
+                    leaf = qkv.float().requires_grad_()
+                    out_p = vit_attention_qkv_plain(leaf, nh, hdv)
+                    return torch.autograd.grad(out_p, [leaf], g_.float())[0].to(qkv.dtype),
+            else:
+                plain = lambda args=args: (vit_attention_qkv_bwd_plain(*args),)
+            moved = nbytes(qkv, ov, gv_out, lv, qkv)
+        else:
+            qv, kv = rv(*shape), rv(*shape)
+            vv = qkv[..., 2 * nh * hdv:].view(shape)
+            ov, lv = vit_attention(qv, kv, vv, lse=True)
+            args = (qv, kv, vv, ov, gv_out.view(shape), lv)
+            kern = lambda args=args: vit_attention_bwd(*args)
+            plain = lambda args=args: vit_attention_bwd_plain(*args)
+            moved = nbytes(qv, kv, ov, gv_out, lv, qv, kv) + 2 * vv.numel() * vv.element_size()
+        lib_call, lib_in = sdpa(qv, kv, vv, causal=False)
+        leaves = [x.detach().requires_grad_() for x in lib_in]
+        lib_out = lib_call(*leaves)
+        lib_g = gv_out.view(shape).transpose(1, 2).contiguous()
+        blocks = nh * -(-Tv // VIT_BWD_TILE[1]) * Fv
+        yield ("vit_attn_bwd", kern, plain,
+               lambda o=lib_out, lv_=leaves, gg=lib_g: torch.autograd.grad(o, lv_, gg,
+                                                                           retain_graph=True),
+               (10 * Fv * nh * Tv * Tv * hdv, moved),
+               dict(variant=f"{Fv} {'frames' if fused else 'clips'}, T {Tv}, hd {hdv}, "
+                            f"{'fused qkv' if fused else 'v a column slice'}; plain: "
+                            f"{'autograd through the f32 forward' if check == 'autograd' else 'the formulas from the kernel output and LSE'}"
+                            f"; library: SDPA's backward alone",
+                    main=(Fv, Tv) == (64, 729), repeat=True, split=True,
+                    launch=f"dq {blocks} blocks of {VIT_BWD_TILE[1]} query rows "
+                           f"({lib_v.tv_vit_attn_bwd_smem(1, hdv)} B), dkv {blocks} blocks of "
+                           f"{VIT_BWD_TILE[0]} keys ({lib_v.tv_vit_attn_bwd_smem(0, hdv)} B)"))
+        del qkv, gv_out, qv, kv, vv, ov, lv, args, lib_in, leaves, lib_out, lib_g
 
 
 def output_digest(out) -> str:
@@ -2430,6 +2548,122 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
                          trainer.history)
 
 
+# 6b: the first tower-training step's gradient groups, each held to a cosine
+# of TOWER_GRAD_COS against the same step with the ViT attention backward's
+# plain version (K3's forward a kernel on both sides: one bf16 ulp at its
+# place re-decides ToMe's merges, tests/test_torch_tome_ulp.py, and a gate
+# that let it vary would measure ToMe, not the backward)
+TOWER_GRAD_COS = 0.99
+TOWER_FRAMES = 64  # the 1,064-token training row; 256 frames would not fit (PERF.md §7)
+
+
+def tower_groups(n_layers: int) -> dict:
+    """LoRA, the projector, the tower's blocks in thirds and its embeddings."""
+    cut = [0, n_layers // 3, 2 * n_layers // 3, n_layers]
+    groups = {"LoRA factors": lambda n: ".lora_" in n,
+              "projector": lambda n: n.startswith("projector.")}
+    for a, b in zip(cut, cut[1:]):
+        groups[f"tower blocks {a}-{b - 1}"] = (
+            lambda n, a=a, b=b: n.startswith("vision_backbone.layers.")
+            and a <= int(n.split(".")[2]) < b)
+    groups["tower embeddings"] = (lambda n: n.startswith("vision_backbone.")
+                                  and not n.startswith("vision_backbone.layers."))
+    return groups
+
+
+def phase_tower_training(model, arch, smi: str, kernel_results: dict) -> None:
+    """6b: the 9B with a trainable SigLIP tower: LoRA on the backbone plus
+    trainable_modules="vision_backbone,projector" with its own vision_lr,
+    four Trainer steps at 1,064 tokens (64 frames). The tower's attention is
+    K3's LSE variant and the backward kernel (VitAttnQKVFn), exactly one
+    launch of each a layer and step. First the first step's gradients,
+    kernels against the backward's plain version, by group."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[tower train] {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated before the "
+        f"phase")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    row = training_row(arch, TOWER_FRAMES, g)
+    n_layers = len(model.vision_backbone.layers)
+    opt_cfg = OptimConfig(learning_rate=1e-3, vision_lr=2e-5, schedule="constant",
+                          max_grad_norm=1.0)
+    with tempfile.TemporaryDirectory() as run_dir:
+        cfg = TrainerConfig(run_dir=run_dir, max_steps=4, log_every=1, save_every=10**9,
+                            lora=True, trainable_modules="vision_backbone,projector",
+                            remat="full", resume=False)
+        trainer = Trainer(arch, model, opt_cfg, cfg, device=DEV)
+        params = trainer.opt.params
+        n_tower = sum(p.numel() for n, p in params.items() if n.startswith("vision_backbone."))
+        log(f"[tower train] {sum(p.numel() for p in params.values()) / 1e6:.1f} M trainable "
+            f"parameters, {n_tower / 1e6:.1f} M of them the tower's ({n_layers} blocks) at "
+            f"vision_lr {opt_cfg.vision_lr} (the rest {opt_cfg.learning_rate}); "
+            f"{row.plan.fused_len} tokens a step")
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in row.batch.items()}
+        # (1) the first step's gradients: the backward kernel, then its plain
+        # version (the formulas in f32 from K3's output and LSE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_k, g_k = grad_step(model, arch, params, batch, row.plan)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        vit_attention_mod.vit_attention_qkv_bwd = vit_attention_qkv_bwd_plain
+        try:
+            t0 = time.perf_counter()
+            m_p, g_p = grad_step(model, arch, params, batch, row.plan)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        finally:
+            vit_attention_mod.vit_attention_qkv_bwd = vit_attention_qkv_bwd
+        groups = tower_groups(n_layers)
+        cos = {}
+        for group, pick in groups.items():
+            names = [n for n in g_k if pick(n)]
+            a, b = (torch.cat([gr[n].flatten() for n in names]) for gr in (g_k, g_p))
+            cos[group] = (cosine(a, b), a.norm().item(), b.norm().item())
+        lk, lp = float(m_k["loss"]), float(m_p["loss"])
+        log(f"[tower train] first step, backward kernel vs its plain version (K3 forward on "
+            f"both sides): loss {lk:.6f} vs {lp:.6f}, {t_k:.3f} s vs {t_p:.3f} s; gradient "
+            f"cosine by group: " + "; ".join(f"{grp} {c:.6f} (norms {na:.4e} / {nb:.4e})"
+                                              for grp, (c, na, nb) in cos.items()))
+        del g_k, g_p, m_k, m_p
+        torch.cuda.empty_cache()
+        bad = {grp: c for grp, (c, _, _) in cos.items() if not c >= TOWER_GRAD_COS}
+        if bad or abs(lk - lp) > 1e-5 * abs(lp):  # one forward, twice
+            raise AssertionError(f"tower training: first-step gradients against the plain "
+                                 f"backward: {bad}, losses {lk} / {lp}")
+        # (2) four steps
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer.train([row] * 4)
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        hist = trainer.history
+    log(f"[tower train] launches during the four steps: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in hist:
+        log(f"[tower train] step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f} (tower {h.get('grad_norm/vision_backbone', math.nan):.4f}, "
+            f"projector {h.get('grad_norm/projector', math.nan):.4f}), {h['seconds']:.3f} s, "
+            f"peak memory {h.get('max_memory_gib', math.nan):.2f} GiB")
+    log(f"[tower train] peak memory over the four steps {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(DEV).total_memory / 2**30:.1f} GiB; {smi}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses + [h["grad_norm"]
+                                                                      for h in hist]):
+        raise AssertionError(f"tower training: losses {losses}")
+    if peak * 2**30 >= 80e9:
+        raise AssertionError(f"tower training: peak memory {peak:.2f} GiB")
+    want = {"vit_attn_qkv": 4 * n_layers, "vit_attn_bwd": 4 * n_layers}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"tower training: {name} launched {launches[name]} times, "
+                                 f"want {count}")
+    for name in TRAINING:
+        if launches[name] == 0:
+            raise AssertionError(f"tower training: {name} was never launched")
+    kernel_results["vit_attn_bwd"]["launches"] = launches["vit_attn_bwd"]
+    kernel_results["vit_attn_qkv"]["launches"] += launches["vit_attn_qkv"]  # the LSE variant
+
+
 # the parameter groups whose first-step gradients the pdrop training holds
 # against the plain versions' (K3 a kernel on both sides), each to a cosine
 # of PDROP_GRAD_COS
@@ -3651,6 +3885,90 @@ def phase_qwen2(smi: str, kernel_results: dict) -> None:
     del model, gen, gen_p
     gc.collect()
     torch.cuda.empty_cache()
+    # (g) W8A8, the weights made again from the seed
+    phase_qwen2_w8a8(arch, smi, outs, requests)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+QWEN2_W8A8_COS = 0.98  # the W8A8 request's first logits against bf16, as phase 7's
+
+
+def phase_qwen2_w8a8(arch, smi: str, bf16: dict, requests) -> None:
+    """10(g): qwen2.5-7b in W8A8 as bench.py serves the 9B: the tower's and
+    the backbone's linears int8 (the lm_head by its f32 dequant, the
+    projector bf16), calibrated on one 64-frame clip. The 64-frame request
+    through Generator.generate (K2 28 launches for the prefill, K9 28 a
+    decode step) against the bf16 model's (a): first-logit cosine
+    QWEN2_W8A8_COS; a 32-token question on a cached prefix of 8 tokens + 64
+    frames against that whole prompt; a 2-slot ServingEngine with the text
+    and the 64-frame request."""
+    t0 = time.perf_counter()
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    quantize_params_int8(model.vision_backbone)
+    quantize_params_int8(model.llm_backbone)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    size = arch.vision.image_size
+    clip = torch.rand(64, size, size, 3, generator=g, device=DEV) * 2 - 1
+    calibrate_act_scales(lambda m, px: vit_mod.vit_forward(m, arch.vision, px),
+                         model.vision_backbone, [clip])
+    with torch.no_grad():
+        emb = encode_visual(model, arch, clip)
+    calibrate_act_scales(
+        lambda m, e: qwen2_mod.qwen2_forward(m, arch.llm, inputs_embeds=e, logits_to_keep=1),
+        model.llm_backbone, [emb.reshape(1, -1, emb.shape[-1])])
+    del clip, emb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    int8 = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    cfg = arch.llm
+    log(f"[qwen2 w8a8] quantized {len(int8)} linears ({sum(m.act_inv is not None for m in int8)}"
+        f" calibrated on one 64-frame clip; q/k/v with their biases); "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, {time.perf_counter() - t0:.1f} s")
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    label, (ids, px) = requests[1]
+    reset_launches()
+    o = gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+    qwen2_launches("qwen2 w8a8", {"flash_fwd": cfg.num_hidden_layers,
+                                  "block_attn": (o.num_generated - 1) * cfg.num_hidden_layers})
+    cos = cosine(o.first_logits, bf16[label].first_logits)
+    log(f"[qwen2 w8a8] {label}: encode {o.encode_s:.3f} s, prefill {o.prefill_s:.3f} s, decode "
+        f"{(o.num_generated - 1) / o.decode_s:.2f} tok/s, tokens {o.token_ids.tolist()} (bf16 "
+        f"{bf16[label].token_ids.tolist()}); first-token logits against the bf16 model: cosine "
+        f"{cos:.6f} (limit {QWEN2_W8A8_COS}); {smi}")
+    if not (torch.isfinite(o.first_logits).all() and cos >= QWEN2_W8A8_COS):
+        raise AssertionError(f"qwen2 w8a8: first-logit cosine {cos:.6f} against bf16")
+    # a question on a cached prefix, against the whole prompt
+    n_prefix = 8 + px.shape[0]
+    state = gen.prefill_prefix(ids[:n_prefix], pixels=px, image_token_id=IMAGE_TOKEN,
+                               suffix_budget=512)
+    reset_launches()
+    q = gen.generate(ids[n_prefix:], prefix=state)
+    qwen2_launches("qwen2 w8a8 prefix",
+                   {"block_attn": (q.num_generated + 1) * cfg.num_hidden_layers},
+                   need=("block_attn",))
+    log(f"[qwen2 w8a8 prefix] {len(ids) - n_prefix}-token question on 8 tokens + "
+        f"{px.shape[0]} frames: tokens {q.token_ids.tolist()}, the whole prompt's "
+        f"{o.token_ids.tolist()}")
+    logits_agree("qwen2 w8a8 prefix, question vs the whole prompt", q.first_logits,
+                 o.first_logits, QWEN2_W8A8_COS)
+    del state
+    # the engine
+    mix = [dict(input_ids=requests[0][1][0], max_new_tokens=MAX_NEW),
+           dict(input_ids=ids, pixels=px, image_token_id=IMAGE_TOKEN, max_new_tokens=MAX_NEW)]
+    eng = ServingEngine(model, arch, terminator_ids=[], num_slots=2, max_len=4096,
+                        steps_per_sync=4)
+    reset_launches()
+    out = eng.run([Request(request_id=i, **kw) for i, kw in enumerate(mix)])
+    qwen2_launches("qwen2 w8a8 engine", {}, need=("flash_fwd", "vit_attn_qkv"))
+    bad = [(r.request_id, r.error) for r in out if r.error or not r.done]
+    if bad:
+        raise AssertionError(f"qwen2 w8a8 engine requests failed: {bad}")
+    got = {r.request_id: list(r.output_ids) for r in out}
+    log(f"[qwen2 w8a8 engine] 2 requests through 2 slots: tokens {got[0]} and {got[1]}; the "
+        f"offline Generator's 64-frame tokens {o.token_ids.tolist()}")
+    del eng, gen, model
 
 
 def check_qwen2_engine(model, arch, mix, out) -> None:
@@ -3721,6 +4039,7 @@ def main() -> int:
     phase_pdrop(model, arch, smi, results)
     phase_speculative(model, arch, smi, results, "spec")
     phase_training(model, arch, results, profile=args.profile)
+    phase_tower_training(model, arch, smi, results)
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()
     torch.cuda.empty_cache()

@@ -54,6 +54,17 @@ version (cross_attention_bwd_plain: the same formulas in f32 from K9's
 output) to BWD_TOL and bitwise repeatable; an empty side gives
 zeros with no launch, and it runs as a fresh thread's first CUDA work.
 
+K3's and K6's LSE variants give the row log-sum-exp to 1e-4 of its largest
+magnitude (as K2's). The ViT attention backward (csrc/vit_attn_bwd.cu, the
+tower's training) runs through encoder_attention_qkv and encoder_attention
+under autograd (VitAttnQKVFn, VitAttnFn: K3 or K6 with its LSE, one launch
+of each) at SigLIP's (729, 72), DINOv2-L's (734, 64) and InternVideo2's
+(1,025, 88) frames and at ragged lengths, q, k and v read in place from the
+fused rows (InternVideo2's v a column slice), held to BWD_TOL against
+autograd through the plain f32 forward and against its plain version
+(the same formulas in f32 from the kernel's own output and LSE), and
+bitwise repeatable.
+
 K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
@@ -113,9 +124,16 @@ from timeviper_tpu_torch.ops.ssd_kernel import (
     ssd_scan_fwd,
 )
 from timeviper_tpu_torch.ops.vit_attention import (
+    encoder_attention,
+    encoder_attention_qkv,
     vit_attention,
+    vit_attention_bwd,
+    vit_attention_bwd_plain,
+    vit_attention_lse_plain,
     vit_attention_plain,
     vit_attention_qkv,
+    vit_attention_qkv_bwd_plain,
+    vit_attention_qkv_lse_plain,
     vit_attention_qkv_plain,
 )
 
@@ -489,12 +507,109 @@ def test_whole_clip_kernel_matches_plain(T):
     assert torch.equal(got, vit_attention(q, k, v))
 
 
+@pytest.mark.parametrize("T,hd", [(729, 72), (734, 64), (1025, 88), (65, 88), (1, 72)])
+def test_vit_kernels_lse_variant_matches_plain(T, hd):
+    """K3's (hd 72, 64) and K6's (hd 88) LSE variants: the output as without
+    it, the row log-sum-exp to 1e-4 of its largest magnitude."""
+    dev = require_cuda()
+    B, H = 2, 16
+    r = rng(31)
+    qkv = t(r.standard_normal((B, T, 3 * H * hd), np.float32)).to(dev, torch.bfloat16)
+    if hd == 88:
+        q, k = (t(r.standard_normal((B, T, H, hd), np.float32)).to(dev, torch.bfloat16)
+                for _ in range(2))
+        v = qkv[..., 2 * H * hd:].view(B, T, H, hd)
+        out, lse = vit_attention(q, k, v, lse=True)
+        want_out, want_lse = vit_attention_lse_plain(q, k, v)
+        assert torch.equal(out, vit_attention(q, k, v))
+    else:
+        out, lse = vit_attention_qkv(qkv, H, hd, lse=True)
+        want_out, want_lse = vit_attention_qkv_lse_plain(qkv, H, hd)
+        assert torch.equal(out, vit_attention_qkv(qkv, H, hd))
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    _close(out, want_out, 1e-2)
+    _close(lse, want_lse, 1e-4)
+
+
+VIT_BWD_SHAPES = [(729, 72), (734, 64), (1025, 88), (100, 64), (193, 72), (65, 88), (1, 72)]
+
+
+@pytest.mark.parametrize("T,hd", VIT_BWD_SHAPES)
+def test_vit_attention_backward_kernel_matches_plain(T, hd):
+    """The backward kernel under autograd: hd 72 and 64 through
+    encoder_attention_qkv on the fused qkv rows (the gradient one fused
+    tensor), hd 88 through encoder_attention with v a column slice of the
+    fused qkv; one forward (K3 or K6) and one backward launch; held to
+    BWD_TOL against autograd through the plain f32 forward and against the
+    plain backward from the kernel's own output and LSE; bitwise
+    repeatable."""
+    dev = require_cuda()
+    B, H = 2, 16
+    r = rng(37)
+    qkv = t(r.standard_normal((B, T, 3 * H * hd), np.float32)).to(dev, torch.bfloat16)
+    g = t(r.standard_normal((B, T, H * hd), np.float32)).to(dev, torch.bfloat16)
+    fused = hd != 88
+    if not fused:
+        qk = [t(r.standard_normal((B, T, H, hd), np.float32)).to(dev, torch.bfloat16)
+              for _ in range(2)]
+    fwd = vit_attention_qkv if fused else vit_attention
+
+    def grads(plain=False):
+        leaf = qkv.detach().clone().float().requires_grad_() if plain else \
+            qkv.detach().clone().requires_grad_()
+        if fused:
+            if plain:
+                out = vit_attention_qkv_plain(leaf, H, hd)
+            else:
+                out = encoder_attention_qkv(leaf, H, hd)
+            return torch.autograd.grad(out, [leaf], g.to(out.dtype))
+        q, k = (x.detach().clone().float() if plain else x.detach().clone()
+                for x in qk)
+        q.requires_grad_()
+        k.requires_grad_()
+        v = leaf[..., 2 * H * hd:].view(B, T, H, hd)
+        out = (vit_attention_plain if plain else encoder_attention)(q, k, v)
+        return torch.autograd.grad(out, [q, k, leaf], g.view(B, T, H, hd).to(out.dtype))
+
+    before = (fwd.launches, vit_attention_bwd.launches)
+    got = grads()
+    assert (fwd.launches, vit_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = grads(plain=True)
+    if not fused:  # the qkv buffer's gradient is v's band alone
+        assert not got[2].reshape(B, T, 3, H * hd)[:, :, :2].any()
+        got_v, want_v = (x.reshape(B, T, 3, H * hd)[:, :, 2] for x in (got[2], want[2]))
+        for a, b in ((got[0], want[0]), (got[1], want[1])):
+            if T == 1:
+                # exactly 0 with one key (dP = D); the kernel's two f32 sums
+                # of dO . v, in other orders, cancel to ~1e-6
+                assert (a.float() - b.float()).abs().max().item() <= 1e-4
+            else:
+                _close(a, b, BWD_TOL, floor=0.0)
+        _close(got_v, want_v, BWD_TOL, floor=0.0)
+    else:
+        _close(got[0], want[0], BWD_TOL, floor=0.0)
+    # the plain formulas from the kernel's own output and LSE
+    if fused:
+        out, lse = vit_attention_qkv(qkv, H, hd, lse=True)
+        plain = vit_attention_qkv_bwd_plain(qkv, out, g, H, hd, lse)
+        _close(got[0], plain, BWD_TOL, floor=0.0)
+    else:
+        v = qkv[..., 2 * H * hd:].view(B, T, H, hd)
+        out, lse = vit_attention(qk[0], qk[1], v, lse=True)
+        plain = vit_attention_bwd_plain(qk[0], qk[1], v, out, g.view(B, T, H, hd), lse)
+        direct = vit_attention_bwd(qk[0], qk[1], v, out, g.view(B, T, H, hd), lse)
+        for a, b in zip(direct, plain):
+            _close(a, b, BWD_TOL, floor=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads()))
+
+
 @pytest.mark.parametrize("name,value", [("ATTN_BKV", 64), ("BLOCK_ROWS", 192),
                                         ("VIT_ATTN_BLOCK_ROWS", 128),
                                         ("VIT_QKV_BLOCK_ROWS", 128),
                                         ("FLASH_TILES", (64, 64)),
                                         ("HEADGRID_TILE", (64, 64)),
-                                        ("FLASH_BWD_TILE", (64, 64, 128, 64))])
+                                        ("FLASH_BWD_TILE", (64, 64, 128, 64)),
+                                        ("VIT_BWD_TILE", (64, 64))])
 def test_attention_kernels_refuse_a_plan_for_another_tile(monkeypatch, name, value):
     """The Python side's tile (the split plan's keys a tile and rows a block,
     K6's and K3's rows a block, K2's, K10a's and K2-bwd's tiles) is checked
@@ -519,6 +634,10 @@ def test_attention_kernels_refuse_a_plan_for_another_tile(monkeypatch, name, val
             q = zeros(8, 128)
             flash_attention_bwd(q, zeros(2, 128), zeros(2, 128), q, q,
                                 torch.zeros(1, 8, 40, device=dev))
+        elif name == "VIT_BWD_TILE":
+            monkeypatch.setattr(vit_attention_mod, name, value)
+            q = zeros(8, 88)
+            vit_attention_bwd(q, q, q, q, q, torch.zeros(1, 8, 40, device=dev))
         elif name == "VIT_QKV_BLOCK_ROWS":
             monkeypatch.setattr(vit_attention_mod, name, value)
             vit_attention_qkv(torch.zeros(1, 40, 3 * 8 * 72, dtype=torch.bfloat16,

@@ -33,9 +33,14 @@ constexpr int kBKV = 64;  // keys a tile
 constexpr int kNWG = 3;   // consumer warpgroups, 64 query rows each
 }
 
+// The LSE variant (an `lse` pointer given) also writes each row's
+// log-sum-exp, (B, H, T) f32, to AttnParams::l for the backward
+// (csrc/vit_attn_bwd.cu), as K2 does.
+//
 // block_rows: the query rows a block that the caller counts blocks in; a
-// launch for another tile is refused.
-extern "C" int tv_vit_attn(const void* q, const void* k, const void* v, void* o, int B, int T,
+// launch for another tile is refused. lse: (B, H, T) f32, or null.
+extern "C" int tv_vit_attn(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int T,
                            int H, int hd, long long q_bs, int q_rs, long long k_bs, int k_rs,
                            long long v_bs, int v_rs, int block_rows, float scale, void* stream) {
   using namespace tv::sm90;
@@ -47,9 +52,12 @@ extern "C" int tv_vit_attn(const void* q, const void* k, const void* v, void* o,
         encode_map(&p.tv, v, hd, H, T, B, hd, v_rs, v_bs, 32, 1, kBKV)))
     return cudaErrorInvalidValue;
   p.o = static_cast<__nv_bfloat16*>(o);  // a fresh contiguous (B, T, H, hd)
+  p.l = static_cast<float*>(lse);
   p.B = B; p.Lq = T; p.Lk = T; p.Hq = H; p.Hkv = H;
   p.pack = 1; p.n_split = 1; p.split_tiles = (T + kBKV - 1) / kBKV;
   p.scale = scale;
   p.scale_log2 = scale * 1.4426950408889634f;
-  return launch<88, 32, kNWG, kBKV, false>(p, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return lse != nullptr ? launch<88, 32, kNWG, kBKV, false, true>(p, s)
+                        : launch<88, 32, kNWG, kBKV, false>(p, s);
 }

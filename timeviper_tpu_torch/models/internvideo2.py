@@ -20,8 +20,15 @@ linears go through the ViT's `_apply_linear`
 (timeviper_tpu/models/internvideo2.py:37-45). The forward reads its compute
 dtype from the tower, never from a weight that may have been quantized.
 
-Left out for now: the attention-pooling head and resizing the position table
-of a pretrained checkpoint (`interpolate_pos_embed`).
+`interpolate_pos_embed` resizes a pretrained checkpoint's position table
+(host numpy, as the JAX package's: temporal linear, then spatial cubic with
+torch's a = -0.75 and clamped taps, the other cubic from models/vit.py's).
+`AttentionPool` holds the CLIP-aligned pooling head of a full checkpoint
+(`attn_pool` in the JAX tree): the mean token as the query, LayerNorms of
+eps 1e-5 on the query, keys and values, one cross-attention step and `proj`
+(`attention_pool`). JAX computes that attention with its jnp oracle, so here
+it is ops/attention.py:attention. The VLM's tower runs without it, as the
+JAX package's does; build the tower with `attn_pool=True` to load it.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from torch import nn
 
 from timeviper_tpu_torch.config import InternVideo2Config
 from timeviper_tpu_torch.models.nano import RMSNorm
-from timeviper_tpu_torch.models.vit import LayerScale
+from timeviper_tpu_torch.models.vit import LayerNorm, LayerScale
+from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.int8_linear import VIT_SWITCH
 from timeviper_tpu_torch.ops.norms import rms_norm
 from timeviper_tpu_torch.ops.vit_attention import encoder_attention
@@ -69,6 +77,104 @@ def get_3d_sincos_pos_embed(embed_dim: int, grid_size: int, t_size: int,
     return pos
 
 
+def _linear_resize_axis(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """torch F.interpolate(mode='linear', align_corners=False) along one axis
+    (timeviper_tpu/models/internvideo2.py:86)."""
+    x = np.moveaxis(x, axis, 0)
+    n = x.shape[0]
+    center = np.clip((np.arange(out_size, dtype=np.float64) + 0.5) * n / out_size - 0.5,
+                     0.0, n - 1)
+    lo = np.floor(center).astype(int)
+    hi = np.minimum(lo + 1, n - 1)
+    frac = (center - lo).reshape(-1, *([1] * (x.ndim - 1)))
+    return np.moveaxis((1.0 - frac) * x[lo] + frac * x[hi], 0, axis)
+
+
+def _bicubic_resize_axis(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """torch F.interpolate(mode='bicubic', align_corners=False) along one axis:
+    cubic convolution with a = -0.75, taps clamped at the edges
+    (timeviper_tpu/models/internvideo2.py:100)."""
+    a = -0.75
+    x = np.moveaxis(x, axis, 0)
+    n = x.shape[0]
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * n / out_size - 0.5
+    base = np.floor(center).astype(int)
+    frac = center - base
+
+    def k1(t):  # |t| <= 1
+        return ((a + 2) * t - (a + 3)) * t * t + 1
+
+    def k2(t):  # 1 < |t| < 2
+        return ((a * t - 5 * a) * t + 8 * a) * t - 4 * a
+
+    w = np.stack([k2(frac + 1), k1(frac), k1(1 - frac), k2(2 - frac)], 1)
+    taps = np.clip(np.stack([base - 1, base, base + 1, base + 2], 1), 0, n - 1)
+    return np.moveaxis(np.einsum("ot,ot...->o...", w, x[taps]), 0, axis)
+
+
+def interpolate_pos_embed(pos: np.ndarray, orig_t: int, new_t: int, new_grid: int,
+                          num_extra_tokens: int = 1) -> np.ndarray:
+    """(1, orig_t*g^2 + extra, D) position table -> (1, new_t*new_grid^2 +
+    extra, D) f32: temporal linear, then spatial bicubic; the extra (CLS)
+    rows pass unchanged (timeviper_tpu/models/internvideo2.py:123)."""
+    pos = np.asarray(pos, np.float64)
+    D = pos.shape[-1]
+    extra, tok = pos[:, :num_extra_tokens], pos[:, num_extra_tokens:]
+    orig_grid = int(round((tok.shape[1] // orig_t) ** 0.5))
+    tok = tok.reshape(orig_t, orig_grid, orig_grid, D)
+    if orig_t != new_t:
+        tok = _linear_resize_axis(tok, 0, new_t)
+    if orig_grid != new_grid:
+        tok = _bicubic_resize_axis(_bicubic_resize_axis(tok, 1, new_grid), 2, new_grid)
+    tok = tok.reshape(1, new_t * new_grid * new_grid, D)
+    return np.concatenate([extra, tok], axis=1).astype(np.float32)
+
+
+class AttentionPool(nn.Module):
+    """The attention-pooling head's weights (the JAX `attn_pool` leaves):
+    LayerNorms norm1_q / norm1_k / norm1_v (f32, eps 1e-5), q, k, v (width
+    D, with biases) and proj (D -> clip_embed_dim)."""
+
+    EPS = 1e-5
+
+    def __init__(self, cfg: InternVideo2Config, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d = cfg.hidden_size
+        kw = dict(dtype=dtype, device=device)
+        self.num_heads = cfg.attn_pool_num_heads
+        self.norm1_q = LayerNorm(d, self.EPS, device)
+        self.norm1_k = LayerNorm(d, self.EPS, device)
+        self.norm1_v = LayerNorm(d, self.EPS, device)
+        self.q = nn.Linear(d, d, **kw)
+        self.k = nn.Linear(d, d, **kw)
+        self.v = nn.Linear(d, d, **kw)
+        self.proj = nn.Linear(d, cfg.clip_embed_dim, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """As JAX init_attention_pool_params draws them: N(0, 0.02) matrices,
+        zero biases, unit LayerNorms."""
+        for lin in (self.q, self.k, self.v, self.proj):
+            lin.weight.normal_(0.0, 0.02, generator=generator)
+            lin.bias.zero_()
+        for norm in (self.norm1_q, self.norm1_k, self.norm1_v):
+            norm.weight.fill_(1.0)
+            norm.bias.zero_()
+
+
+def attention_pool(pool: AttentionPool, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) features (CLS and patches) -> (B, clip_embed_dim): the mean
+    token, LayerNormed, queries the LayerNormed tokens in one cross-attention
+    step, then proj (timeviper_tpu/models/internvideo2.py:187)."""
+    B, T, d = x.shape
+    nh = pool.num_heads
+    hd = d // nh
+    q = pool.q(pool.norm1_q(x.mean(dim=1, keepdim=True))).reshape(B, 1, nh, hd)
+    k = pool.k(pool.norm1_k(x)).reshape(B, T, nh, hd)
+    v = pool.v(pool.norm1_v(x)).reshape(B, T, nh, hd)
+    return pool.proj(attention(q, k, v).reshape(B, 1, d))[:, 0]
+
+
 class IV2Block(nn.Module):
     def __init__(self, cfg: InternVideo2Config, dtype, device):
         super().__init__()
@@ -96,7 +202,8 @@ class InternVideo2(nn.Module):
 
     INT8_SWITCH = VIT_SWITCH  # the int8 path's switch (ops/int8_linear.py)
 
-    def __init__(self, cfg: InternVideo2Config, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: InternVideo2Config, dtype=torch.bfloat16, device=None,
+                 attn_pool: bool = False):
         super().__init__()
         self.dtype = dtype  # the compute dtype, whether or not a linear is quantized
         d = cfg.hidden_size
@@ -108,6 +215,7 @@ class InternVideo2(nn.Module):
                                                   dtype=torch.float32, device=device))
         self.layers = nn.ModuleList(IV2Block(cfg, dtype, device)
                                     for _ in range(cfg.effective_depth))
+        self.attn_pool = AttentionPool(cfg, dtype, device) if attn_pool else None
         self._grid, self._t_size = cfg.grid_size, t_size
 
     @torch.no_grad()
@@ -127,6 +235,8 @@ class InternVideo2(nn.Module):
         self.cls_token.zero_()
         pos = get_3d_sincos_pos_embed(self.cls_token.shape[-1], self._grid, self._t_size)
         self.pos_embed.copy_(torch.from_numpy(pos).float()[None])
+        if self.attn_pool is not None:
+            self.attn_pool.reset_parameters(generator)
 
 
 def internvideo2_forward(model: InternVideo2, cfg: InternVideo2Config, clips: torch.Tensor,

@@ -152,16 +152,17 @@ class NanoModel(nn.Module):
 
     def __init__(self, cfg: NanoConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if cfg.tie_word_embeddings:
-            raise NotImplementedError("tied embeddings are not ported")
         self.cfg = cfg
         self.embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
                                        device=device)
         self.layers = nn.ModuleList(
             NanoBlock(cfg, bt, dtype, device) for bt in cfg.layers_block_type)
         self.norm_f = RMSNorm(cfg.hidden_size, device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
-                                 device=device)
+        # tied embeddings: no lm_head, the logits come from the embedding
+        # table (timeviper_tpu/models/nano.py:162, :684)
+        self.lm_head = (None if cfg.tie_word_embeddings else
+                        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
+                                  device=device))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -468,9 +469,13 @@ def nano_forward(
 def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits (..., V) of hidden rows (B, D) or (B, S, D) (the verify
     pass's); lm_head in float32, an int8 lm_head by its f32 dequant, formed
-    once (timeviper_tpu/models/nano.py:684)."""
+    once, or the embedding table when the embeddings are tied
+    (timeviper_tpu/models/nano.py:684)."""
     lm = model.lm_head
-    w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
+    if lm is None:
+        w = model.embeddings.weight.float()
+    else:
+        w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
     return F.linear(hidden.float(), w)
 
 

@@ -41,8 +41,19 @@ Where the port leaves the JAX code behind, and why:
   no layer precedes a stage the two agree; elsewhere the port agrees with a
   teacher-forced pdrop forward (tests/test_torch_qwen2_generate.py).
 
-Not ported yet: W8A8 serving, and the JAX forward's `attention_mask` and
-`position_ids` arguments, which no serving or training path passes.
+W8A8 serving (train/quantize.py, ops/int8_linear.py), as the JAX qwen2's
+`_apply_linear` takes int8 leaves (timeviper_tpu/models/qwen2.py:32-41):
+`quantize_params_int8` swaps every linear of at least `min_size` weights
+(q/k/v with their biases, which stay in the model's dtype and are added
+after the int8 product's f32 rescale has rounded to it, as JAX
+ops/int8_linear.py:69-70 adds them), `calibrate_act_scales` gives each one
+its act_inv, and TIMEVIPER_LLM_INT8_MXU (default "auto": the int8 product
+on the card, the dequantized weight on the CPU) switches the product; an
+int8 lm_head gives f32 logits from its dequantized weight (`compute_logits`,
+:241-251). tests/test_torch_qwen2_int8.py holds it against the JAX package.
+
+Not ported: the JAX forward's `attention_mask` and `position_ids`
+arguments, which no serving or training path passes.
 """
 
 from __future__ import annotations

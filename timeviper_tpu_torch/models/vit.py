@@ -18,12 +18,22 @@ W8A8 projection.
 DINOv2: the position embedding covers the patches only, and the CLS and
 register tokens are prepended after it is added; LayerScale multiplies each
 block's two residual branches by gamma rounded to their dtype, and the
-features drop the prefix tokens. Left out for now: resizing the position
-embedding to another grid (JAX `_resize_pos_embed`), which raises.
+features drop the prefix tokens.
+
+The position table keeps the size it was loaded at (a DINOv2 checkpoint's
+37 x 37 against the registry's 27 x 27 grid: `pos_embed` takes the loaded
+tensor's shape), and `vit_forward` resizes it to the input's grid whenever
+the two differ, as JAX `_resize_pos_embed` does with jax.image.resize's
+cubic: `resize_weights` builds the same separable matrices as JAX's
+scale_and_translate (Keys' cubic, a = -0.5, on half-pixel centres, widened
+by the scale when it shrinks the grid, renormalised at the edges), in f32.
+It is not F.interpolate's bicubic (a = -0.75, clamped taps, no
+antialiasing).
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -116,6 +126,15 @@ class ViT(nn.Module):
         self.layers = nn.ModuleList(
             ViTBlock(cfg, dtype, device) for _ in range(cfg.num_hidden_layers - 1))
 
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the position table takes the loaded size (vit_forward resizes it)
+        pos = state_dict.get(prefix + "pos_embed")
+        if pos is not None and pos.shape != self.pos_embed.shape:
+            self.pos_embed = nn.Parameter(torch.empty(
+                pos.shape, dtype=self.pos_embed.dtype, device=self.pos_embed.device),
+                requires_grad=self.pos_embed.requires_grad)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights as the JAX init draws them: N(0, 0.02) matrices and
@@ -143,13 +162,11 @@ def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tenso
     B, H = pixels.shape[:2]
     p = cfg.patch_size
     grid = H // p
-    if grid * grid != cfg.num_patches:
-        raise NotImplementedError("position-embedding resize is not ported")
     w = model.patch_embed.weight
     crop = pixels[:, : grid * p, : grid * p].to(w.dtype)
     patches = (crop.reshape(B, grid, p, grid, p, 3).permute(0, 1, 3, 2, 4, 5)
                .reshape(B, grid * grid, p * p * 3))
-    x = model.patch_embed(patches) + model.pos_embed.to(w.dtype)
+    x = model.patch_embed(patches) + resize_pos_embed(model.pos_embed, grid).to(w.dtype)
     prefix = [tok.to(x.dtype).expand(B, -1, -1) for tok in (model.cls_token, model.reg_tokens)
               if tok is not None]
     if prefix:  # after the position add (timm's no_embed_class order)
@@ -165,6 +182,44 @@ def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tenso
         x = x + layer_scale(layer.ls1, layer.attn["proj"](encoder_attention_qkv(qkv, nh, hd)))
         x = x + layer_scale(layer.ls2, layer.mlp["fc2"](act(layer.mlp["fc1"](layer.norm2(x)))))
     return x[:, cfg.num_prefix_tokens:]
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel, a = -0.5, at |offsets| x (jax.image's)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of jax.image.resize(method="cubic") along one
+    axis, built as its compute_weight_mat builds them (antialiased, no
+    translation)."""
+    f32 = torch.float32
+    scale = torch.tensor(n_out / n_in, dtype=f32)
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(n_out, dtype=f32) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs() / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(f32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def resize_pos_embed(pos: torch.Tensor, grid: int) -> torch.Tensor:
+    """(1, g0^2, D) patch position table -> (1, grid^2, D), f32 (JAX
+    timeviper_tpu/models/vit.py:_resize_pos_embed); the table itself where
+    the grids agree."""
+    g0 = int(round(math.sqrt(pos.shape[1])))
+    if g0 == grid:
+        return pos
+    w = resize_weights(g0, grid, pos.device)
+    out = torch.einsum("hwd,hH,wW->HWd", pos.reshape(g0, g0, -1).float(), w, w)
+    return out.reshape(1, grid * grid, -1)
 
 
 def _use_fused_ln(cfg: ViTConfig) -> bool:

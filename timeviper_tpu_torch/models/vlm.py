@@ -19,9 +19,13 @@ and "multi": one tower and one projector per backbone id, held in
 `nn.ModuleDict`s keyed as the JAX pytree is, their tokens interleaved per
 frame.
 
-The vision towers are trained only on the CPU: their attention kernels (K3,
-K6) have no backward, so on the card a tower runs under no_grad and a
-trainable tower raises.
+A frozen tower runs under no_grad. A tower with a parameter that requires
+grad runs with it (the JAX package trains the tower when `trainable_modules`
+names it or is None): on the card its attention is K3 or K6 with the row
+log-sum-exp and csrc/vit_attn_bwd.cu as the backward
+(ops/vit_attention.py:VitAttnQKVFn, VitAttnFn), its fused LayerNorms K8
+with the JAX package's LayerNorm gradient (ops/layernorm.py:FusedLNFn). The
+tower is not rematerialised, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -151,15 +155,13 @@ def init_vlm_params(arch: VLMArch, generator: torch.Generator, dtype=torch.bfloa
 
 def encode_visual(model: TimeViperVLM, arch: VLMArch, pixels: torch.Tensor) -> torch.Tensor:
     """pixels (frames, H, W, 3) -> (frames, tokens_per_frame, llm_dim). A
-    frozen tower runs under no_grad. Several towers: each tower's tokens go
+    frozen tower runs under no_grad, a trainable one with grad (on the card
+    through the attention backward kernel). Several towers: each tower's tokens go
     through its own projector (no clip-joint merge, as in the JAX package),
     then interleave per frame, (F, n, towers, D) -> (F, n * towers, D), or
     concatenate where their counts differ."""
     tower_trains = torch.is_grad_enabled() and any(
         p.requires_grad for p in model.vision_backbone.parameters())
-    if tower_trains and pixels.device.type != "cpu":
-        raise NotImplementedError("the vision towers' attention kernels have no backward: "
-                                  "freeze the tower to train on the card")
     n = arch.vlm.num_compressed_tokens
     multi = bool(arch.vision_backbones)
     outs = []

@@ -12,8 +12,14 @@ kernels are _ln_kernel (:37) and _ln_res_kernel (:43):
 The kernel (csrc/layernorm.cu) gives each row to one warp and keeps the row
 in registers; `fused_ln_plain` is its plain version. `fused_ln` takes the
 plain version for a CPU tensor and the kernel for a CUDA tensor (bf16 only),
-which launches or raises. The JAX package's backward (a custom VJP) is not
-ported: the port runs the fused norm only in inference.
+which launches or raises.
+
+Under autograd (grad enabled and an input requiring it) the bf16 and f32
+variants go through `FusedLNFn` / `FusedLNResFn`, the JAX package's custom
+VJPs (:97-134): the forward as above (K8 on the card, the plain version on
+the CPU), the backward the standard LayerNorm gradient `ln_bwd_math` in
+PyTorch, as JAX writes it in jnp (it has no Pallas backward). The int8
+variant stays inference-only, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from timeviper_tpu_torch.ops import _cuda
 
-__all__ = ["fused_ln", "fused_ln_plain", "fused_ln_supported"]
+__all__ = ["fused_ln", "fused_ln_plain", "fused_ln_supported", "ln_bwd_math"]
 
 MAX_D = 2048  # the widest row the kernel keeps in registers
 
@@ -48,11 +54,69 @@ def fused_ln_plain(x, weight, bias, *, eps: float = 1e-6, residual=None, act_inv
     return y if residual is None else (xf.to(x.dtype), y)
 
 
+def ln_bwd_math(x, w, dy, eps: float):
+    """The LayerNorm gradient of timeviper_tpu/ops/layernorm.py:_ln_bwd_math
+    in f32: (dx in x's dtype, dw in w's dtype, db f32)."""
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    g = dyf * wf
+    dx = rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    red = tuple(range(x.dim() - 1))
+    return dx.to(x.dtype), (dyf * xhat).sum(red).to(w.dtype), dyf.sum(red)
+
+
+class FusedLNFn(torch.autograd.Function):
+    """fused_ln without a residual under autograd (JAX `_fused_ln_diff`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _fused_ln(x, weight, bias, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw, db = ln_bwd_math(x, w, dy, ctx.eps)
+        return dx, dw, db.to(w.dtype), None
+
+
+class FusedLNResFn(torch.autograd.Function):
+    """fused_ln with a residual under autograd (JAX `_fused_ln_res_diff`):
+    the gradient of x_new = residual + x joins the norm's, in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, residual, x, weight, bias, eps):
+        ctx.save_for_backward(residual, x, weight)
+        ctx.eps = eps
+        return _fused_ln(x, weight, bias, eps=eps, residual=residual)
+
+    @staticmethod
+    def backward(ctx, d_xnew, dy):
+        res, out, w = ctx.saved_tensors
+        dx, dw, db = ln_bwd_math(res + out, w, dy, ctx.eps)
+        dtot = dx + d_xnew.to(dx.dtype)
+        return dtot, dtot, dw, db.to(w.dtype), None
+
+
 def fused_ln(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, eps: float = 1e-6,
              residual: Optional[torch.Tensor] = None, act_inv: Optional[torch.Tensor] = None):
     """LayerNorm of x (..., D), or of residual + x, with w and b (D,) f32.
     Returns y (x's dtype, or int8 when `act_inv`, an f32 scalar, is given);
-    with `residual`, (x_new, y)."""
+    with `residual`, (x_new, y). Differentiable without `act_inv`."""
+    if act_inv is None and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, residual, weight, bias)):
+        if residual is None:
+            return FusedLNFn.apply(x, weight, bias, eps)
+        return FusedLNResFn.apply(residual, x, weight, bias, eps)
+    return _fused_ln(x, weight, bias, eps=eps, residual=residual, act_inv=act_inv)
+
+
+def _fused_ln(x, weight, bias, *, eps, residual=None, act_inv=None):
+    """The forward: the plain version for a CPU tensor, K8 for a CUDA one."""
     if x.device.type == "cpu":
         return fused_ln_plain(x, weight, bias, eps=eps, residual=residual, act_inv=act_inv)
     D = x.shape[-1]

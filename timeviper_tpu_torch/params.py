@@ -10,7 +10,10 @@ q/k/v biases and, with tied embeddings, has no lm_head. A multi-tower pytree hol
 projector per backbone key.
 LoRA factors planted by the JAX package's add_lora (lora_a, lora_b,
 lora_scale) come across unchanged; load them into a model that went through
-the port's add_lora. An int8 leaf of the JAX package's quantize
+the port's add_lora. A ViT's position table comes at the size the tree
+holds (models/vit.py resizes it to the input's grid), a `fused_tome_mlp`
+projector brings its fc0, and a nano tree with tied embeddings has no
+lm_head. An int8 leaf of the JAX package's quantize
 (kernel_q (in, out), kernel_scale, optional act_inv) becomes an Int8Linear's
 buffers, kernel_q transposed to (out, in), and a Mamba in_proj fused by
 fuse_decode_in_proj becomes `in_proj.fused`; load those into a model that went
@@ -84,7 +87,9 @@ def vit_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
 
 def iv2_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """InternVideo2 tower. The JAX init builds only the effective_depth
-    blocks the features come from, so every block is kept."""
+    blocks the features come from, so every block is kept; a tree with the
+    pooling head (`attn_pool`) loads into a tower built with
+    attn_pool=True."""
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "patch_embed", tree["patch_embed"])
     sd["cls_token"] = to_tensor(tree["cls_token"])
@@ -101,6 +106,16 @@ def iv2_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _linear(sd, f"{pre}.mlp.fc1", layer["mlp"]["fc1"])
         _linear(sd, f"{pre}.mlp.fc2", layer["mlp"]["fc2"])
         _layer_scales(sd, pre, layer)
+    if "attn_pool" in tree:  # a full checkpoint's pooling head
+        pool = tree["attn_pool"]
+        for norm in ("norm1_q", "norm1_k", "norm1_v"):
+            sd[f"attn_pool.{norm}.weight"] = to_tensor(pool[norm]["weight"])
+            sd[f"attn_pool.{norm}.bias"] = to_tensor(pool[norm]["bias"])
+        for name in ("q", "k", "v", "proj"):
+            _linear(sd, f"attn_pool.{name}", pool[name])
+            if pool[name].get("bias") is None:  # a checkpoint without one adds nothing
+                w = sd[f"attn_pool.{name}.weight"]
+                sd[f"attn_pool.{name}.bias"] = torch.zeros(w.shape[0], dtype=w.dtype)
     return sd
 
 
@@ -109,7 +124,10 @@ def tower_state_dict(tree: Dict[str, Any], family: str, cfg) -> Dict[str, torch.
 
 
 def projector_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """fc1 and fc2, and fc0 first in a `fused_tome_mlp` projector."""
     sd: Dict[str, torch.Tensor] = {}
+    if "fc0" in tree:
+        _linear(sd, "fc0", tree["fc0"])
     _linear(sd, "fc1", tree["fc1"])
     _linear(sd, "fc2", tree["fc2"])
     return sd
@@ -139,7 +157,8 @@ def nano_state_dict(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
             _linear(sd, f"{pre}.mixer.up_proj", mx["up_proj"])
             _linear(sd, f"{pre}.mixer.down_proj", mx["down_proj"])
     sd["norm_f.weight"] = to_tensor(tree["norm_f"]["weight"])
-    _linear(sd, "lm_head", tree["lm_head"])
+    if "lm_head" in tree:  # none with tied embeddings
+        _linear(sd, "lm_head", tree["lm_head"])
     return sd
 
 
