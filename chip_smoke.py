@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of TimeViper once on one CUDA card: the two
-microbenchmarks, serving, long video (a streamed clip-by-clip prefill, the
+microbenchmarks, serving, a checkpoint written, loaded and chatted with,
+long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
 slot-batched serving engine, pdrop with TransV, speculative decoding, LoRA
 training (with the vision tower trained too), int8 serving with the fused
@@ -76,6 +77,20 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    inputs the 64-frame request gave them, and the 64-frame request is run
    once more with the plain versions as a reference for its first logits.
    The fused kernels (K5, K7, K8) are switched off here, as by default.
+4b. checkpoint: the same 9B (its f32 tensors of ndim >= 2, the Mamba conv
+   taps and the position table, first rounded to bf16 values, as the
+   loader's cast takes them) written as a reference checkpoint (config.json
+   and bf16 .bin shards of ~2 GB in the names train/convert.py reads, under
+   a temporary directory) and loaded onto the card through
+   models/api.py:load_vlm_weights: every tensor bitwise the built one, the
+   load's seconds, GB/s, card memory above what was held (one copy of the
+   model at most) and the host's peak RSS printed. Then, with a word-level
+   tokenizer (WordTokenizer) and the nano_base template: 64 synthetic
+   1280x720 frames through the ported host preprocessing (seconds,
+   frames/s), TimeViperModel.chat and a question on prefill_video_prefix,
+   K1, K2, K3 and K9 launched; the greedy tokens and texts those of the
+   built model's Generator on the same ids and pixels. The loaded model is
+   freed.
 5. long video, on the same bf16 model: (a) 1,024 frames streamed as four
    256-frame clips of 4,096 tokens, the first through nano_forward with the
    cache filled, the next three through
@@ -268,6 +283,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -279,6 +295,7 @@ if __name__ == "__main__" and not (Path(__file__).resolve().parent
     # refuse before the seconds of importing torch
     sys.exit("chip_smoke: run it from a checkout of the repository")
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -4015,16 +4032,375 @@ def check_qwen2_engine(model, arch, mix, out) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 4b: a checkpoint in the reference's layout, loaded and chatted with
+# ---------------------------------------------------------------------------
+
+def _nano_reference(sd: dict, cfg) -> dict:
+    """A NanoModel state_dict -> NemotronHForCausalLM names: the role-split
+    in_proj joined back to [gate | x | B | C | dt] rows, the conv taps to
+    (C, 1, K)."""
+    out = {}
+    for k, v in sd.items():
+        if not re.match(r"layers\.\d+\.mixer\.(in_proj|conv1d)\.\w+\.(weight|bias)$", k):
+            out[k if k.startswith("lm_head.") else f"backbone.{k}"] = v
+    for i, bt in enumerate(cfg.layers_block_type):
+        if bt != "mamba":
+            continue
+        pre = f"layers.{i}.mixer"
+        out[f"backbone.{pre}.in_proj.weight"] = torch.cat(
+            [sd[f"{pre}.in_proj.{r}.weight"] for r in ("gate", "x", "B", "C", "dt")])
+        conv = torch.cat([sd[f"{pre}.conv1d.{r}.weight"] for r in "xBC"])
+        out[f"backbone.{pre}.conv1d.weight"] = conv[:, None, :]
+        if f"{pre}.conv1d.x.bias" in sd:
+            out[f"backbone.{pre}.conv1d.bias"] = torch.cat(
+                [sd[f"{pre}.conv1d.{r}.bias"] for r in "xBC"])
+    return out
+
+
+def _qwen2_reference(sd: dict) -> dict:
+    names = {"embeddings.weight": "model.embed_tokens.weight", "norm_f.weight": "model.norm.weight"}
+    return {names.get(k, k if k.startswith("lm_head.") else f"model.{k}"): v
+            for k, v in sd.items()}
+
+
+def _vit_reference(sd: dict, cfg) -> dict:
+    """A ViT state_dict -> timm names, the patch weight back to (D, 3, p, p),
+    a class row in front of the position table where the tower has a class
+    token, and the last block (which the port does not build) as a copy of
+    the one before it."""
+    out = {}
+    for k, v in sd.items():
+        if k == "patch_embed.weight":
+            p = cfg.patch_size
+            out["patch_embed.proj.weight"] = v.reshape(v.shape[0], p, p, 3).permute(0, 3, 1, 2)
+        elif k == "patch_embed.bias":
+            out["patch_embed.proj.bias"] = v
+        elif k == "pos_embed" and "cls_token" in sd:
+            out[k] = torch.cat([sd["cls_token"].to(v.dtype), v], dim=1)
+        elif k == "reg_tokens":
+            out["reg_token"] = v
+        else:
+            out[re.sub(r"^layers\.", "blocks.", k)] = v
+    last = cfg.num_hidden_layers - 1
+    for k in [k for k in out if k.startswith(f"blocks.{last - 1}.")]:
+        out[k.replace(f"blocks.{last - 1}.", f"blocks.{last}.")] = out[k]
+    return out
+
+
+def _iv2_reference(sd: dict, cfg) -> dict:
+    """An InternVideo2 state_dict -> vit_scale_clean names: the tubelet
+    weight back to (D, 3, t, p, p), LayerScale as `weight`."""
+    out = {}
+    for k, v in sd.items():
+        if k == "patch_embed.weight":
+            p, tb = cfg.patch_size, cfg.tubelet_size
+            out["patch_embed.proj.weight"] = v.reshape(v.shape[0], tb, p, p, 3).permute(
+                0, 4, 1, 2, 3)
+        elif k == "patch_embed.bias":
+            out["patch_embed.proj.bias"] = v
+        else:
+            k = re.sub(r"\.(ls[12])\.gamma$", r".\1.weight", k)
+            out[re.sub(r"^layers\.", "blocks.", k)] = v
+    return out
+
+
+def _projector_reference(sd: dict) -> dict:
+    names = ["fc0", "fc1", "fc2"] if "fc0.weight" in sd else ["fc1", "fc2"]
+    return {f"projector.{2 * names.index(k.split('.')[0])}.{k.split('.')[1]}": v
+            for k, v in sd.items()}
+
+
+def reference_state_dict(sd: dict, arch) -> dict:
+    """The inverse of train/convert.py:convert_vlm_checkpoint: a
+    TimeViperVLM state_dict -> the reference's whole-VLM names and layouts
+    (generic_vlm.py:874-910), views of `sd` where a rename suffices."""
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    llm = part("llm_backbone.")
+    llm = (_nano_reference(llm, arch.llm) if arch.llm_family == "nano"
+           else _qwen2_reference(llm))
+    out = {f"llm_backbone.llm.{k}": v for k, v in llm.items()}
+    merge = part("merge_modules.")
+    alphas = []
+    for i in sorted({int(k.split(".")[0]) for k in merge}):
+        alphas.append(merge[f"{i}.alpha"].reshape(1))
+        for k, v in merge.items():
+            if k.startswith(f"{i}.cross_attn."):
+                out[f"llm_backbone.llm.backbone.merge_modules.{i}."
+                    f"{k[len(f'{i}.cross_attn.'):]}"] = v
+    if alphas:
+        out["llm_backbone.llm.backbone.alpha"] = torch.cat(alphas)
+    for key, fam, cfg in arch.towers():
+        dot = f".{key}" if key else ""
+        tower = part(f"vision_backbone{dot}.")
+        tower = (_iv2_reference(tower, cfg) if fam == "internvideo2"
+                 else _vit_reference(tower, cfg))
+        vis = f"vision_backbone.backbones.{key}" if key else "vision_backbone"
+        out.update({f"{vis}.featurizer.{k}": v for k, v in tower.items()})
+        proj = f"projector.projectors.{key}" if key else "projector"
+        out.update({f"{proj}.{k}": v
+                    for k, v in _projector_reference(part(f"projector{dot}.")).items()})
+    return out
+
+
+class WordTokenizer:
+    """A word-level tokenizer over the 9B's 131,072 ids, with the calls of a
+    Hugging Face tokenizer that data/processor.py makes: the special tokens
+    and the chat template's words first, `w<i>` for every other id, and
+    `<image>`, once added, at IMAGE_TOKEN. Special tokens split the text
+    before the words do, as in a Hugging Face tokenizer."""
+
+    SPECIAL = ("<pad>", "<unk>", "<SPECIAL_10>", "<SPECIAL_11>", "<SPECIAL_12>")
+    WORDS = ("System", "User", "Assistant")
+
+    def __init__(self):
+        self.vocab = {w: i for i, w in enumerate(self.SPECIAL + self.WORDS)}
+        self.words = {i: w for w, i in self.vocab.items()}
+        self.added = {}
+        self.pad_token_id, self.eos_token_id = 0, self.vocab["<SPECIAL_12>"]
+
+    def add_special_tokens(self, tokens: dict, replace_additional_special_tokens=True) -> int:
+        new = [t for t in tokens["additional_special_tokens"] if t not in self.added]
+        self.added.update({t: IMAGE_TOKEN for t in new})
+        return len(new)
+
+    def convert_tokens_to_ids(self, token: str):
+        return self.added.get(token, self.vocab.get(token))
+
+    def _id(self, word: str) -> int:
+        if word in self.vocab or word in self.added:
+            return self.convert_tokens_to_ids(word)
+        return int(word[1:]) if re.fullmatch(r"w\d+", word) else self.vocab["<unk>"]
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        specials = sorted((*self.SPECIAL, *self.added), key=len, reverse=True)
+        out = []
+        for piece in re.split("(" + "|".join(map(re.escape, specials)) + ")", text):
+            out += [self._id(piece)] if piece in specials else [self._id(w) for w in piece.split()]
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        words = []
+        for i in map(int, ids):
+            special = i == IMAGE_TOKEN or self.words.get(i) in self.SPECIAL
+            if not (skip_special_tokens and special):
+                words.append("<image>" if i == IMAGE_TOKEN else self.words.get(i, f"w{i}"))
+        return " ".join(words)
+
+
+CKPT_SHARD_BYTES = 2 << 30  # the reference's weight files are ~2-5 GB shards
+CHAT_FRAMES = 64
+CHAT_FRAME_HW = (720, 1280)  # synthetic frames: the card's machine has no libav (PERF.md §6)
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+class PeakRSS:
+    """The host's resident set, sampled every 5 ms while the block runs;
+    `peak` is the largest."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = rss_bytes(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def round_to_checkpoint_values(model) -> int:
+    """The JAX loader rounds every leaf of ndim >= 2 to the model's dtype
+    (timeviper_tpu/models/api.py:205-207); the port's bf16 model keeps a few
+    such tensors (the Mamba conv taps, the ViT position table) in f32. Round
+    those in place to bf16 values, so that the checkpoint this phase writes
+    loads back bitwise. Returns how many tensors were rounded."""
+    n = 0
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.dtype == torch.float32 and t.ndim >= 2:
+                t.copy_(t.to(torch.bfloat16))
+                n += 1
+    return n
+
+
+def write_checkpoint(model, arch, path: Path) -> int:
+    """`path`: config.json with the JAX package's keys and the weights in
+    the reference's layout (`reference_state_dict`), torch.save'd as .bin
+    shards of about CKPT_SHARD_BYTES. Returns the bytes written."""
+    with open(path / "config.json", "w") as f:
+        json.dump({"model_id": "timeviper-9b-random", "vision_backbone_id":
+                   arch.vlm.vision_backbone_id, "llm_backbone_id": arch.vlm.llm_backbone_id,
+                   "arch_specifier": arch.vlm.arch_specifier, "conv_template": "nano_base"}, f)
+    ref = reference_state_dict(model.state_dict(), arch)
+    shards, shard, size = [], [], 0
+    for name in ref:
+        shard.append(name)
+        size += ref[name].numel() * ref[name].element_size()
+        if size >= CKPT_SHARD_BYTES:
+            shards.append(shard)
+            shard, size = [], 0
+    shards += [shard] if shard else []
+    total = 0
+    for i, names in enumerate(shards):
+        part = {k: ref[k].detach().contiguous().cpu() for k in names}
+        file = path / f"pytorch_model-{i + 1:05d}-of-{len(shards):05d}.bin"
+        torch.save(part, file)
+        total += file.stat().st_size
+        del part
+    return total
+
+
+def phase_checkpoint(model, arch, smi: str, kernel_results: dict) -> None:
+    """Phase 4b: the 9B written as a reference checkpoint, loaded onto the
+    card through models/api.py:load_vlm_weights (every tensor bitwise the
+    built one), then chat and a question on a cached video prefix through
+    TimeViperModel with a word-level tokenizer and the nano_base template,
+    64 synthetic 1280x720 frames through the ported host preprocessing; the
+    greedy tokens against the built model's Generator on the same ids and
+    pixels. The loaded model is freed at the end."""
+    import shutil
+
+    from timeviper_tpu_torch.data.native import native_available
+    from timeviper_tpu_torch.models.api import assemble_model, load_vlm_weights
+    from timeviper_tpu_torch.models.generate import split_prompt_at_last_image
+
+    rounded = round_to_checkpoint_values(model)
+    built = model.state_dict()
+    model_bytes = sum(t.numel() * t.element_size() for t in built.values())
+    with tempfile.TemporaryDirectory(prefix="timeviper_ckpt_") as tmp:
+        path = Path(tmp)
+        free = shutil.disk_usage(path).free
+        if free < 1.2 * model_bytes:
+            raise RuntimeError(f"{free / 1e9:.1f} GB free under {path}, the checkpoint needs "
+                               f"{model_bytes / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        written = write_checkpoint(model, arch, path)
+        log(f"[ckpt] {rounded} f32 tensors of ndim >= 2 rounded to bf16 values (the loader's "
+            f"cast); wrote {written / 1e9:.3f} GB in {len(list(path.glob('*.bin')))} .bin shards "
+            f"in {time.perf_counter() - t0:.2f} s; {free / 1e9:.1f} GB were free")
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with PeakRSS() as rss:
+            rss_before = rss_bytes()
+            t0 = time.perf_counter()
+            loaded, larch, meta = load_vlm_weights(str(path), dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        log(f"[ckpt] load_vlm_weights: {written / 1e9:.3f} GB read (warm: the files were just "
+            f"written) in {load_s:.2f} s, {written / 1e9 / load_s:.2f} GB/s; card memory during "
+            f"the load {peak / 2**30:.2f} GiB above the {before / 2**30:.2f} GiB held before "
+            f"(the model is {model_bytes / 2**30:.2f} GiB); host RSS {rss_before / 2**30:.2f} "
+            f"GiB before, peak {rss.peak / 2**30:.2f} GiB; {smi}")
+        if peak > 1.02 * model_bytes + (256 << 20):
+            raise AssertionError(f"the load held {peak / 2**30:.2f} GiB on the card, more "
+                                 f"than one copy of the model")
+    got = loaded.state_dict()
+    same = [k for k in built if k in got and got[k].dtype == built[k].dtype
+            and torch.equal(got[k], built[k])]
+    log(f"[ckpt] {len(same)} of {len(built)} tensors bitwise equal to the built model's "
+        f"({len(got)} loaded)")
+    if len(same) != len(built) or len(got) != len(built):
+        raise AssertionError("the loaded state_dict is not the built one: "
+                             f"{sorted(set(built) - set(same))[:5]}")
+    del got
+
+    tm = assemble_model(loaded, larch, meta, WordTokenizer(), max_new_tokens=MAX_NEW)
+    frames = np.random.default_rng(SEED + 7).integers(
+        0, 255, (CHAT_FRAMES, *CHAT_FRAME_HW, 3), dtype=np.uint8)
+    question = " ".join(f"w{i}" for i in range(1000, 40000, 1999))
+    prompt = tm.template.prompt_for_generation("<image>" * CHAT_FRAMES + "\n" + question)
+    tm.processor("<image>" * 2, videos=[list(frames[:2])])  # builds the native library
+    t0 = time.perf_counter()
+    enc = tm.processor(prompt, videos=[list(frames)])
+    pre_s = time.perf_counter() - t0
+    ids, pixels = enc["input_ids"].tolist(), enc["pixels"]
+    log(f"[ckpt] host preprocessing ({'native C++' if native_available() else 'PIL'}, "
+        f"{os.cpu_count()} cores): {CHAT_FRAMES} frames of {CHAT_FRAME_HW[1]}x"
+        f"{CHAT_FRAME_HW[0]} -> {tuple(pixels.shape)} in {pre_s:.3f} s, "
+        f"{CHAT_FRAMES / pre_s:.1f} frames/s; prompt {len(ids)} ids")
+
+    reset_launches()
+    out = tm.generator.generate(ids, pixels=pixels, image_token_id=tm.processor.image_token_id)
+    text = tm.chat(question, frames=frames)
+    pre_ids, suf_ids = split_prompt_at_last_image(ids, tm.processor.image_token_id)
+    state = tm.prefill_video_prefix(pre_ids, pixels, suffix_budget=64)
+    q_out = tm.generator.generate(suf_ids, prefix=state)
+    q_text = tm.generate(suf_ids, prefix=state)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"[ckpt] launches on the loaded model: {launches}")
+    for name in SERVING + ("block_attn",):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the loaded model")
+        kernel_results[name]["launches"] += launches[name]
+    log(f"[ckpt] chat: encode {out.encode_s:.3f} s, prefill {out.prefill_s:.3f} s, decode "
+        f"{(out.num_generated - 1) / out.decode_s:.2f} tok/s, {out.num_generated} tokens "
+        f"{out.token_ids.tolist()}; text {text!r}; question on the prefix "
+        f"{q_out.prefill_s:.3f} s, tokens {q_out.token_ids.tolist()}")
+
+    gen = Generator(model, arch, terminator_ids=tm.processor.terminator_ids, max_new_tokens=MAX_NEW)
+    want = gen.generate(ids, pixels=pixels, image_token_id=tm.processor.image_token_id)
+    want_q = gen.generate(suf_ids, prefix=gen.prefill_prefix(
+        pre_ids, pixels=pixels, image_token_id=tm.processor.image_token_id, suffix_budget=64))
+
+    def as_text(o):
+        return tm.processor.decode([t for t in o.token_ids.tolist()
+                                    if t not in tm.processor.terminator_ids]).strip()
+
+    log(f"[ckpt] built model: tokens {want.token_ids.tolist()}, question "
+        f"{want_q.token_ids.tolist()}")
+    if (out.token_ids.tolist() != want.token_ids.tolist()
+            or q_out.token_ids.tolist() != want_q.token_ids.tolist()
+            or text != as_text(want) or q_text != as_text(want_q)):
+        raise AssertionError("the loaded model's greedy tokens are not the built model's")
+    log(f"[ckpt] greedy tokens and texts equal; first logits max abs diff "
+        f"{(out.first_logits - want.first_logits).abs().max().item():.3e}")
+    del tm, loaded, state, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile the bf16 256-frame encode, a training step and an int8 "
                              "request after the checks")
     args = parser.parse_args()
+    start = last = time.perf_counter()
+
+    def lap(phase: str) -> None:  # each phase's seconds, to see where the run goes
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[time] {phase}: {now - last:.1f} s ({now - start:.1f} s in all)")
+        last = now
+
     smi = phase_device()
     phase_build()
+    lap("device and build")
     results = phase_kernels(torch.Generator(device=DEV).manual_seed(SEED))
+    lap("kernels")
     phase_microbench(results)
+    lap("microbenchmarks")
     arch = build_arch(VLMConfig())  # siglip-vit-so400m-384px + tome_mlp-16 + nano-9b-v2
     t0 = time.perf_counter()
     model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
@@ -4034,26 +4410,39 @@ def main() -> int:
     log(f"[model] TimeViper-9B: {n_params / 1e9:.2f} B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
     bf16 = phase_serving(model, arch, results, profile=args.profile)
+    lap("serving")
+    phase_checkpoint(model, arch, smi, results)
+    lap("checkpoint")
     phase_long_video(model, arch, results)
+    lap("long video")
     phase_engine(model, arch, smi, results)
+    lap("engine")
     phase_pdrop(model, arch, smi, results)
+    lap("pdrop")
     phase_speculative(model, arch, smi, results, "spec")
+    lap("speculative")
     phase_training(model, arch, results, profile=args.profile)
+    lap("training")
     phase_tower_training(model, arch, smi, results)
+    lap("tower training")
     del model  # the int8 phase makes the weights again from the seed
     gc.collect()
     torch.cuda.empty_cache()
     phase_int8_serving(arch, smi, results, bf16, profile=args.profile)
+    lap("int8 serving")
     gc.collect()
     torch.cuda.empty_cache()
     iv2 = phase_tower_serving("internvideo2-1b-16-224px", 3, "iv2", results, int8=True)
     results["vit_attn"]["launches"] = iv2["vit_attn"]
+    lap("internvideo2")
     gc.collect()
     torch.cuda.empty_cache()
     phase_tower_serving("dinosiglip-vit-so-384px", 2, "dinosiglip", results)
+    lap("dinov2 + siglip")
     gc.collect()
     torch.cuda.empty_cache()
     phase_qwen2(smi, results)
+    lap("qwen2")
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

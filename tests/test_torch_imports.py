@@ -34,7 +34,17 @@ MODULES = [
     "timeviper_tpu_torch.bench.attention_ab", "timeviper_tpu_torch.bench.ssd_ab",
     "timeviper_tpu_torch.bench.train_ab", "timeviper_tpu_torch.models.pdrop",
     "timeviper_tpu_torch.models.qwen2", "timeviper_tpu_torch.ops.rope",
-    "timeviper_tpu_torch.models.speculative", "chip_smoke",
+    "timeviper_tpu_torch.models.speculative", "timeviper_tpu_torch.train.convert",
+    "timeviper_tpu_torch.data.conversation", "timeviper_tpu_torch.data.templates",
+    "timeviper_tpu_torch.data.image_processing", "timeviper_tpu_torch.data.native_build",
+    "timeviper_tpu_torch.data.native", "timeviper_tpu_torch.data.processor",
+    "timeviper_tpu_torch.data.video", "timeviper_tpu_torch.data.native_video",
+    "timeviper_tpu_torch.chat", "timeviper_tpu_torch.eval", "timeviper_tpu_torch.eval.answers",
+    "timeviper_tpu_torch.eval.cider", "timeviper_tpu_torch.eval.datasets",
+    "timeviper_tpu_torch.eval.dvc", "timeviper_tpu_torch.eval.evaluate",
+    "timeviper_tpu_torch.eval.judges", "timeviper_tpu_torch.eval.loaders",
+    "timeviper_tpu_torch.eval.meteor", "timeviper_tpu_torch.eval.meteor_py",
+    "timeviper_tpu_torch.eval.ptb", "timeviper_tpu_torch.eval.scoring", "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent
 
@@ -50,6 +60,26 @@ def test_port_imports_no_jax():
         "assert c._lib is None  # nothing is built at import",
     ])
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["timeviper_tpu_torch.chat",
+                                    "timeviper_tpu_torch.eval.evaluate"])
+def test_cli_help_imports_no_jax(module):
+    """`python -m <cli> --help` prints its flags and loads no JAX."""
+    code = "\n".join([
+        "import runpy, sys",
+        f"sys.argv = [{module!r}, '--help']",
+        "try:",
+        f"    runpy.run_module({module!r}, run_name='__main__')",
+        "except SystemExit as e:",
+        "    assert e.code == 0, e.code",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('jax', 'jaxlib', 'timeviper_tpu'))",
+        "assert not bad, bad",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert "--checkpoint" in out and "--device" in out
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -108,6 +108,15 @@ class PrefixState:
     pad: int = 0  # leading pad rows (cache["valid_from"])
 
 
+def split_prompt_at_last_image(input_ids: Sequence[int], image_token_id: int):
+    """(prefix_ids incl. the last <image> token, suffix_ids). The prefix is
+    what is shared across questions on one video; the suffix is the
+    question + options."""
+    ids = list(input_ids)
+    last = max(i for i, t in enumerate(ids) if t == image_token_id)
+    return ids[: last + 1], ids[last + 1:]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
