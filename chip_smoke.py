@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of TimeViper once on one CUDA card: the two
 microbenchmarks, serving, a checkpoint written, loaded and chatted with,
-long video (a streamed clip-by-clip prefill, the
+the training CLI run on it (heterogeneous rows, then the remat policies,
+QLoRA and the layer-streamed offload trainer), long video (a streamed clip-by-clip prefill, the
 chunked long-context forward and questions on a cached prefix), the
 slot-batched serving engine, pdrop with TransV, speculative decoding, LoRA
 training (with the vision tower trained too), int8 serving with the fused
@@ -91,6 +92,31 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    K1, K2, K3 and K9 launched; the greedy tokens and texts those of the
    built model's Generator on the same ids and pixels. The loaded model is
    freed.
+4c. the training CLI, on 4b's checkpoint (with a word-level Hugging Face
+   tokenizer written beside it): timeviper_tpu_torch.train.cli.main on the
+   9B, a YAML of two datasets of one 32- and one 64-frame clip (MJPG AVI
+   files written and decoded by OpenCV; synthetic frames in place of
+   data/video.py:load_video where no backend is found, and a line says so),
+   so every batch of 2 is heterogeneous; LoRA rank 8 with the projector,
+   4 steps, a checkpoint every 2. Each step's s and peak GiB; K1, K2,
+   K2-bwd, K3 and K4 launched; the final artifacts reloaded (the LoRA
+   factors bitwise from lora_state.npz); the first batch's heterogeneous
+   loss within 1e-2 relative of its rows' static one-row losses, both on
+   the same visual embeddings.
+4d. remat policies: the CLI's LoRA'd 9B at 4,136 tokens under "full",
+   "scan", "dots" and "dots_scan": the first step's gradient cosine with
+   "full" (0.9999), the K1 / K2 forward launches in a step, 1 warm-up and 3
+   timed steps, peak GiB; then bench_all.py's 52-layer cell (hidden 2,048,
+   8,192 tokens, every parameter's gradient) under "full" and "dots_scan".
+4e. QLoRA on the 9B's backbone at 4,096 tokens, rank 16: 4 steps on the
+   bf16 base, the same factors again on the int8 base (quantize_params_int8
+   keeps them), 4 steps; step s, peak GiB, the base's bytes by part, the
+   first losses against each other; the int8 base holds fewer bytes.
+4f. offload: train/offload.py:StreamedTrainer at the TPU row's shape (3
+   layers M*-, hidden 4,096, vocab 2,048, f32 masters and moments on the
+   host, 1,024 tokens): 1 warm-up and 3 timed steps, tokens/s, the pinned
+   copies' GB/s, the device time split into copies and compute, the host's
+   AdamW s; the loss falls.
 5. long video, on the same bf16 model: (a) 1,024 frames streamed as four
    256-frame clips of 4,096 tokens, the first through nano_forward with the
    cache filled, the next three through
@@ -284,6 +310,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -300,7 +327,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from timeviper_tpu_torch.config import VLMConfig  # noqa: E402
+from timeviper_tpu_torch.config import NanoConfig, VLMConfig  # noqa: E402
 from timeviper_tpu_torch.bench import device_ms, microbench_flash, microbench_vit_attn  # noqa: E402
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX  # noqa: E402
 from timeviper_tpu_torch.data.loader import collate  # noqa: E402
@@ -330,6 +357,7 @@ from timeviper_tpu_torch.models.vlm import (  # noqa: E402
     init_vlm_params,
     llm_forward,
     vlm_forward,
+    vlm_loss,
 )
 from timeviper_tpu_torch.ops import _cuda  # noqa: E402
 from timeviper_tpu_torch.ops import attention as attn_mod  # noqa: E402
@@ -2530,7 +2558,7 @@ def phase_training(model, arch, kernel_results: dict, profile: bool = False) -> 
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the training path")
     for name in ("ssd_bwd", "flash_bwd"):
-        kernel_results[name]["launches"] = launches[name]
+        kernel_results[name]["launches"] += launches[name]
 
     check_training_calls("train", logs, kernel_results)
     del logs
@@ -4266,16 +4294,15 @@ def write_checkpoint(model, arch, path: Path) -> int:
     return total
 
 
-def phase_checkpoint(model, arch, smi: str, kernel_results: dict) -> None:
+def phase_checkpoint(model, arch, smi: str, kernel_results: dict, then=None):
     """Phase 4b: the 9B written as a reference checkpoint, loaded onto the
     card through models/api.py:load_vlm_weights (every tensor bitwise the
     built one), then chat and a question on a cached video prefix through
     TimeViperModel with a word-level tokenizer and the nano_base template,
     64 synthetic 1280x720 frames through the ported host preprocessing; the
     greedy tokens against the built model's Generator on the same ids and
-    pixels. The loaded model is freed at the end."""
-    import shutil
-
+    pixels. The loaded model is freed at the end; `then(path)`, given, runs
+    on the checkpoint before it is deleted, and its result is returned."""
     from timeviper_tpu_torch.data.native import native_available
     from timeviper_tpu_torch.models.api import assemble_model, load_vlm_weights
     from timeviper_tpu_torch.models.generate import split_prompt_at_last_image
@@ -4283,7 +4310,8 @@ def phase_checkpoint(model, arch, smi: str, kernel_results: dict) -> None:
     rounded = round_to_checkpoint_values(model)
     built = model.state_dict()
     model_bytes = sum(t.numel() * t.element_size() for t in built.values())
-    with tempfile.TemporaryDirectory(prefix="timeviper_ckpt_") as tmp:
+    holder = tempfile.TemporaryDirectory(prefix="timeviper_ckpt_")
+    with contextlib.nullcontext(holder.name) as tmp:  # deleted after `then`
         path = Path(tmp)
         free = shutil.disk_usage(path).free
         if free < 1.2 * model_bytes:
@@ -4378,6 +4406,586 @@ def phase_checkpoint(model, arch, smi: str, kernel_results: dict) -> None:
     del tm, loaded, state, gen
     gc.collect()
     torch.cuda.empty_cache()
+    try:
+        return then(path) if then is not None else None
+    finally:
+        holder.cleanup()
+
+
+# 4c-4f: training from the CLI on heterogeneous rows, the remat policies,
+# QLoRA and the layer-streamed offload trainer
+CLI_FRAMES = (32, 64)  # one video a dataset: every batch of 2 is heterogeneous
+CLI_STEPS = 4
+CLI_VIDEO_HW = (360, 640)
+CLI_WORDS = ("<pad> <unk> <SPECIAL_10> <SPECIAL_11> <SPECIAL_12> System User Assistant . "
+             "what happens in the video a man runs then sits down").split()
+HETERO_LOSS_RTOL = 1e-2
+POLICY_COS = 0.9999
+REMAT_ROW_FRAMES = 256  # the 4,136-token training row
+BENCH_52L = dict(num_hidden_layers=52, hidden_size=2048, intermediate_size=10752,
+                 mamba_num_heads=64, vocab_size=2048)  # bench_all.py:bench_train's 52 layers
+BENCH_52L_TOKENS = 8192
+QLORA_TOKENS = 4096  # bench_all.py:bench_qlora
+QLORA_RANK = 16
+QLORA = {}  # the 9B's backbone as it is
+OFFLOAD = dict(num_hidden_layers=3, hybrid_override_pattern="M*-", hidden_size=4096,
+               intermediate_size=21504, mamba_num_heads=128, vocab_size=2048)  # :bench_offload
+OFFLOAD_TOKENS = 1024
+
+
+def hf_tokenizer(**special):
+    """A word-level tokenizer of the chat template's words and the data's."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(CLI_WORDS)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    return PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="<pad>", unk_token="<unk>",
+                                   eos_token="<SPECIAL_12>", **special)
+
+
+def write_hf_tokenizer(path: Path) -> None:
+    """`hf_tokenizer` saved where AutoTokenizer.from_pretrained finds it."""
+    hf_tokenizer().save_pretrained(str(path))
+
+
+def check_extra_special_tokens() -> None:
+    """data/processor.py:attach_special_tokens, under this machine's
+    transformers, keeps a tokenizer's own extra special tokens beside
+    `<image>`, and decoding skips them."""
+    import transformers
+    from timeviper_tpu_torch.data.processor import attach_special_tokens
+
+    extra = ["<SPECIAL_10>", "<SPECIAL_11>"]
+    tok = hf_tokenizer(additional_special_tokens=list(extra))  # the tokenizer takes the list
+    attach_special_tokens(tok, "nano")
+    ids = tok.encode("<SPECIAL_10> <image> what <SPECIAL_11> happens", add_special_tokens=False)
+    text = tok.decode(ids, skip_special_tokens=True)
+    log(f"[cli] transformers {transformers.__version__}: special tokens after <image> was added "
+        f"{tok.all_special_tokens}; {ids} decodes to {text!r}")
+    if not set(extra + ["<image>"]) <= set(tok.all_special_tokens) or text != "what happens":
+        raise AssertionError("attach_special_tokens dropped the tokenizer's own special tokens")
+
+
+def host_ram_gib() -> tuple:
+    """(total, available) host memory, GiB, from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        kb = {line.split(":")[0]: int(line.split()[1]) for line in f}
+    return kb["MemTotal"] / 2**20, kb["MemAvailable"] / 2**20
+
+
+def synthetic_frames(n: int, seed: int) -> np.ndarray:
+    """n frames of CLI_VIDEO_HW: a moving gradient and noise."""
+    h, w = CLI_VIDEO_HW
+    r = np.random.default_rng(seed)
+    base = np.arange(w)[None, :, None] + np.arange(h)[:, None, None] // 3 + np.arange(3) * 60
+    return np.stack([((base + 7 * i + r.integers(0, 40, (h, w, 3))) % 256).astype(np.uint8)
+                     for i in range(n)])
+
+
+def write_cli_data(root: Path, files: bool) -> Path:
+    """One clip per dataset, a JSON of one conversation each, and the YAML
+    listing them with CLI_FRAMES frames a video. With `files` the clips are
+    MJPG AVI files written by OpenCV, which data/video.py decodes."""
+    import yaml
+
+    entries = []
+    for k, frames in enumerate(CLI_FRAMES):
+        name = f"clip{k}.avi"
+        if files:
+            import cv2
+
+            w = cv2.VideoWriter(str(root / name), cv2.VideoWriter_fourcc(*"MJPG"), 8.0,
+                                CLI_VIDEO_HW[::-1])
+            for fr in synthetic_frames(max(CLI_FRAMES), SEED + k):
+                w.write(fr[..., ::-1])
+            w.release()
+        conv = [{"from": "human", "value": "<image> what happens in the video ."},
+                {"from": "gpt", "value": "a man runs then sits down ." if k else "a man runs ."}]
+        (root / f"data{k}.json").write_text(json.dumps([{"video": name, "conversations": conv}]))
+        entries.append({"format": "conversation", "json_path": str(root / f"data{k}.json"),
+                        "data_path": str(root), "sampling": "uniform", "num_frames": frames})
+    (root / "data.yaml").write_text(yaml.safe_dump({"datasets": entries}))
+    return root / "data.yaml"
+
+
+@contextlib.contextmanager
+def synthetic_video_loader(files: bool):
+    """Without video files (no backend, or no OpenCV to write them),
+    data/video.py:load_video gives synthetic frames (as
+    tests/test_train_cli.py:36-42 does for the JAX CLI); otherwise nothing is
+    replaced."""
+    from timeviper_tpu_torch.data import video as video_mod
+
+    if files:
+        yield
+        return
+    real = video_mod.load_video
+
+    def fake(path, *, num_frames=None, **kw):
+        frames = synthetic_frames(num_frames, abs(hash(path)) % 2**31)
+        return frames, np.arange(num_frames) / 8.0, video_mod.VideoMeta(num_frames, 8.0,
+                                                                       num_frames / 8.0)
+
+    video_mod.load_video = fake
+    try:
+        yield
+    finally:
+        video_mod.load_video = real
+
+
+def phase_train_cli(model, arch, ckpt: Path, smi: str, kernel_results: dict):
+    """Phase 4c: `python -m timeviper_tpu_torch.train.cli` (its `main`) on the
+    9B from phase 4b's checkpoint: a YAML of two datasets of 32 and 64 frames
+    a video, so every batch of 2 is heterogeneous; LoRA rank 8 with the
+    projector trained, CLI_STEPS steps, a checkpoint every 2. Checks the
+    launches of K1, K2, K2-bwd, K3 and K4, the final artifacts (the LoRA
+    factors reload bitwise from lora_state.npz) and the first batch's loss
+    against each row through the static one-row path, both sides on the same
+    visual embeddings (ToMe re-decides its merges under one bf16 ulp:
+    ROADMAP Queue 3). Returns the CLI's Trainer (its model is the 9B with
+    LoRA) for phase 4d."""
+    from timeviper_tpu_torch.data import video as video_mod
+    from timeviper_tpu_torch.data.datasets import ConcatDataset, load_data_from_config
+    from timeviper_tpu_torch.data.fusion import HeteroPlan
+    from timeviper_tpu_torch.data.image_processing import transform_for_family
+    from timeviper_tpu_torch.data.loader import DataLoader, to_device
+    from timeviper_tpu_torch.data.processor import Processor
+    from timeviper_tpu_torch.train import cli
+
+    import importlib.util
+
+    write_hf_tokenizer(ckpt)
+    check_extra_special_tokens()
+    total, avail = host_ram_gib()
+    backend = video_mod.probe_backend()
+    files = backend is not None and importlib.util.find_spec("cv2") is not None
+    log(f"[cli] video backend: {backend}; clips written by OpenCV: {files}; host RAM "
+        f"{total:.1f} GiB, {avail:.1f} GiB available; {smi}")
+    if not files:
+        log("[cli] no video files: data/video.py:load_video gives synthetic frames in this "
+            "phase (nothing else is replaced)")
+    run_root = Path(tempfile.mkdtemp(prefix="timeviper_cli_"))
+    try:
+        yaml_path = write_cli_data(run_root, files)
+        argv = ["--data_config", str(yaml_path), "--pretrained_checkpoint", str(ckpt),
+                "--run_dir", str(run_root / "run"), "--lora_enable", "--lora_r", "8",
+                "--trainable_modules", "projector", "--max_steps", str(CLI_STEPS),
+                "--save_every", "2", "--batch_size", "2", "--num_workers", "1",
+                "--log_every", "1", "--learning_rate", "1e-3", "--device", str(DEV),
+                "--vision_backbone_id", arch.vlm.vision_backbone_id,
+                "--llm_backbone_id", arch.vlm.llm_backbone_id,
+                "--arch_specifier", arch.vlm.arch_specifier]
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with synthetic_video_loader(files), logging_calls(TRAINING_PLACES["nano"]) as logs:
+            trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        log(f"[cli] train.cli.main: {cli_s:.1f} s in all (the checkpoint's load, {CLI_STEPS} "
+            f"steps, the final artifacts); launches {launches}")
+        for h in trainer.history:
+            log(f"[cli] step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+                f"{h['seconds']:.3f} s, peak {h.get('max_memory_gib', math.nan):.2f} GiB")
+        if trainer.step != CLI_STEPS or not all(math.isfinite(h["loss"])
+                                                 for h in trainer.history):
+            raise AssertionError(f"the CLI trained {trainer.step} steps: {trainer.history}")
+        for name in TRAINING:
+            if launches[name] == 0:
+                raise AssertionError(f"{name} was never launched by the training CLI")
+            kernel_results[name]["launches"] += launches[name]
+        # K1 / K4 and K2 / K2-bwd on the first step's heterogeneous rows: each
+        # row's pads a trailing segment where K4 resets and K2-bwd skips tiles
+        for key, (_, kw) in sorted(logs["ssd_fwd"].calls.items()):
+            seg = kw["seq_idx"]
+            pads = (seg == seg.max(dim=1, keepdim=True).values).sum(1).tolist()
+            log(f"[cli] the first step's rows at {key} tokens: {seg.shape[0]} rows, trailing pad "
+                f"segments of {[p if p < key else 0 for p in pads]} rows")
+        check_training_calls("cli", logs, kernel_results)
+        del logs
+
+        t_check = time.perf_counter()
+        final = run_root / "run" / "final"
+        tparams = trainer.model.state_dict()
+        npz = np.load(final / "lora_state.npz")
+        dtypes = json.loads((final / "lora_state.dtypes.json").read_text())
+        meta = json.loads((final / "config.json").read_text())
+        same = [k for k in npz.files if ".lora_" in k and torch.equal(
+            torch.from_numpy(npz[k]).to(DEV, getattr(torch, dtypes[k])), tparams[k])]
+        saved = torch.load(final / "params" / "params.pt", mmap=True, weights_only=True)
+        picked = [k for k in saved if ".lora_" in k or k.startswith("projector.")]
+        same_saved = [k for k in picked if torch.equal(saved[k].to(DEV), tparams[k])]
+        n_lora = sum(".lora_" in k for k in tparams)
+        ckpts = sorted(d.name for d in (run_root / "run").iterdir() if d.name.startswith("chec"))
+        log(f"[cli] final artifacts: {len(saved)} tensors in params.pt, config.json "
+            f"{meta.get('lora')}, checkpoints {ckpts}; {len(same)} of {n_lora} LoRA factors "
+            f"reload bitwise from lora_state.npz, {len(same_saved)} of {len(picked)} factors "
+            f"and projector tensors from params.pt ({time.perf_counter() - t_check:.1f} s)")
+        if len(same) != n_lora or len(same_saved) != len(picked) or len(saved) != len(
+                trainer.model.state_dict()):
+            raise AssertionError("the final artifacts do not reload as trained")
+        del saved, npz
+
+        # the first batch again, heterogeneous, against each of its rows alone
+        processor = Processor.build(
+            __import__("transformers").AutoTokenizer.from_pretrained(str(ckpt), use_fast=True),
+            transform_for_family("siglip", arch.vision.image_size), arch.llm_family)
+        with synthetic_video_loader(files):
+            data = ConcatDataset(load_data_from_config(str(yaml_path), processor))
+            order = DataLoader(data, 2, processor.image_token_id, arch.tokens_per_frame,
+                               num_workers=1, seed=0)._index_batches(0)[0]
+            t0 = time.perf_counter()
+            items = [data[i] for i in order]
+            batch_s = time.perf_counter() - t0
+        cb = collate(items, processor.image_token_id, arch.tokens_per_frame,
+                     processor.tokenizer.pad_token_id or 0)
+        if not isinstance(cb.plan, HeteroPlan):
+            raise AssertionError("the CLI's batch of 2 is not heterogeneous")
+        with torch.no_grad():
+            batch = to_device(cb.batch, DEV)
+            px = batch["pixels"]
+            ve = encode_visual(model, arch, px.reshape(-1, *px.shape[2:]))
+            ve = ve.reshape(px.shape[0], -1, ve.shape[-1])
+            hetero = float(vlm_loss(model, arch, {**batch, "visual_embeddings": ve}, cb.plan,
+                                    remat=False)[0])
+            rows = []
+            for b, it in enumerate(items):
+                rcb = collate([it], processor.image_token_id, arch.tokens_per_frame)
+                rb = to_device(rcb.batch, DEV)
+                rb = {"input_ids": rb["input_ids"], "labels": rb["labels"],
+                      "visual_embeddings": ve[b:b + 1, :rcb.plan.num_visual]}
+                rows.append((rcb.plan.fused_len, float(vlm_loss(model, arch, rb, rcb.plan,
+                                                                remat=False)[0])))
+        static = sum(v for _, v in rows) / len(rows)
+        rel = abs(hetero - static) / abs(static)
+        cli_rel = abs(trainer.history[0]["loss"] - static) / abs(static)
+        log(f"[cli] first batch: its two items in {batch_s:.2f} s on the host (the decode of "
+            f"{sum(CLI_FRAMES)} frames and their preprocessing: each step of the run waits for "
+            f"them, its epoch's only batch; checks {time.perf_counter() - t_check:.1f} s); rows "
+            f"of {[n for n, _ in rows]} fused tokens padded to "
+            f"{cb.plan.fused_len}; heterogeneous loss {hetero:.6f} against the static rows' "
+            f"mean {static:.6f} ({[round(v, 6) for _, v in rows]}), relative {rel:.2e}; the "
+            f"CLI's logged first loss {trainer.history[0]['loss']:.6f} ({cli_rel:.2e}, its own "
+            f"encode)")
+        if not rel <= HETERO_LOSS_RTOL:
+            raise AssertionError(f"heterogeneous loss {hetero} vs static rows {static}")
+        return trainer
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+
+
+def grad_vector(grads: dict) -> torch.Tensor:
+    return torch.cat([g.float().flatten() for _, g in sorted(grads.items())])
+
+
+def phase_remat_policies(tmodel, arch, smi: str, kernel_results: dict) -> None:
+    """Phase 4d: the 9B LoRA step (rank 8 and the projector, the CLI's model)
+    at 4,136 tokens under each remat policy: the first step's gradients from
+    the same weights against "full"'s (cosine POLICY_COS), the K1 and K2
+    forward launches a step (does the backward run the scan again?), then 1
+    warm-up and 3 timed steps, their peak memory. Then bench_all.py's
+    52-layer cell (hidden 2,048, L 8,192, every parameter's gradient) under
+    "full" and "dots_scan", the TPU suite's open cell."""
+    from timeviper_tpu_torch.models.remat import POLICIES
+    from timeviper_tpu_torch.train.optim import build_optimizer
+    from timeviper_tpu_torch.train.step import train_step, trainable_params
+
+    row = training_row(arch, REMAT_ROW_FRAMES, torch.Generator(device=DEV).manual_seed(SEED + 11))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in row.batch.items()}
+    params = trainable_params(tmodel, True, "projector")
+    start = {n: p.detach().clone() for n, p in params.items()}
+    ref = None
+    totals = {name: 0 for name in TRAINING}
+    for policy in POLICIES:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+        reset_launches()
+        _, grads = grad_step(tmodel, arch, params, batch, row.plan, remat=policy)
+        torch.cuda.synchronize()
+        fwd = {"K1": ssd_scan.launches, "K2": flash_attention.launches,
+               "K4": ssd_scan_bwd.launches, "K2-bwd": flash_attention_bwd.launches}
+        vec = grad_vector(grads)
+        ref = vec if ref is None else ref
+        cos = torch.nn.functional.cosine_similarity(vec, ref, dim=0).item()
+        del grads
+        opt = build_optimizer(OptimConfig(learning_rate=1e-4, schedule="constant"), params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            train_step(tmodel, arch, opt, batch, row.plan, remat=policy)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name in TRAINING:
+            totals[name] += WRAPPERS[name].launches
+        log(f"[remat] 9B LoRA, {row.plan.fused_len} tokens, {policy}: timed steps "
+            f"{[round(s, 4) for s in times[1:]]} s (warm-up {times[0]:.4f}), peak {peak:.2f} GiB;"
+            f" launches in one step {fwd}; first-step gradient cosine with full {cos:.6f}; "
+            f"{smi}")
+        if not cos >= POLICY_COS:
+            raise AssertionError(f"remat {policy}: gradient cosine {cos} with full")
+        del opt
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+    for name, v in totals.items():
+        kernel_results[name]["launches"] += v
+    del ref, vec, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(NanoConfig(), **BENCH_52L)
+    m52 = NanoModel(cfg, torch.bfloat16, DEV)
+    m52.reset_parameters(torch.Generator(device=DEV).manual_seed(SEED + 12))
+    ids = torch.zeros(1, BENCH_52L_TOKENS, dtype=torch.long, device=DEV)
+    plist = list(m52.parameters())
+    log(f"[remat] bench_all.py's 52-layer cell: hidden {cfg.hidden_size}, "
+        f"{sum(p.numel() for p in plist) / 1e9:.3f} B parameters, {BENCH_52L_TOKENS} tokens, "
+        f"every parameter's gradient")
+    ref = None
+    for policy in ("full", "dots_scan"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            out = nano_forward(m52, cfg, input_ids=ids, remat=policy)
+            loss = torch.nn.functional.cross_entropy(out["logits"][0, :-1], ids[0, 1:])
+            grads = torch.autograd.grad(loss, plist)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                vec = torch.cat([g.float().flatten() for g in grads])
+                ref = vec if ref is None else ref
+                cos = torch.nn.functional.cosine_similarity(vec, ref, dim=0).item()
+                del vec
+            del out, loss, grads
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name in TRAINING:
+            kernel_results[name]["launches"] += WRAPPERS[name].launches
+        med = sorted(times[1:])[1]
+        log(f"[remat] 52 layers, {policy}: timed steps {[round(s, 4) for s in times[1:]]} s "
+            f"(warm-up {times[0]:.4f}), {BENCH_52L_TOKENS / med:.1f} tokens/s at the median, "
+            f"peak {peak:.2f} GiB, K1 {ssd_scan.launches // 4} and K2 "
+            f"{flash_attention.launches // 4} launches a step, gradient cosine with full "
+            f"{cos:.6f}; {smi}")
+        if not cos >= POLICY_COS:
+            raise AssertionError(f"52 layers, {policy}: gradient cosine {cos} with full")
+    del m52, plist, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lora_lm_steps(llm, cfg, ids: torch.Tensor, steps: int = 4) -> tuple:
+    """`steps` LoRA steps of the backbone alone (remat "full", the factors'
+    AdamW, lr 1e-4): (losses, seconds a step, peak GiB)."""
+    from timeviper_tpu_torch.train.optim import build_optimizer
+
+    params = {n: p for n, p in llm.named_parameters() if ".lora_" in n}
+    for n, p in llm.named_parameters():
+        p.requires_grad_(n in params)
+    opt = build_optimizer(OptimConfig(learning_rate=1e-4, schedule="constant"), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = nano_forward(llm, cfg, input_ids=ids[:, :-1], remat=True)
+        loss = torch.nn.functional.cross_entropy(out["logits"][0], ids[0, 1:])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update({n: g.float() for n, g in zip(params, grads)})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del out, loss, grads
+    return losses, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def module_bytes(llm) -> dict:
+    """The backbone's bytes on the card by part: the int8 linears (kernel_q,
+    kernel_scale, bias), the bf16 linears, the embeddings, the f32 lm_head
+    weight an int8 lm_head keeps for the logits, the LoRA factors, the rest."""
+    from timeviper_tpu_torch.train.lora import LoRAInt8Linear, LoRALinear
+
+    out = dict(int8_linears=0, bf16_linears=0, embeddings=0, lm_head_f32=0, lora=0, rest=0)
+    seen = set()
+    for mod in llm.modules():
+        for name, t in list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False)):
+            if t is None or id(t) in seen:
+                continue
+            seen.add(id(t))
+            b = t.numel() * t.element_size()
+            if name.startswith("lora_"):
+                out["lora"] += b
+            elif isinstance(mod, Int8Linear):
+                out["int8_linears"] += b
+            elif isinstance(mod, (torch.nn.Linear, LoRALinear)) and not isinstance(
+                    mod, LoRAInt8Linear):
+                out["bf16_linears"] += b
+            elif isinstance(mod, torch.nn.Embedding):
+                out["embeddings"] += b
+            else:
+                out["rest"] += b
+        if isinstance(mod, Int8Linear) and mod._f32 is not None:
+            out["lm_head_f32"] += mod._f32.numel() * 4
+    return out
+
+
+def phase_qlora(smi: str, kernel_results: dict) -> None:
+    """Phase 4e: QLoRA on the 9B's backbone (bench_all.py:bench_qlora): LoRA
+    rank QLORA_RANK on the bf16 base, 4 steps of QLORA_TOKENS tokens; the
+    same factors again on the base in int8 (train/quantize.py:
+    quantize_params_int8 keeps a LoRA'd linear's factors), 4 steps. Step s,
+    peak GiB, the base's bytes by part, the first losses against each
+    other."""
+    cfg = dataclasses.replace(NanoConfig(), **QLORA)
+    llm = NanoModel(cfg, torch.bfloat16, DEV)
+    llm.reset_parameters(torch.Generator(device=DEV).manual_seed(SEED + 13))
+    add_lora(llm, rank=QLORA_RANK, scope="",
+             generator=torch.Generator(device=DEV).manual_seed(SEED + 14))
+    init = {n: p.detach().clone() for n, p in llm.named_parameters() if ".lora_" in n}
+    ids = torch.randint(10, cfg.vocab_size, (1, QLORA_TOKENS + 1), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(SEED + 15))
+    reset_launches()
+    b16 = lora_lm_steps(llm, cfg, ids)
+    bytes16 = module_bytes(llm)
+    with torch.no_grad():
+        for n, p in llm.named_parameters():
+            if n in init:
+                p.copy_(init[n])
+    quantize_params_int8(llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    q8 = lora_lm_steps(llm, cfg, ids)
+    bytes8 = module_bytes(llm)
+    for name in ("ssd_fwd", "flash_fwd", "ssd_bwd", "flash_bwd"):
+        kernel_results[name]["launches"] += WRAPPERS[name].launches
+    base16 = sum(v for k, v in bytes16.items() if k != "lora")
+    base8 = sum(v for k, v in bytes8.items() if k != "lora")
+    n_factor = sum(t.numel() for t in init.values())
+    gib = {k: round(v / 2**30, 3) for k, v in bytes8.items()}
+    rel = abs(q8[0][0] - b16[0][0]) / abs(b16[0][0])
+    for tag, (losses, times, peak), base in (("bf16 base", b16, base16),
+                                             ("int8 base", q8, base8)):
+        log(f"[qlora] 9B backbone, LoRA rank {QLORA_RANK} ({n_factor / 1e6:.1f} M factor "
+            f"parameters), {QLORA_TOKENS} tokens, {tag}: base {base / 2**30:.2f} GiB; steps "
+            f"{[round(s, 4) for s in times]} s, {QLORA_TOKENS / sorted(times[1:])[1]:.1f} "
+            f"tokens/s at the median of the last 3, peak {peak:.2f} GiB; losses "
+            f"{[round(v, 5) for v in losses]}; {smi}")
+    log(f"[qlora] the int8 base by part (GiB): {gib}; {held:.2f} GiB held on the card after "
+        f"quantizing; first loss int8 {q8[0][0]:.6f} against bf16 {b16[0][0]:.6f} "
+        f"(relative {rel:.2e})")
+    if not base8 < base16:
+        raise AssertionError(f"the int8 base holds {base8} bytes, the bf16 one {base16}")
+    if not all(math.isfinite(v) for v in q8[0]) or not q8[0][-1] < q8[0][0]:
+        raise AssertionError(f"QLoRA losses {q8[0]}")
+    del llm, init, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def copy_gbs(nbytes: int = 256 << 20) -> tuple:
+    """Host-to-device and device-to-host GB/s of one pinned buffer of
+    `nbytes`, by CUDA events over 5 copies after one."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    rates = []
+    for dst, src in ((dev, host), (host, dev)):
+        dst.copy_(src, non_blocking=True)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        b.record()
+        torch.cuda.synchronize()
+        rates.append(5 * nbytes / (a.elapsed_time(b) / 1e3) / 1e9)
+    return tuple(rates)
+
+
+def phase_offload(smi: str, kernel_results: dict) -> None:
+    """Phase 4f: train/offload.py:StreamedTrainer on the TPU suite's offload
+    row (bench_all.py:bench_offload: 3 layers M*-, hidden 4,096, the 9B's
+    layer widths, vocab 2,048, f32 masters, OFFLOAD_TOKENS tokens): 1 warm-up
+    and 3 timed steps, tokens/s, the pinned copies' GB/s, the device time
+    split into copies and compute, the host's AdamW seconds; the loss falls."""
+    from timeviper_tpu_torch.train.offload import StreamedTrainer, host_params
+
+    cfg = dataclasses.replace(NanoConfig(), **OFFLOAD)
+    m = NanoModel(cfg, torch.float32, DEV)
+    m.reset_parameters(torch.Generator(device=DEV).manual_seed(SEED + 16))
+    n_params = sum(p.numel() for p in m.parameters())
+    total, avail = host_ram_gib()
+    if 12 * n_params / 2**30 > 0.5 * avail:
+        raise RuntimeError(f"{n_params} parameters need {12 * n_params / 2**30:.1f} GiB of host "
+                           f"RAM (masters and moments), {avail:.1f} GiB are available")
+    host = host_params(m)
+    del m
+    torch.cuda.empty_cache()
+    ids = np.random.default_rng(SEED + 17).integers(3, cfg.vocab_size, (1, OFFLOAD_TOKENS + 1))
+    tr = StreamedTrainer(cfg, host, lr=1e-4, compute_dtype=torch.bfloat16, device=DEV)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, splits = [], [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(ids, ids))
+        times.append(time.perf_counter() - t0)
+        splits.append(dict(tr.timing))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: WRAPPERS[name].launches for name in ("ssd_fwd", "flash_fwd", "ssd_bwd",
+                                                           "flash_bwd")}
+    for name, v in launches.items():
+        kernel_results[name]["launches"] += v
+    h2d, d2h = copy_gbs()
+    moved = tr.layer_bytes()
+    med = sorted(times[1:])[1]
+    log(f"[offload] {cfg.num_hidden_layers} layers {cfg.hybrid_override_pattern}, "
+        f"{n_params / 1e6:.1f} M parameters ({12 * n_params / 2**30:.2f} GiB of f32 masters and "
+        f"moments on the host, {avail:.1f} GiB available), {OFFLOAD_TOKENS} tokens: timed steps "
+        f"{[round(s, 4) for s in times[1:]]} s (warm-up {times[0]:.4f}), "
+        f"{OFFLOAD_TOKENS / med:.1f} tokens/s at the median, peak {peak:.2f} GiB on the card; "
+        f"losses {[round(v, 5) for v in losses]}; launches over the 4 steps {launches}; {smi}")
+    log(f"[offload] pinned copies: host-to-device {h2d:.2f} GB/s, device-to-host {d2h:.2f} "
+        f"GB/s; a step moves {moved['h2d'] / 1e9:.3f} GB in and {moved['d2h'] / 1e9:.3f} GB "
+        f"out ({moved['h2d'] / h2d / 1e9 + moved['d2h'] / d2h / 1e9:.3f} s at those rates)")
+    for i, s in enumerate(splits[1:], 1):
+        log(f"[offload] step {i + 1}: the card's timeline (events; host gaps included) "
+            f"staging weights in {s.get('stage_ms', math.nan):.1f} ms, computing "
+            f"{s.get('compute_ms', math.nan):.1f} ms, pulling gradients out "
+            f"{s.get('pull_ms', math.nan):.1f} ms; the host's AdamW "
+            f"{s['host_adam_s']:.3f} s of the step's {times[i]:.3f} s")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"offload losses {losses}")
+    del tr, host
+
+
+def phases_training_entry(model, arch, ckpt: Path, smi: str, kernel_results: dict,
+                          lap) -> None:
+    """Phases 4c-4f in turn (4c and 4d on phase 4b's checkpoint)."""
+    lap("checkpoint")
+    trainer = phase_train_cli(model, arch, ckpt, smi, kernel_results)
+    lap("training CLI")
+    phase_remat_policies(trainer.model, arch, smi, kernel_results)
+    lap("remat policies")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_qlora(smi, kernel_results)
+    lap("QLoRA")
+    phase_offload(smi, kernel_results)
+    lap("offload")
 
 
 def main() -> int:
@@ -4411,8 +5019,9 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, init {time.perf_counter() - t0:.1f} s")
     bf16 = phase_serving(model, arch, results, profile=args.profile)
     lap("serving")
-    phase_checkpoint(model, arch, smi, results)
-    lap("checkpoint")
+    phase_checkpoint(model, arch, smi, results, then=lambda ckpt: phases_training_entry(
+        model, arch, ckpt, smi, results, lap))
+    lap("checkpoint deleted")
     phase_long_video(model, arch, results)
     lap("long video")
     phase_engine(model, arch, smi, results)

@@ -15,6 +15,8 @@ import pytest
 from torch_parity import rng
 
 from timeviper_tpu.data import conversation as j_conv
+from timeviper_tpu.data import datasets as j_datasets
+from timeviper_tpu.data import loader as j_loader
 from timeviper_tpu.data import image_processing as j_img
 from timeviper_tpu.data import native as j_native
 from timeviper_tpu.data import native_video as j_native_video
@@ -26,7 +28,10 @@ from timeviper_tpu.eval import cider as j_cider
 from timeviper_tpu.eval import loaders as j_loaders
 from timeviper_tpu.eval import meteor_py as j_meteor
 from timeviper_tpu.eval import scoring as j_scoring
+from timeviper_tpu.utils import overwatch as j_overwatch
 from timeviper_tpu_torch.data import conversation as t_conv
+from timeviper_tpu_torch.data import datasets as t_datasets
+from timeviper_tpu_torch.data import loader as t_loader
 from timeviper_tpu_torch.data import image_processing as t_img
 from timeviper_tpu_torch.data import native as t_native
 from timeviper_tpu_torch.data import native_video as t_native_video
@@ -38,6 +43,7 @@ from timeviper_tpu_torch.eval import cider as t_cider
 from timeviper_tpu_torch.eval import loaders as t_loaders
 from timeviper_tpu_torch.eval import meteor_py as t_meteor
 from timeviper_tpu_torch.eval import scoring as t_scoring
+from timeviper_tpu_torch.utils import overwatch as t_overwatch
 
 
 def _public(mod):
@@ -58,7 +64,7 @@ def test_templates_byte_for_byte():
                     == j.prompt_for_generation("q?", include_system=system))
 
 
-def _tokenizer():
+def _tokenizer(**special):
     from tokenizers import Tokenizer, models, pre_tokenizers
     from transformers import PreTrainedTokenizerFast
 
@@ -67,7 +73,7 @@ def _tokenizer():
                                      unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     return PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="<pad>", unk_token="<unk>",
-                                   eos_token="<SPECIAL_12>")
+                                   eos_token="<SPECIAL_12>", **special)
 
 
 def test_processor_on_one_tokenizer():
@@ -83,6 +89,45 @@ def test_processor_on_one_tokenizer():
     assert got.decode(g["input_ids"].tolist()) == want.decode(w["input_ids"].tolist())
     with pytest.raises(ValueError):
         got(prompt, videos=[frames[:2]])
+
+
+def test_processor_on_a_tokenizer_without_the_replace_keyword():
+    """transformers 5 names the keyword `replace_extra_special_tokens`, not
+    `replace_additional_special_tokens`, and replaces the tokenizer's own
+    extra special tokens without it: the port passes whichever keyword the
+    tokenizer takes, so those tokens stay special beside `<image>`, as the
+    JAX processor keeps them, and decoding skips them alike. A tokenizer that
+    takes neither keyword is refused."""
+    class Transformers5:
+        def __init__(self, tok):
+            self._tok = tok
+
+        def add_special_tokens(self, tokens, replace_extra_special_tokens=True):
+            return self._tok.add_special_tokens(
+                tokens, replace_additional_special_tokens=replace_extra_special_tokens)
+
+        def __getattr__(self, name):
+            return getattr(self._tok, name)
+
+    class NoKeyword(Transformers5):
+        def add_special_tokens(self, tokens):
+            return self._tok.add_special_tokens(tokens)
+
+    def extra():  # a fresh list: the tokenizer appends to the one it is given
+        return dict(additional_special_tokens=["<SPECIAL_10>", "<SPECIAL_11>"])
+
+    tok = Transformers5(_tokenizer(**extra()))
+    got = t_proc.Processor.build(tok, t_img.transform_for_family("siglip", 28), "nano")
+    want = j_proc.Processor.build(_tokenizer(**extra()), j_img.transform_for_family("siglip", 28),
+                                  "nano")
+    assert (got.image_token_id, got.terminator_ids) == (want.image_token_id, want.terminator_ids)
+    assert tok.additional_special_tokens == want.tokenizer.additional_special_tokens == [
+        "<SPECIAL_10>", "<SPECIAL_11>", "<image>"]
+    text = "<SPECIAL_10> <image> what <SPECIAL_11> is it"
+    assert got.tokenize(text) == want.tokenize(text)
+    assert got.decode(got.tokenize(text)) == want.decode(want.tokenize(text)) == "what is it"
+    with pytest.raises(TypeError, match="replace_extra_special_tokens"):
+        t_proc.attach_special_tokens(NoKeyword(_tokenizer(**extra())), "nano")
 
 
 @pytest.mark.parametrize("strategy", ["resize-naive", "resize-crop", "letterbox"])
@@ -283,3 +328,151 @@ def test_loaders(name, split, tree):
     want = j_loaders.load_benchmark(name, split=split)
     key = (lambda r: r["qid"])
     assert sorted(got, key=key) == sorted(want, key=key) and got
+
+
+# -- training data: datasets, the threaded loader, overwatch ----------------
+
+
+@pytest.mark.parametrize("has_system", [True, False])
+def test_label_masking(has_system):
+    ids = rng(7).integers(0, 9, 40)
+    for sep in (3, 8):
+        np.testing.assert_array_equal(
+            t_datasets.mask_labels_by_separator(ids, sep, has_system),
+            j_datasets.mask_labels_by_separator(ids, sep, has_system))
+
+
+def _video_loader(item, cfg):
+    if item.get("video") == "bad.mp4":
+        raise OSError("corrupt")
+    n = cfg.num_frames
+    return rng(len(item["video"])).integers(0, 255, (n, 30, 40, 3), dtype=np.uint8), 12.3, n
+
+
+def _data_yaml(tmp_path):
+    conv = [{"from": "human", "value": "<image> what is it ."}, {"from": "gpt", "value": "it ."}]
+    specs = {
+        "caption": ("caption", [{"video": f"c{i}.mp4", "caption": "it is ."} for i in range(3)]),
+        "tvg": ("tvg", [{"video": "t.mp4", "conversations": conv}]),
+        "dvc": ("dvc", [{"video": "d.mp4", "conversations": conv}]),
+        "packed": ("conversation_packed",
+                   [{"video": f"p{i}.mp4", "conversations": conv} for i in range(5)]),
+        "retry": ("conversation", [{"video": "bad.mp4", "conversations": conv},
+                                   {"video": "ok.mp4", "conversations": conv}]),
+    }
+    lines = ["datasets:"]
+    for name, (fmt, items) in specs.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(items))
+        lines += [f"  - format: {fmt}", f"    json_path: {tmp_path / name}.json",
+                  "    num_frames: 2", "    pack_size: 2", "    split: [0, -1]"]
+    (tmp_path / "data.yaml").write_text("\n".join(lines) + "\n")
+    return str(tmp_path / "data.yaml")
+
+
+def test_datasets_from_one_yaml(tmp_path):
+    """Every format of load_data_from_config (caption, TVG, DVC, a packed
+    conversation, a corrupt sample's random substitute) and ConcatDataset
+    give the JAX package's items on one tokenizer, the same draws of
+    Python's `random` on both sides."""
+    import random
+    import warnings
+
+    path = _data_yaml(tmp_path)
+    procs = [mod.Processor.build(_tokenizer(), img.transform_for_family("siglip", 28), "nano")
+             for mod, img in ((t_proc, t_img), (j_proc, j_img))]
+    sides = [ds_mod.ConcatDataset(ds_mod.load_data_from_config(path, proc,
+                                                               video_loader=_video_loader))
+             for ds_mod, proc in zip((t_datasets, j_datasets), procs)]
+    assert len(sides[0]) == len(sides[1]) == 3 + 1 + 1 + 3 + 2
+    for i in range(len(sides[0])):
+        items = []
+        for side in sides:
+            random.seed(i)
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                items.append(side[i])
+        got, want = items
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if isinstance(v, np.ndarray):
+                assert np.array_equal(got[k], v) and got[k].dtype == v.dtype, (i, k)
+            else:
+                assert got[k] == v, (i, k)
+
+
+@pytest.mark.parametrize("n,bs,pc,drop_last,shuffle", [
+    (10, 3, 1, True, True), (10, 3, 2, False, True), (7, 2, 3, True, False),
+    (5, 4, 2, False, False), (2, 4, 1, True, True)])
+def test_data_loader_order_matches_jax(n, bs, pc, drop_last, shuffle):
+    import warnings
+
+    items = [{"input_ids": np.asarray([5, 500, 6 + i] + [7] * (i % 3)),
+              "labels": np.asarray([-100, -100, 6 + i] + [7] * (i % 3)),
+              "pixels": np.full((1, 4, 4, 3), i, np.float32)} for i in range(n)]
+    for pi in range(pc):
+        kw = dict(image_token_id=500, tokens_per_frame=2, shuffle=shuffle, seed=3,
+                  num_workers=1, drop_last=drop_last, process_index=pi, process_count=pc)
+        got_l, want_l = t_loader.DataLoader(items, bs, **kw), j_loader.DataLoader(items, bs, **kw)
+        assert len(got_l) == len(want_l)
+        for epoch in (0, 1):
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                assert got_l._index_batches(epoch) == want_l._index_batches(epoch)
+                got, want = list(got_l.epoch(epoch)), list(want_l.epoch(epoch))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert type(g.plan).__name__ == type(w.plan).__name__
+                for k, v in w.batch.items():
+                    assert np.array_equal(g.batch[k], v), k
+
+
+def test_data_loader_raises_a_workers_error_and_stops_early():
+    def bad(i):
+        raise KeyError(i)
+
+    class Bad:
+        def __len__(self):
+            return 4
+
+        __getitem__ = staticmethod(bad)
+
+    with pytest.raises(KeyError):
+        list(t_loader.DataLoader(Bad(), 2, 500, 2, num_workers=2).epoch(0))
+    items = [{"input_ids": np.asarray([5, 6]), "labels": np.asarray([5, 6])}] * 40
+    it = t_loader.DataLoader(items, 2, 500, 2, num_workers=3, prefetch=1).epoch(0)
+    next(it)
+    it.close()  # the workers stop; nothing hangs
+
+
+def test_overwatch_and_tee(tmp_path, capsys):
+    assert t_overwatch.Overwatch("t").rank == 0
+    for mod in (t_overwatch, j_overwatch):
+        path = tmp_path / f"{mod.__name__}.log"
+        tee = mod.Tee(str(path), __import__("sys").stdout)
+        tee.write("one line\n")
+        tee.flush()
+        tee.file.close()
+        assert path.read_text() == "one line\n"
+    out = capsys.readouterr().out
+    assert out.count("one line") == 2
+    ow = t_overwatch.initialize_overwatch("timeviper_test")
+    assert ow._fmt("x") == j_overwatch.initialize_overwatch("timeviper_test_j")._fmt("x")
+    with ow.ctx("title"):
+        assert ow._fmt("y") == "\t+=> y"
+
+
+def test_profile_ctx_and_nan_debug(tmp_path):
+    """utils/profiling.py: a torch.profiler trace written where asked;
+    nan_debug's anomaly mode names the op whose backward gave a NaN, and is
+    off again after the block."""
+    import torch
+
+    from timeviper_tpu_torch.utils.profiling import nan_debug, profile_ctx
+
+    with profile_ctx(str(tmp_path / "prof")):
+        torch.ones(3).sum()
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    x = torch.zeros(1, requires_grad=True)
+    with nan_debug(True), pytest.warns(UserWarning), pytest.raises(RuntimeError, match="nan"):
+        (x / x).sum().backward()
+    assert not torch.is_anomaly_enabled()

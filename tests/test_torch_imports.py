@@ -44,7 +44,11 @@ MODULES = [
     "timeviper_tpu_torch.eval.dvc", "timeviper_tpu_torch.eval.evaluate",
     "timeviper_tpu_torch.eval.judges", "timeviper_tpu_torch.eval.loaders",
     "timeviper_tpu_torch.eval.meteor", "timeviper_tpu_torch.eval.meteor_py",
-    "timeviper_tpu_torch.eval.ptb", "timeviper_tpu_torch.eval.scoring", "chip_smoke",
+    "timeviper_tpu_torch.eval.ptb", "timeviper_tpu_torch.eval.scoring",
+    "timeviper_tpu_torch.data.datasets", "timeviper_tpu_torch.models.remat",
+    "timeviper_tpu_torch.train.offload", "timeviper_tpu_torch.train.cli",
+    "timeviper_tpu_torch.utils", "timeviper_tpu_torch.utils.overwatch",
+    "timeviper_tpu_torch.utils.profiling", "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent
 
@@ -62,9 +66,10 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-@pytest.mark.parametrize("module", ["timeviper_tpu_torch.chat",
-                                    "timeviper_tpu_torch.eval.evaluate"])
-def test_cli_help_imports_no_jax(module):
+@pytest.mark.parametrize("module,flag", [("timeviper_tpu_torch.chat", "--checkpoint"),
+                                         ("timeviper_tpu_torch.eval.evaluate", "--checkpoint"),
+                                         ("timeviper_tpu_torch.train.cli", "--data_config")])
+def test_cli_help_imports_no_jax(module, flag):
     """`python -m <cli> --help` prints its flags and loads no JAX."""
     code = "\n".join([
         "import runpy, sys",
@@ -79,7 +84,7 @@ def test_cli_help_imports_no_jax(module):
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
                          capture_output=True, text=True).stdout
-    assert "--checkpoint" in out and "--device" in out
+    assert flag in out and "--device" in out
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -69,6 +69,11 @@ K5, K7 and K8 (csrc/ssd_fwd.cu with the conv fused in, csrc/decode_fused.cu,
 csrc/layernorm.cu) are held to 1e-2 of the plain result's largest magnitude
 like the other forward kernels; K8's int8 codes may differ by 1 at no more
 than 0.1% of elements (ties of y * act_inv, whose sums differ in order).
+
+The layer-streamed offload trainer (train/offload.py) takes three steps
+through its pinned, double-buffered transfers and through blocking copies,
+on eight layers whose block types repeat: the losses and the host masters
+agree to 1e-6, so no buffer is reused before the copy that reads it is done.
 """
 
 import threading
@@ -1122,3 +1127,128 @@ def test_int8_product_on_the_card_is_the_cpu_one(M, K):
     want = apply_linear_w8a8(mod, x)
     got = apply_linear_w8a8(mod.to(dev), x.to(dev))
     assert torch.equal(got.cpu(), want)
+
+
+def _hetero_seq(B, L, reals):
+    """Segment ids of a heterogeneous batch (data/loader.py:collate_hetero):
+    row b real for its first reals[b] rows (segment 0), then its pads in a
+    fresh trailing segment 1."""
+    seq = np.zeros((B, L), np.int32)
+    for b, n_real in enumerate(reals):
+        seq[b, n_real:] = 1
+    return seq
+
+
+@pytest.mark.parametrize("L,reals", [(1064, (1064, 555)), (300, (173, 300)), (4136, (2100, 4136))])
+def test_backward_kernels_on_heterogeneous_rows(L, reals):
+    """K4 and K2-bwd on two rows of a heterogeneous training batch, one of
+    them padded to the other's length in a trailing segment (the SSD resets
+    there, attention masks across it and K2-bwd skips its cross-segment
+    tiles), against autograd through the plain versions; the pad rows'
+    cotangents are zero, as the loss gives them."""
+    dev = require_cuda()
+    B, H, G, cs = 2, 16, 4, 256
+    args, D, dtb, _, _, dy, _ = _ssd_case(11, B, L, H, G, None, cs, dev)
+    seq = t(_hetero_seq(B, L, reals)).to(dev)
+    pad = (seq == 1)[..., None, None]
+    dy = dy.masked_fill(pad, 0)
+    leaves = [v.detach().clone().requires_grad_() for v in (*args.values(), D, dtb)]
+    before = ssd_scan_bwd.launches
+    y, _ = ssd_scan(*leaves[:5], chunk_size=cs, D=leaves[5], dt_bias=leaves[6], seq_idx=seq)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert ssd_scan_bwd.launches == before + 1
+    want = ssd_scan_bwd_plain(*args.values(), D, dtb, seq, dy, None, cs)
+    for g, w in zip(got, [w for w in want if w is not None]):
+        _close(g, w, BWD_TOL, floor=0.0)
+
+    r = rng(12)
+    q, k, v = (t(r.standard_normal((B, L, h, 128), np.float32)).to(dev, torch.bfloat16)
+               for h in (32, 8, 8))
+    g = t(r.standard_normal((B, L, 32, 128), np.float32)).to(dev, torch.bfloat16)
+    g = g.masked_fill(pad, 0)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    before = flash_attention_bwd.launches
+    out = flash_attention(*leaves, segment_ids=seq)
+    got = torch.autograd.grad(out, leaves, g)
+    assert flash_attention_bwd.launches == before + 1
+    for a, b in zip(got, flash_attention_bwd_plain(q, k, v, g, seq)):
+        _close(a, b, BWD_TOL, floor=0.0)
+
+
+def _kernel_backbone(dev):
+    """A three-layer nano backbone (one Mamba, one attention, one MLP layer)
+    at shapes the kernels take: P 64, N 128, head_dim 128."""
+    from timeviper_tpu_torch.config import tiny_nano_config
+    from timeviper_tpu_torch.models.nano import NanoModel
+
+    cfg = tiny_nano_config(hidden_size=256, intermediate_size=512, num_hidden_layers=3,
+                           hybrid_override_pattern="M*-", num_attention_heads=4, head_dim=128,
+                           num_key_value_heads=2, ssm_state_size=128, mamba_num_heads=8,
+                           mamba_n_groups=2, mamba_head_dim=64, chunk_size=64)
+    model = NanoModel(cfg, torch.bfloat16, dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    return cfg, model
+
+
+def test_scan_policy_keeps_the_mixers_launches():
+    """Under remat "scan" (models/remat.py) the backward does not run K1 or K2
+    again: one forward launch a Mamba or attention layer and step, where
+    "full" and "dots" launch two; the gradients are "full"'s."""
+    from timeviper_tpu_torch.models.nano import nano_forward
+
+    dev = require_cuda()
+    cfg, model = _kernel_backbone(dev)
+    ids = t(rng(13).integers(0, cfg.vocab_size, (2, 300))).to(dev)
+    seq = t(_hetero_seq(2, 300, (300, 211))).to(dev)
+    grads, launches = {}, {}
+    for policy in ("full", "scan", "dots", "dots_scan"):
+        counts = (ssd_scan, flash_attention, ssd_scan_bwd, flash_attention_bwd)
+        before = [c.launches for c in counts]
+        out = nano_forward(model, cfg, input_ids=ids, seq_idx=seq, remat=policy)
+        loss = out["logits"][:, :-1].float().logsumexp(-1).mean()
+        grads[policy] = torch.autograd.grad(loss, list(model.parameters()))
+        launches[policy] = [c.launches - b for c, b in zip(counts, before)]
+    assert launches["full"] == launches["dots"] == [2, 2, 1, 1], launches
+    assert launches["scan"] == launches["dots_scan"] == [1, 1, 1, 1], launches
+    for policy in ("scan", "dots", "dots_scan"):
+        for a, b in zip(grads[policy], grads["full"]):
+            _close(a, b, 1e-2, floor=0.0)
+
+
+def test_pinned_offload_steps_match_the_blocking_copies():
+    """train/offload.py:StreamedTrainer's pinned, double-buffered transfers
+    (weights staged through two buffer sets a block type, gradients pulled
+    without blocking while the host's AdamW runs on the last layer's) give
+    the steps of the same trainer with blocking copies from the masters. Eight
+    layers, four of them Mamba and three MLP, so that each buffer set is
+    reused within a step; three steps at lr 1e-3, where one layer updated from
+    a stale or overwritten buffer moves its masters by about the learning
+    rate. The kernels repeat their bits, so the losses and masters agree to
+    1e-6."""
+    from timeviper_tpu_torch.config import tiny_nano_config
+    from timeviper_tpu_torch.models.nano import NanoModel
+    from timeviper_tpu_torch.train.offload import StreamedTrainer, host_params
+
+    dev = require_cuda()
+    cfg = tiny_nano_config(hidden_size=512, intermediate_size=2048, num_hidden_layers=8,
+                           hybrid_override_pattern="M-M-M*M-", num_attention_heads=4,
+                           head_dim=128, num_key_value_heads=2, ssm_state_size=128,
+                           mamba_num_heads=16, mamba_n_groups=2, mamba_head_dim=64,
+                           chunk_size=64, vocab_size=2048)
+    model = NanoModel(cfg, torch.float32, "cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    ids = rng(14).integers(3, cfg.vocab_size, (2, 513))
+    runs = {}
+    for pinned in (True, False):
+        tr = StreamedTrainer(cfg, host_params(model), lr=1e-3, device=dev, pinned=pinned,
+                             logits_chunk=256)
+        before = ssd_scan_bwd.launches
+        losses = [tr.train_step(ids, ids) for _ in range(3)]
+        assert ssd_scan_bwd.launches - before == 3 * 4
+        runs[pinned] = losses, tr.host
+    (lp, hp), (lb, hb) = runs[True], runs[False]
+    np.testing.assert_allclose(lp, lb, rtol=1e-6)
+    moved = host_params(model)
+    for k in hp:
+        np.testing.assert_allclose(hp[k], hb[k], rtol=0, atol=1e-6, err_msg=k)
+        assert not np.array_equal(hp[k], moved[k]), k

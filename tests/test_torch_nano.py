@@ -79,5 +79,10 @@ def test_logits_to_keep_matches_jax():
     out_t = nano_forward(model, cfg, input_ids=t(ids), logits_to_keep=2)
     assert out_t["logits"].shape == (B, 2, cfg.vocab_size)
     np.testing.assert_allclose(n(out_t["logits"]), n(out_j["logits"]), **TOL)
-    with pytest.raises(NotImplementedError):  # the only remat policy ported is "full"
-        nano_forward(model, cfg, input_ids=t(ids), remat="dots")
+    # a remat policy changes what the backward keeps, not the forward
+    # (tests/test_torch_remat_policies.py holds the gradients)
+    out_r = nano_forward(model, cfg, input_ids=t(ids), remat="dots")
+    out_0 = nano_forward(model, cfg, input_ids=t(ids))
+    np.testing.assert_array_equal(n(out_r["logits"]), n(out_0["logits"]))
+    with pytest.raises(ValueError):  # no such policy
+        nano_forward(model, cfg, input_ids=t(ids), remat="everything")

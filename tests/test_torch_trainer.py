@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from timeviper_tpu_torch.config import VLMConfig, tiny_nano_config, tiny_vit_config
-from timeviper_tpu_torch.data.fusion import fuse_labels, plan_fusion
+from timeviper_tpu_torch.data.fusion import HeteroPlan, fuse_labels, plan_fusion
 from timeviper_tpu_torch.data.loader import collate, pad_to
 from timeviper_tpu_torch.models.vlm import VLMArch, init_vlm_params
 from timeviper_tpu_torch.train.checkpoint import latest_checkpoint
@@ -55,10 +55,12 @@ def test_collate_matches_the_fusion_plan():
                                   fuse_labels(plan, [-100] * 5 + [10, 11, 12]))
     assert cb.batch["input_ids"].dtype == np.int32 and (cb.batch["input_ids"] != IMG).all()
     np.testing.assert_array_equal(pad_to(np.arange(3), 5, -1), [0, 1, 2, -1, -1])
-    with pytest.raises(NotImplementedError):  # rows with other layouts
-        collate([{"input_ids": np.asarray([5, IMG]), "labels": np.asarray([1, 2])},
-                 {"input_ids": np.asarray([5, 6]), "labels": np.asarray([1, 2])}],
-                IMG, ARCH.tokens_per_frame)
+    # rows with other layouts: a heterogeneous batch, each row's plan as data
+    # (tests/test_torch_hetero_batch.py)
+    hb = collate([{"input_ids": np.asarray([5, IMG]), "labels": np.asarray([1, 2])},
+                  {"input_ids": np.asarray([5, 6]), "labels": np.asarray([1, 2])}],
+                 IMG, ARCH.tokens_per_frame)
+    assert isinstance(hb.plan, HeteroPlan) and hb.batch["gather_idx"].shape == (2, hb.plan.fused_len)
 
 
 @pytest.mark.parametrize("lora", [False, True])

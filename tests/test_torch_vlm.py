@@ -1,4 +1,4 @@
-"""models/vlm.py (encode_visual, fuse_embeddings, vlm_forward with cache
+"""models/vlm.py (encode_visual, fuse_rows, vlm_forward with cache
 fill) and models/api.py:build_arch against the JAX package, f32, at tiny
 sizes (tiny ViT, ToMe to 2 tokens per frame, tiny Nemotron-H)."""
 

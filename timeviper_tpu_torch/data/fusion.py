@@ -1,6 +1,8 @@
 """Host-side fusion planning: where the visual tokens go in the fused row (the
 port's own numpy-only copy of FusionPlan, plan_fusion and fuse_labels from
-timeviper_tpu/data/fusion.py; tests/test_torch_config.py holds them equal).
+timeviper_tpu/data/fusion.py; tests/test_torch_config.py holds them equal),
+with HeteroPlan and pad_row_plan for batches of rows with different layouts
+(held equal by tests/test_torch_hetero_batch.py).
 
 The model applies a plan as one gather over concat(text embeddings, visual
 tokens). One `<image>` placeholder expands to one frame's `tokens_per_frame`
@@ -91,6 +93,49 @@ def plan_fusion(
         position_ids=np.asarray(pos, np.int32),
         sample_layouts=tuple(layouts),
     )
+
+
+@dataclass(frozen=True)
+class HeteroPlan:
+    """The padded dims of a heterogeneous batch (timeviper_tpu/data/
+    fusion.py:119): rows with different image-token layouts batch together,
+    each row's own plan travelling as data (the `gather_idx` and `seq_idx`
+    arrays of the batch dict), in place of the reference's per-row ragged
+    splicing (generic_vlm.py:517-564, data.py:598-671)."""
+
+    fused_len: int
+    text_len: int
+    num_visual: int  # padded flat visual-token capacity (frames * tpf)
+    num_frames: int  # padded frame capacity
+
+
+def pad_row_plan(
+    plan: FusionPlan,
+    text_len: int,
+    fused_len: int,
+    num_visual: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Remap one row's plan into the padded batch coordinate system.
+
+    Returns (gather_idx (fused_len,), seq_idx (fused_len,)): visual indices
+    shift from `plan.text_len` to `text_len` base; the pad tail points at
+    text slot 0 under a fresh segment id, so SSD state resets and attention
+    segment-masks isolate it (pads are trailing — nothing real follows).
+    """
+    g = plan.gather_idx.astype(np.int64)
+    g = np.where(plan.is_visual, g - plan.text_len + text_len, g)
+    seq = (
+        plan.seq_idx.astype(np.int64)
+        if plan.seq_idx is not None
+        else np.zeros((plan.fused_len,), np.int64)
+    )
+    pad = fused_len - plan.fused_len
+    if pad < 0 or text_len < plan.text_len or num_visual < plan.num_visual:
+        raise ValueError("the batch's padded dims are smaller than the row's plan")
+    if pad:
+        g = np.concatenate([g, np.zeros((pad,), np.int64)])
+        seq = np.concatenate([seq, np.full((pad,), seq.max() + 1)])
+    return g.astype(np.int32), seq.astype(np.int32)
 
 
 def fuse_labels(plan: FusionPlan, labels: Sequence[int]) -> np.ndarray:

@@ -43,7 +43,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _tried = True
         if not os.path.exists(_lib_path()) and not _build():
             return None
-        lib = ctypes.CDLL(_lib_path())
+        try:
+            lib = ctypes.CDLL(_lib_path())
+        except OSError:  # built where a library it links (libav) was present
+            return None
         lib.preprocess_frames.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,

@@ -52,7 +52,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _tried = True
         if not os.path.exists(_lib_path()) and not _build():
             return None
-        lib = ctypes.CDLL(_lib_path())
+        try:
+            lib = ctypes.CDLL(_lib_path())
+        except OSError:  # built where a library it links (libav) was present
+            return None
         lib.vd_open.restype = ctypes.c_void_p
         lib.vd_open.argtypes = [ctypes.c_char_p]
         lib.vd_info.argtypes = [

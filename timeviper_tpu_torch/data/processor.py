@@ -17,6 +17,7 @@ init hooks do (reference llm_registry.py:37-62: qwen2 -> <|im_end|>, nano ->
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -27,11 +28,24 @@ from timeviper_tpu_torch.data.image_processing import ImageTransform
 IMAGE_TOKEN = "<image>"
 
 
+def _keep_extra_special_tokens(tokenizer) -> Dict[str, bool]:
+    """The keyword that has `add_special_tokens` keep the tokenizer's own
+    extra special tokens (both replace them by default): transformers 4 names
+    it `replace_additional_special_tokens`, transformers 5
+    `replace_extra_special_tokens`."""
+    params = inspect.signature(tokenizer.add_special_tokens).parameters
+    for kw in ("replace_additional_special_tokens", "replace_extra_special_tokens"):
+        if kw in params:
+            return {kw: False}
+    raise TypeError("add_special_tokens takes neither replace_additional_special_tokens nor "
+                    "replace_extra_special_tokens: it could drop the tokenizer's own special "
+                    "tokens")
+
+
 def attach_special_tokens(tokenizer, llm_family: str) -> Dict[str, Any]:
     """Add `<image>` and resolve terminators (llm_registry.py:37-62)."""
-    added = tokenizer.add_special_tokens(
-        {"additional_special_tokens": [IMAGE_TOKEN]}, replace_additional_special_tokens=False
-    )
+    added = tokenizer.add_special_tokens({"additional_special_tokens": [IMAGE_TOKEN]},
+                                         **_keep_extra_special_tokens(tokenizer))
     image_token_id = tokenizer.convert_tokens_to_ids(IMAGE_TOKEN)
     if llm_family == "nano":
         terminators = [tokenizer.convert_tokens_to_ids("<SPECIAL_12>")]

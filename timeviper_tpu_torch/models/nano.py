@@ -9,8 +9,8 @@ package:
   scan (ops/ssd_kernel.py, kernels K1 / K4 on the card), attention layers
   causal packed attention (ops/flash_attention.py, kernels K2 / K2-bwd on
   the card); with `fill_cache` it also returns the decode cache, with
-  `remat` it recomputes each block in the backward (torch.utils.checkpoint,
-  the JAX package's `_remat_wrap` with policy "full").
+  `remat` each block is checkpointed under one of the JAX package's remat
+  policies ("full", "scan", "dots", "dots_scan"; models/remat.py).
 * `nano_decode_step`: one token; Mamba layers take the O(1) state update,
   attention layers write their KV buffer in place at `length` and attend
   over the slots [valid_from, length]. `length` and `valid_from` are host
@@ -39,8 +39,6 @@ own row count `kv_len` (a layer before a stage holds the pre-drop rows), the
 decode writes and masks each layer at its `kv_len`, and the cache keeps each
 stage's TransV K/V (`ca_kv`), which every decoded token cross-attends at the
 stage's layer (`nano_decode_step(pdrop_params=...)`).
-
-Left out for now: the remat policies other than "full".
 """
 
 from __future__ import annotations
@@ -52,7 +50,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.models.pdrop import (
@@ -60,6 +57,7 @@ from timeviper_tpu_torch.models.pdrop import (
     cached_merges,
     merge_dropped_cached,
 )
+from timeviper_tpu_torch.models.remat import Parts, remat_policy, run_block, run_parts
 from timeviper_tpu_torch.ops.attention import attention
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_supported
@@ -213,6 +211,53 @@ def mamba_in_proj(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor):
     return ip["gate"](x), ip["x"](x), ip["B"](x), ip["C"](x), ip["dt"](x)
 
 
+def mamba_parts(m: MambaMixer, cfg: NanoConfig, seq_idx: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, Any]] = None, fused_conv: bool = False) -> Parts:
+    """The full-sequence Mamba-2 mixer on x (B, L, D) as (pre, mixer, post)
+    (models/remat.py:run_parts): pre the in-projections and the three convs,
+    mixer the SSD scan (K1), post the gated norm and out_proj. A `cache` dict
+    gets the decode state. `fused_conv` (inference only) leaves the convs to
+    the scan, one call (K5), when the shapes allow it."""
+    di = cfg.mamba_intermediate_size
+    G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
+    cv, act = m.conv1d, cfg.mamba_hidden_act
+    fused = fused_conv and cfg.mamba_d_conv == 4 and cfg.chunk_size % 128 == 0
+
+    def pre(x):
+        gate, xr, Br, Cr, dt = mamba_in_proj(m, cfg, x)
+        if cache is not None:
+            K = cfg.mamba_d_conv
+            cache["conv_state"] = {"x": init_conv_state(xr, K), "B": init_conv_state(Br, K),
+                                   "C": init_conv_state(Cr, K)}
+        if not fused:
+            xr, Br, Cr = (causal_conv1d(s, cv[r].weight, cv[r].bias, act, seq_idx)
+                          for r, s in zip("xBC", (xr, Br, Cr)))
+        return xr, Br, Cr, dt, gate
+
+    def mixer(xs, Bs, Cs, dt, gate):
+        B, L, _ = xs.shape
+        args = (xs.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, L, G, N),
+                Cs.reshape(B, L, G, N))
+        kw = dict(chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
+                  dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
+        if fused:
+            y, final_state = ssd_conv_scan_fused(
+                *args, {"wx": cv["x"].weight, "bx": cv["x"].bias, "wB": cv["B"].weight,
+                        "bB": cv["B"].bias, "wC": cv["C"].weight, "bC": cv["C"].bias}, **kw)
+        else:
+            y, final_state = ssd_scan(*args, **kw)
+        if cache is not None:
+            cache["ssm_state"] = final_state
+        return y
+
+    def post(x, y, xs, Bs, Cs, dt, gate):
+        y = gated_rms_norm(y.reshape(*x.shape[:2], di), gate, m.norm.weight,
+                           eps=cfg.layer_norm_epsilon, group_size=di // G)
+        return m.out_proj(y)
+
+    return pre, mixer, post
+
+
 def mamba_mixer_forward(
     m: MambaMixer,
     cfg: NanoConfig,
@@ -221,40 +266,10 @@ def mamba_mixer_forward(
     fill_cache: bool = False,
     fused_conv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Full-sequence Mamba-2 mixer. x (B, L, D); seq_idx (B, L) int32.
-    `fused_conv` (inference only) runs conv + SiLU + scan as one call when the
-    shapes allow it."""
-    B, L, _ = x.shape
-    di = cfg.mamba_intermediate_size
-    G, N, H, P = cfg.mamba_n_groups, cfg.ssm_state_size, cfg.mamba_num_heads, cfg.mamba_head_dim
-    gate, xr, Br, Cr, dt = mamba_in_proj(m, cfg, x)
-    new_cache = None
-    if fill_cache:
-        K = cfg.mamba_d_conv
-        new_cache = {"conv_state": {"x": init_conv_state(xr, K), "B": init_conv_state(Br, K),
-                                    "C": init_conv_state(Cr, K)}}
-    cv, act = m.conv1d, cfg.mamba_hidden_act
-    if fused_conv and cfg.mamba_d_conv == 4 and cfg.chunk_size % 128 == 0:
-        y, final_state = ssd_conv_scan_fused(
-            xr.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Br.reshape(B, L, G, N),
-            Cr.reshape(B, L, G, N),
-            {"wx": cv["x"].weight, "bx": cv["x"].bias, "wB": cv["B"].weight,
-             "bB": cv["B"].bias, "wC": cv["C"].weight, "bC": cv["C"].bias},
-            chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
-            dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
-    else:
-        xs = causal_conv1d(xr, cv["x"].weight, cv["x"].bias, act, seq_idx)
-        Bs = causal_conv1d(Br, cv["B"].weight, cv["B"].bias, act, seq_idx)
-        Cs = causal_conv1d(Cr, cv["C"].weight, cv["C"].bias, act, seq_idx)
-        y, final_state = ssd_scan(
-            xs.reshape(B, L, H, P), dt, -torch.exp(m.A_log), Bs.reshape(B, L, G, N),
-            Cs.reshape(B, L, G, N), chunk_size=cfg.chunk_size, D=m.D, dt_bias=m.dt_bias,
-            dt_limit=cfg.time_step_limit, seq_idx=seq_idx)
-    if fill_cache:
-        new_cache["ssm_state"] = final_state
-    y = gated_rms_norm(y.reshape(B, L, di), gate, m.norm.weight, eps=cfg.layer_norm_epsilon,
-                       group_size=di // G)
-    return m.out_proj(y), new_cache
+    """Full-sequence Mamba-2 mixer (`mamba_parts`). x (B, L, D); seq_idx
+    (B, L) int32. Returns (out, the decode cache entry with `fill_cache`)."""
+    cache = {} if fill_cache else None
+    return run_parts(mamba_parts(m, cfg, seq_idx, cache, fused_conv), x), cache
 
 
 def mamba_mixer_decode(
@@ -291,31 +306,41 @@ def mamba_mixer_decode(
         "conv_state": {"x": cs_x, "B": cs_B, "C": cs_C}, "ssm_state": ssm_state}
 
 
-def attention_mixer_forward(
-    m: AttentionMixer,
-    cfg: NanoConfig,
-    x: torch.Tensor,
-    segment_ids: Optional[torch.Tensor] = None,
-    fill_cache: bool = False,
-    max_len: int = 0,
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Prefill attention: causal, packed by segment ids (the flash path)."""
-    B, L, _ = x.shape
+def kv_cache_buffers(k: torch.Tensor, v: torch.Tensor, max_len: int) -> Dict[str, Any]:
+    """A prefill's K/V (B, L, Hkv, hd) in zeroed buffers of `max_len` slots:
+    an attention layer's decode cache entry."""
+    B, L = k.shape[:2]
+    if max_len < L:
+        raise ValueError(f"cache capacity {max_len} < prefill length {L}")
+    kc = k.new_zeros(B, max_len, *k.shape[2:])
+    vc = v.new_zeros(B, max_len, *v.shape[2:])
+    kc[:, :L] = k
+    vc[:, :L] = v
+    return {"k": kc, "v": vc}
+
+
+def attention_parts(m: AttentionMixer, cfg: NanoConfig,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict[str, Any]] = None, max_len: int = 0) -> Parts:
+    """Prefill attention, causal and packed by segment ids, as (pre, mixer,
+    post): pre q/k/v, mixer the flash path (K2), post o_proj. A `cache` dict
+    gets the K/V buffers of `max_len` slots."""
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = m.q_proj(x).reshape(B, L, Hq, hd)
-    k = m.k_proj(x).reshape(B, L, Hkv, hd)
-    v = m.v_proj(x).reshape(B, L, Hkv, hd)
-    out = m.o_proj(flash_attention(q, k, v, segment_ids=segment_ids).reshape(B, L, Hq * hd))
-    new_cache = None
-    if fill_cache:
-        if max_len < L:
-            raise ValueError(f"cache capacity {max_len} < prefill length {L}")
-        kc = k.new_zeros(B, max_len, Hkv, hd)
-        vc = v.new_zeros(B, max_len, Hkv, hd)
-        kc[:, :L] = k
-        vc[:, :L] = v
-        new_cache = {"k": kc, "v": vc}
-    return out, new_cache
+
+    def pre(x):
+        B, L, _ = x.shape
+        return (m.q_proj(x).reshape(B, L, Hq, hd), m.k_proj(x).reshape(B, L, Hkv, hd),
+                m.v_proj(x).reshape(B, L, Hkv, hd))
+
+    def mixer(q, k, v):
+        if cache is not None:
+            cache.update(kv_cache_buffers(k, v, max_len))
+        return flash_attention(q, k, v, segment_ids=segment_ids)
+
+    def post(x, o, q, k, v):
+        return m.o_proj(o.reshape(*x.shape[:2], Hq * hd))
+
+    return pre, mixer, post
 
 
 def attention_mixer_decode(
@@ -381,22 +406,34 @@ def mlp_mixer_forward(m: MLPMixer, cfg: NanoConfig, x: torch.Tensor) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
+def block_parts(block: NanoBlock, cfg: NanoConfig, seq_idx: Optional[torch.Tensor],
+                cache: Optional[Dict[str, Any]] = None, cache_max_len: int = 0,
+                fused_conv: bool = False) -> Parts:
+    """One pre-norm block, hidden + mixer(norm(hidden)), as (pre, mixer,
+    post) cut at its sequence mixer (models/remat.py); an MLP block has no
+    mixer (None). A `cache` dict gets the layer's decode cache entry."""
+    def norm(h):
+        return rms_norm(h, block.norm.weight, cfg.layer_norm_epsilon)
+
+    if block.block_type == "mamba":
+        pre, mixer, post = mamba_parts(block.mixer, cfg, seq_idx, cache, fused_conv)
+    elif block.block_type == "attention":
+        pre, mixer, post = attention_parts(block.mixer, cfg, seq_idx, cache, cache_max_len)
+    else:
+        return (lambda h: (), None,
+                lambda h, _: h + mlp_mixer_forward(block.mixer, cfg, norm(h)))
+    return (lambda h: pre(norm(h)), mixer, lambda h, y, *s: h + post(h, y, *s))
+
+
 def _block_forward(block: NanoBlock, cfg: NanoConfig, hidden: torch.Tensor,
                    seq_idx: Optional[torch.Tensor], fill_cache: bool, cache_max_len: int,
                    fused_conv: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    normed = rms_norm(hidden, block.norm.weight, cfg.layer_norm_epsilon)
-    layer_cache: Optional[Dict[str, Any]] = None
-    if block.block_type == "mamba":
-        out, layer_cache = mamba_mixer_forward(block.mixer, cfg, normed, seq_idx, fill_cache,
-                                               fused_conv)
-    elif block.block_type == "attention":
-        out, layer_cache = attention_mixer_forward(
-            block.mixer, cfg, normed, segment_ids=seq_idx, fill_cache=fill_cache,
-            max_len=cache_max_len)
-    else:
-        out = mlp_mixer_forward(block.mixer, cfg, normed)
-    return hidden + out, layer_cache
+    """(the block's output, its decode cache entry with `fill_cache`: None for
+    an MLP block)."""
+    cache = {} if fill_cache else None
+    out = run_parts(block_parts(block, cfg, seq_idx, cache, cache_max_len, fused_conv), hidden)
+    return out, cache or None
 
 
 def nano_forward(
@@ -420,9 +457,10 @@ def nano_forward(
     them) and, with `fill_cache`, the decode `cache`. `logits_to_keep` > 0
     computes the f32 logits of the last rows only. `remat` (True or "full")
     keeps only each block's input for the backward and recomputes the block
-    there; the JAX package's other policies ("dots", "scan", "dots_scan")
-    are not ported. `fused_conv` (inference only) fuses each Mamba layer's
-    conv into its scan (ops/ssd_kernel.py:ssd_conv_scan_fused).
+    there; "scan", "dots" and "dots_scan" keep more, as the JAX package's
+    policies of those names do (models/remat.py). `fused_conv` (inference
+    only) fuses each Mamba layer's conv into its scan
+    (ops/ssd_kernel.py:ssd_conv_scan_fused).
 
     `pdrop_spec` (models/pdrop.py, shared by the B rows) runs the config's
     pdrop stages before their layers, outside the blocks' checkpoints as in
@@ -430,8 +468,7 @@ def nano_forward(
     `pdrop_params` (a MergeModules or None); the labels and seq_idx shrink
     with the rows, and a filled cache records each attention layer's
     `kv_len` and each stage's `ca_kv` (timeviper_tpu/models/nano.py:616-681)."""
-    if remat not in (False, True, "full"):
-        raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
+    policy = remat_policy(remat)
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
     stages = ({st.layer: (i, st) for i, st in enumerate(cfg.pdrop_stages)}
               if pdrop_spec is not None else {})
@@ -444,10 +481,8 @@ def nano_forward(
                 attn_mixer=block.mixer if st.compress_type == "attn" else None,
                 merge=pdrop_params)
             ca_kvs.append(ca_kv or {})
-        if remat and not fill_cache:
-            hidden = checkpoint(
-                lambda h, blk=block, s=seq_idx: _block_forward(blk, cfg, h, s, False, 0)[0],
-                hidden, use_reentrant=False)
+        if policy and not fill_cache:
+            hidden = run_block(block_parts(block, cfg, seq_idx), hidden, policy)
             layer_cache = None
         else:
             hidden, layer_cache = _block_forward(block, cfg, hidden, seq_idx, fill_cache,

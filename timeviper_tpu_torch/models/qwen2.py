@@ -12,9 +12,10 @@ forward passes are plain functions named as in the JAX package:
   own, so the first real token sits at position 0); each layer's causal,
   segment-masked attention runs on q and k after RoPE through
   ops/flash_attention.py (K2 on the card, and under autograd K2-bwd for its
-  backward). With `remat` each layer keeps only its input for the backward
-  and is recomputed there (one checkpoint a layer, the JAX package's
-  `_remat_wrap` with policy "full"). With a `pdrop_spec` the stages run
+  backward). With `remat` each layer is checkpointed under one of the JAX
+  package's remat policies ("full": only its input kept; "scan", "dots",
+  "dots_scan": models/remat.py, the attention output being the named one).
+  With a `pdrop_spec` the stages run
   before their layers and the positions are numbered again over the kept
   rows.
 * `qwen2_decode_step`: one token per row. It rotates at the logical position
@@ -64,10 +65,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import Qwen2Config
-from timeviper_tpu_torch.models.nano import RMSNorm
+from timeviper_tpu_torch.models.nano import RMSNorm, kv_cache_buffers
+from timeviper_tpu_torch.models.remat import Parts, remat_policy, run_block, run_parts
 from timeviper_tpu_torch.models.pdrop import (
     apply_pdrop_stage,
     cached_merges,
@@ -179,26 +180,6 @@ def mlp_forward(mlp: Qwen2MLP, x: torch.Tensor) -> torch.Tensor:
     return mlp.down_proj(F.silu(mlp.gate_proj(x)) * mlp.up_proj(x))
 
 
-def attention_forward(attn: Qwen2Attention, cfg: Qwen2Config, x: torch.Tensor,
-                      positions: torch.Tensor, seq_idx: Optional[torch.Tensor],
-                      fill_cache: bool = False, max_len: int = 0
-                      ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Prefill attention: causal, packed by segment ids (K2 on the card)."""
-    B, L, _ = x.shape
-    q, k, v = project_qkv(attn, cfg, x, positions)
-    out = attn.o_proj(flash_attention(q, k, v, segment_ids=seq_idx).reshape(B, L, -1))
-    new_cache = None
-    if fill_cache:
-        if max_len < L:
-            raise ValueError(f"cache capacity {max_len} < prefill length {L}")
-        kc = k.new_zeros(B, max_len, *k.shape[2:])
-        vc = v.new_zeros(B, max_len, *v.shape[2:])
-        kc[:, :L] = k
-        vc[:, :L] = v
-        new_cache = {"k": kc, "v": vc}
-    return out, new_cache
-
-
 def attention_decode(attn: Qwen2Attention, cfg: Qwen2Config, x: torch.Tensor,
                      cache_layer: Dict[str, Any], length, valid_from=0
                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -243,20 +224,39 @@ def attention_decode(attn: Qwen2Attention, cfg: Qwen2Config, x: torch.Tensor,
     return attn.o_proj(out.reshape(B, 1, -1)), cache_layer
 
 
+def layer_parts(layer: Qwen2Layer, cfg: Qwen2Config, positions: torch.Tensor,
+                seq_idx: Optional[torch.Tensor], cache: Optional[Dict[str, Any]] = None,
+                max_len: int = 0) -> Parts:
+    """One pre-norm layer cut at its attention (models/remat.py): pre the
+    input norm, q/k/v and RoPE; mixer the causal, segment-masked flash path
+    (K2), where a `cache` dict gets the K/V buffers of `max_len` slots; post
+    o_proj and the residual, then the MLP on its own norm and residual."""
+    eps = cfg.rms_norm_eps
+
+    def pre(h):
+        return project_qkv(layer.self_attn, cfg, rms_norm(h, layer.input_layernorm.weight, eps),
+                           positions)
+
+    def mixer(q, k, v):
+        if cache is not None:
+            cache.update(kv_cache_buffers(k, v, max_len))
+        return flash_attention(q, k, v, segment_ids=seq_idx)
+
+    def post(h, o, q, k, v):
+        h = h + layer.self_attn.o_proj(o.reshape(*h.shape[:2], -1))
+        return h + mlp_forward(layer.mlp, rms_norm(h, layer.post_attention_layernorm.weight,
+                                                   eps))
+
+    return pre, mixer, post
+
+
 def _layer_forward(layer: Qwen2Layer, cfg: Qwen2Config, hidden: torch.Tensor,
                    positions: torch.Tensor, seq_idx: Optional[torch.Tensor],
                    fill_cache: bool = False, max_len: int = 0
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """One pre-norm block: attention, then the MLP, each added to the
-    residual."""
-    eps = cfg.rms_norm_eps
-    a, lc = attention_forward(layer.self_attn, cfg,
-                              rms_norm(hidden, layer.input_layernorm.weight, eps),
-                              positions, seq_idx, fill_cache, max_len)
-    hidden = hidden + a
-    hidden = hidden + mlp_forward(
-        layer.mlp, rms_norm(hidden, layer.post_attention_layernorm.weight, eps))
-    return hidden, lc
+    """(the layer's output, its decode cache entry with `fill_cache`)."""
+    cache = {} if fill_cache else None
+    return run_parts(layer_parts(layer, cfg, positions, seq_idx, cache, max_len), hidden), cache
 
 
 # ---------------------------------------------------------------------------
@@ -283,14 +283,13 @@ def qwen2_forward(
     "logits", "labels"} (the labels passed through, as the JAX forward
     returns them) and, with `fill_cache`, the decode `cache`.
     `logits_to_keep` > 0 computes the f32 logits of the last rows only.
-    `remat` (True or "full") recomputes each layer in the backward
-    (qwen2.py:215-218); the other policies are not ported. `pdrop_spec`
+    `remat` (True or a policy, models/remat.py) checkpoints each layer
+    (qwen2.py:215-218). `pdrop_spec`
     (models/pdrop.py, shared by the B rows) runs the config's stages before
     their layers, outside the layers' checkpoints, with the TransV modules
     `pdrop_params`; a filled cache then records each layer's `kv_len` and
     each stage's `ca_kv` (qwen2.py:186-238)."""
-    if remat not in (False, True, "full"):
-        raise NotImplementedError(f"remat policy {remat!r} is not ported; 'full' is")
+    policy = remat_policy(remat)
     hidden = model.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
     B, L, _ = hidden.shape
     eps = cfg.rms_norm_eps
@@ -307,10 +306,8 @@ def qwen2_forward(
                 merge=pdrop_params)
             ca_kvs.append(ca_kv or {})
             positions = build_positions(seq_idx, B, hidden.shape[1], hidden.device)
-        if remat and not fill_cache:
-            hidden = checkpoint(
-                lambda h, lyr=layer, pos=positions, s=seq_idx: _layer_forward(
-                    lyr, cfg, h, pos, s)[0], hidden, use_reentrant=False)
+        if policy and not fill_cache:
+            hidden = run_block(layer_parts(layer, cfg, positions, seq_idx), hidden, policy)
             lc = None
         else:
             hidden, lc = _layer_forward(layer, cfg, hidden, positions, seq_idx, fill_cache,

@@ -10,8 +10,10 @@ gives the model its TransV modules (`merge_modules`, models/pdrop.py), and
 (training through TransV's cross-attention backward on the card). The
 backbone is Nemotron-H (`llm_family` "nano", models/nano.py) or Qwen2
 ("qwen2", models/qwen2.py); `vlm_forward`, `vlm_loss`, `init_cache` and
-`decode_step` dispatch by family. Left out for now: heterogeneous batches
-(per-row plans).
+`decode_step` dispatch by family. Rows with different layouts (a
+heterogeneous batch, data/loader.py:collate_hetero) carry their own
+`gather_idx` / `seq_idx`: `vlm_loss` runs them as one batch with per-row
+segment ids, and `vlm_forward_dynamic` runs one such row.
 
 Vision towers by family: SigLIP and DINOv2 (models/vit.py), InternVideo2
 (models/internvideo2.py, clips of 4 frames merged jointly by the projector),
@@ -31,7 +33,7 @@ tower is not rematerialised, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from timeviper_tpu_torch.config import VLMConfig
-from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan
+from timeviper_tpu_torch.data.fusion import IGNORE_INDEX, FusionPlan, HeteroPlan
 from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.cache import init_nano_cache, init_qwen2_cache
 from timeviper_tpu_torch.models.internvideo2 import InternVideo2, encode_frames_iv2
@@ -182,13 +184,14 @@ def encode_visual(model: TimeViperVLM, arch: VLMArch, pixels: torch.Tensor) -> t
     return torch.cat(outs, dim=1)
 
 
-def fuse_embeddings(model: TimeViperVLM, input_ids: torch.Tensor,
-                    visual_embeddings: torch.Tensor, gather_idx) -> torch.Tensor:
-    """One gather over concat(text embeddings, visual tokens) -> (1, L, D)."""
-    text = model.llm_backbone.embeddings(input_ids)
-    src = torch.cat([text, visual_embeddings.to(text.dtype)], dim=0)
-    idx = torch.as_tensor(np.asarray(gather_idx), dtype=torch.long, device=src.device)
-    return src[idx][None]
+def fuse_rows(model: TimeViperVLM, ids: torch.Tensor, visual: torch.Tensor,
+              gather_idx: torch.Tensor) -> torch.Tensor:
+    """(B, L, D): row b gathers gather_idx[b] from concat(its text
+    embeddings (Lt), its visual tokens), the model's one gather of a plan."""
+    text = model.llm_backbone.embeddings(ids)
+    src = torch.cat([text, visual.to(text.dtype)], dim=1)
+    rows = torch.arange(src.shape[0], device=src.device)[:, None]
+    return src[rows, gather_idx.to(src.device, torch.long)]
 
 
 def vlm_forward(
@@ -236,7 +239,8 @@ def vlm_forward(
     if visual_embeddings.shape[0] != plan.num_visual:
         raise ValueError(f"{visual_embeddings.shape[0]} visual tokens for a plan of "
                          f"{plan.num_visual}")
-    fused = fuse_embeddings(model, input_ids, visual_embeddings, plan.gather_idx)
+    fused = fuse_rows(model, input_ids[None], visual_embeddings[None],
+                      torch.as_tensor(np.asarray(plan.gather_idx))[None])
     seq_idx = (torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
                                device=emb.device)[None]
                if plan.seq_idx is not None else None)
@@ -272,29 +276,62 @@ def llm_forward(llm: nn.Module, arch: VLMArch, fused_conv: bool = False, **kw) -
     return nano_forward(llm, arch.llm, fused_conv=fused_conv, **kw)
 
 
+def vlm_forward_dynamic(
+    model: TimeViperVLM,
+    arch: VLMArch,
+    *,
+    input_ids: torch.Tensor,
+    gather_idx: torch.Tensor,
+    seq_idx: torch.Tensor,
+    pixels: Optional[torch.Tensor] = None,
+    visual_embeddings: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    remat=False,
+) -> Dict[str, Any]:
+    """Forward of one row whose fusion plan is data (timeviper_tpu/models/
+    vlm.py:295): input_ids (Lt,) padded, gather_idx and seq_idx (fused_len,)
+    from collate_hetero, pixels (frames, H, W, 3) padded with zero frames.
+    Its pads sit in a trailing segment of their own, where the SSD state
+    resets and attention masks them off."""
+    emb = model.llm_backbone.embeddings.weight
+    if visual_embeddings is None and pixels is not None:
+        ve = encode_visual(model, arch, pixels)
+        visual_embeddings = ve.reshape(-1, ve.shape[-1])
+    if visual_embeddings is None:
+        visual_embeddings = emb.new_zeros(0, arch.llm.hidden_size)
+    fused = fuse_rows(model, input_ids[None].long(), visual_embeddings[None],
+                      gather_idx[None])
+    return llm_forward(model.llm_backbone, arch, inputs_embeds=fused,
+                       seq_idx=seq_idx[None].to(torch.int32),
+                       labels=None if labels is None else labels[None], remat=remat)
+
+
 def vlm_loss(
     model: TimeViperVLM,
     arch: VLMArch,
     batch: Dict[str, torch.Tensor],
-    plan: FusionPlan,
-    remat: bool = True,
+    plan: Union[FusionPlan, HeteroPlan],
+    remat=True,
     use_pdrop: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Shifted cross-entropy over fused rows that share `plan`; the mean of the
-    rows' own token means, as the JAX package's vmapped `vlm_loss` gives.
-    Either backbone (nano_forward or qwen2_forward, `remat` one checkpoint a
-    block or layer); a tied qwen2 takes its logits from the embeddings.
+    """Shifted cross-entropy over fused rows; the mean of the rows' own token
+    means, as the JAX package's vmapped `vlm_loss` gives.
+    Either backbone (nano_forward or qwen2_forward); `remat` is False, True
+    or a policy name ("full", "scan", "dots", "dots_scan",
+    models/remat.py); a tied qwen2 takes its logits from the embeddings.
     `use_pdrop` on a pdrop config runs its stages over the plan's packed
     samples (vlm.py:338-372): each row ranks its own "attn" keep sets by its
     labels, the labels shrink with the rows, and the TransV modules train.
 
     batch: {"input_ids": (B, Lt), "labels": (B, fused_len) already fused,
-    "pixels": (B, F, H, W, 3) or "visual_embeddings": (B, Nv, D), optional}.
+    "pixels": (B, F, H, W, 3) or "visual_embeddings": (B, Nv, D), optional}
+    for rows that share `plan`. A heterogeneous batch (a HeteroPlan) adds
+    each row's "gather_idx" and "seq_idx" (B, fused_len); pdrop refuses it,
+    as the JAX package does (vlm.py:354).
     Returns (loss, {"n_tokens": labelled tokens summed over the rows})."""
-    if "gather_idx" in batch:
-        if use_pdrop:  # as the JAX package asserts (vlm.py:354)
-            raise ValueError("pdrop needs static sample layouts; use homogeneous batches")
-        raise NotImplementedError("heterogeneous batches (per-row plans) are not ported")
+    hetero = "gather_idx" in batch
+    if hetero and use_pdrop:
+        raise ValueError("pdrop needs static sample layouts; use homogeneous batches")
     ids = batch["input_ids"].long()
     Bsz = ids.shape[0]
     emb = model.llm_backbone.embeddings
@@ -305,16 +342,18 @@ def vlm_loss(
         ve = enc.reshape(Bsz, -1, enc.shape[-1])
     if ve is None:
         ve = emb.weight.new_zeros(Bsz, 0, arch.llm.hidden_size)
-    if ve.shape[1] != plan.num_visual:
-        raise ValueError(f"{ve.shape[1]} visual tokens for a plan of {plan.num_visual}")
-    text = emb(ids)
-    src = torch.cat([text, ve.to(text.dtype)], dim=1)
-    idx = torch.as_tensor(np.asarray(plan.gather_idx), dtype=torch.long, device=src.device)
-    seq_idx = None
-    if plan.seq_idx is not None:
-        seq_idx = torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
-                                  device=src.device).expand(Bsz, -1).contiguous()
-    out = llm_forward(model.llm_backbone, arch, inputs_embeds=src[:, idx], seq_idx=seq_idx,
+    if hetero:
+        gather, seq_idx = batch["gather_idx"], batch["seq_idx"].to(torch.int32)
+    else:
+        if ve.shape[1] != plan.num_visual:
+            raise ValueError(f"{ve.shape[1]} visual tokens for a plan of {plan.num_visual}")
+        gather = torch.as_tensor(np.asarray(plan.gather_idx)).expand(Bsz, -1)
+        seq_idx = None
+        if plan.seq_idx is not None:
+            seq_idx = torch.as_tensor(np.asarray(plan.seq_idx), dtype=torch.int32,
+                                      device=ids.device).expand(Bsz, -1).contiguous()
+    fused = fuse_rows(model, ids, ve, gather)
+    out = llm_forward(model.llm_backbone, arch, inputs_embeds=fused, seq_idx=seq_idx,
                       labels=batch["labels"], remat=remat,
                       pdrop_spec=packed_pdrop_spec(arch, plan) if use_pdrop else None,
                       pdrop_params=model.merge_modules)

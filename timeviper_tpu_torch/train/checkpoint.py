@@ -6,10 +6,16 @@ the optimizer's parameters, "optimizer": its moments and count, "step"}. In a
 LoRA run those are the factors and the unfrozen modules, not the frozen
 base. `latest_checkpoint` takes the highest step; `save_checkpoint` keeps the
 newest `keep`.
+
+`save_params` / `restore_params` are the final-artifact export
+(timeviper_tpu/train/checkpoint.py:86-109): <path>/params.pt, one
+`torch.save` of a state dict, and the run's `meta` as meta.json beside the
+directory, where the JAX package writes it.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
@@ -53,3 +59,25 @@ def save_checkpoint(run_dir: str, step: int, state: Dict[str, Any], keep: int = 
 
 def restore_checkpoint(path: str, map_location=None) -> Dict[str, Any]:
     return torch.load(Path(path) / STATE_FILE, map_location=map_location, weights_only=True)
+
+
+PARAMS_FILE = "params.pt"
+
+
+def save_params(path: str, params: Dict[str, torch.Tensor],
+                meta: Optional[Dict[str, Any]] = None) -> str:
+    """Write a state dict to <path>/params.pt (through a temporary name) and
+    `meta` to meta.json in path's parent directory; returns the path."""
+    root = Path(path).resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = root / (PARAMS_FILE + ".tmp")
+    torch.save({k: v.detach() for k, v in params.items()}, tmp)
+    os.replace(tmp, root / PARAMS_FILE)
+    if meta is not None:
+        with open(root.parent / "meta.json", "w") as f:
+            json.dump(meta, f, indent=2)
+    return str(root)
+
+
+def restore_params(path: str, map_location=None) -> Dict[str, torch.Tensor]:
+    return torch.load(Path(path) / PARAMS_FILE, map_location=map_location, weights_only=True)

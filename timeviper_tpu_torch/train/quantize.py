@@ -9,7 +9,9 @@ merge modules (`TimeViperVLM.merge_modules`, models/pdrop.py) quantize as
 the JAX package's tree walk quantizes `params["merge_modules"]`, under the
 backbone's switch; their linears see input only inside a pdrop stage or a
 decode step on a pdrop cache, so calibrate them with a forward that runs
-pdrop.
+pdrop. A LoRA'd linear is quantized with its factors kept
+(train/lora.py:LoRAInt8Linear), as the JAX walk keeps a kernel's sibling
+factors: the same QLoRA model as quantizing first and adding LoRA after.
 
 `calibrate_act_scales` runs a forward with the amax sink of
 ops/int8_linear.py installed and gives each int8 layer that saw input
@@ -33,7 +35,7 @@ from torch import nn
 
 from timeviper_tpu_torch.ops import int8_linear
 from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, Int8Linear
-from timeviper_tpu_torch.train.lora import LoRALinear
+from timeviper_tpu_torch.train.lora import LORA_MODULES, LoRAInt8Linear, LoRALinear
 
 IN_PROJ_ORDER = ("gate", "x", "B", "C", "dt")
 
@@ -52,8 +54,9 @@ def quantize_params_int8(model: nn.Module, min_size: int = 1 << 16) -> nn.Module
             if name in keep:
                 continue
             if isinstance(child, LoRALinear):
-                raise NotImplementedError("quantizing a LoRA'd linear (QLoRA) is not ported")
-            if isinstance(child, nn.Linear):
+                if child.weight.numel() >= min_size:
+                    setattr(parent, name, LoRAInt8Linear.from_lora(child, switch))
+            elif isinstance(child, nn.Linear):
                 if child.weight.numel() >= min_size:
                     setattr(parent, name, Int8Linear.from_linear(child, switch))
             else:
@@ -106,7 +109,7 @@ def apply_linear_maybe_quantized(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def _fuse(ip: nn.ModuleDict):
     leaves = [ip[k] for k in IN_PROJ_ORDER]
-    if any(isinstance(lf, LoRALinear) for lf in leaves):
+    if any(isinstance(lf, LORA_MODULES) for lf in leaves):
         return None
     biases = None
     if any(lf.bias is not None for lf in leaves):

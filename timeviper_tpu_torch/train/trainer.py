@@ -3,12 +3,13 @@
 
 The JAX trainer shards its step over a mesh; this one runs on one card (or
 on the CPU when asked): the mesh fields of TrainerConfig are accepted and
-must be 1. `remat` is True / "full" (one recompute per block) or False; the
-JAX package's other remat policies are not ported. With `lora=True` the
-optimizer holds the LoRA factors plus the `trainable_modules` matches and
-every other parameter is frozen; otherwise it holds every parameter and
-`trainable_modules` zeroes the others' gradients. `use_pdrop` trains with the
-config's pdrop stages; the TransV merge modules train where
+must be 1. `remat` (True or "full", or False) checkpoints each block,
+keeping what `remat_policy` names ("full", "scan", "dots", "dots_scan";
+models/remat.py), as the JAX TrainerConfig takes them (trainer.py:59-64).
+With `lora=True` the optimizer holds the LoRA factors plus the
+`trainable_modules` matches and every other parameter is frozen; otherwise
+it holds every parameter and `trainable_modules` zeroes the others'
+gradients. `use_pdrop` trains with the config's pdrop stages; the TransV merge modules train where
 `trainable_modules` names them ("projector,merge" with LoRA, as the JAX
 package's stage-2 recipe, docs/USAGE.md:26-37, unfreezes them), take the
 `merge_lr` group and ride in the checkpoints with the other trained
@@ -26,6 +27,7 @@ import torch
 
 from timeviper_tpu_torch.data.loader import CollatedBatch, prefetch_to_device, to_device
 from timeviper_tpu_torch.device import resolve_device
+from timeviper_tpu_torch.models.remat import remat_policy
 from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch
 from timeviper_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -55,6 +57,7 @@ class TrainerConfig:
     data_parallel: int = 1
     model_parallel: int = 1
     remat: Union[bool, str] = True
+    remat_policy: str = "full"  # "full" | "scan" | "dots" | "dots_scan"
     use_pdrop: bool = False
     trainable_modules: Optional[str] = None  # comma substrings; None = all
     lora: bool = False
@@ -68,9 +71,11 @@ class Trainer:
         cfg = trainer_cfg
         if cfg.data_parallel != 1 or cfg.model_parallel != 1:
             raise NotImplementedError("the port trains on one device: data_parallel and "
-                                      "model_parallel must be 1")
+                                      "model_parallel above 1 wait for ROADMAP Queue 1 item 4")
         if cfg.remat not in (False, True, "full"):
-            raise NotImplementedError(f"remat policy {cfg.remat!r} is not ported; 'full' is")
+            raise ValueError(f"remat is True, 'full' or False, not {cfg.remat!r}; "
+                             "the policy is remat_policy")
+        self.remat = remat_policy(cfg.remat_policy) if cfg.remat else False
         self.arch, self.cfg = arch, cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -113,7 +118,7 @@ class Trainer:
         return self._device_step(to_device(cb.batch, self.device), cb.plan)
 
     def _device_step(self, batch, plan) -> Dict[str, torch.Tensor]:
-        metrics = train_step(self.model, self.arch, self.opt, batch, plan, remat=self.cfg.remat,
+        metrics = train_step(self.model, self.arch, self.opt, batch, plan, remat=self.remat,
                              use_pdrop=self.cfg.use_pdrop)
         self.step += 1
         return metrics
@@ -152,7 +157,7 @@ class Trainer:
                     pending.append(self._device_step(batch, plan))
                 else:
                     metrics, grads = grad_step(self.model, self.arch, self.opt.params, batch,
-                                               plan, remat=cfg.remat, use_pdrop=cfg.use_pdrop)
+                                               plan, remat=self.remat, use_pdrop=cfg.use_pdrop)
                     grads_acc = accumulate_grads(grads_acc, grads)
                     pending.append(metrics)
                     n_micro += 1
