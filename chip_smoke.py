@@ -7,8 +7,9 @@ chunked long-context forward and questions on a cached prefix), the
 slot-batched serving engine, pdrop with TransV, speculative decoding, LoRA
 training (with the vision tower trained too), int8 serving with the fused
 kernels, then serving with the InternVideo2 tower (bf16, then int8) and
-with the two-tower DINOv2 + SigLIP encoder, and last the Qwen2.5-7B backbone
-(serving, speculative decoding, LoRA training, W8A8).
+with the two-tower DINOv2 + SigLIP encoder, the Qwen2.5-7B backbone
+(serving, speculative decoding, LoRA training, W8A8), and last
+sequence-parallel serving on one NCCL rank and two gloo ranks.
 
     python3 chip_smoke.py
 
@@ -286,6 +287,28 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    question on a cached prefix of 8 tokens + 64 frames against that whole
    prompt; a 2-slot engine. The launches of (a), (e) and (f) add to the
    kernels line.
+11. sequence-parallel serving (parallel/seq_parallel.py), the 9B made
+   again from the seed: (a) one NCCL rank in this process,
+   nano_prefill_seq_parallel(fill_cache=True) on the 256-frame row with K1
+   and then with the fused conv (K5 with halo rows), against the one-card
+   prefill (first-logit cosine 0.99, each cache tensor's SP_CACHE_COS); (b) the
+   model freed here, two ranks spawned on cuda:0 over gloo (the card holds
+   the 9B twice; every collective staged through the host), rank 0 holding
+   the one-card references: Generator(mesh=make_mesh(seq=2)) on the
+   256-frame request (the encode frame-sharded on K3, the prefill on K1 and
+   K9, 16 tokens on K7; tokens equal or within MISS_GAP_LIMIT of the
+   one-card teacher-forcing argmax), the seq-2 decode caches of that
+   request and of the 16,384-token row (the Mamba states, conv windows and
+   K/V rows, each tensor's cosine SP_CACHE_COS) against the one-card
+   prefill's, the sharded scan after the seam on inputs that carry a state
+   across it against the one-card K1 (SP_SEAM_GAP, which the span's scan
+   alone must miss), the ring prefill at 16,384 tokens,
+   pdrop uni_14_0.8-attn_18_0.6 with TransV (a kv_valid cache; the one-card
+   run replays the sharded keep sets) and a question on its prefix, and a
+   3-request ServingEngine(mesh=); each rank's first K1, K9, K3 and K7 calls
+   against their plain versions; every rank's tokens equal. Seconds, peak
+   GiB and the bytes handed to the collectives are printed, none of them a
+   multi-card speed.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -311,6 +334,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -324,6 +348,8 @@ if __name__ == "__main__" and not (Path(__file__).resolve().parent
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -340,7 +366,11 @@ from timeviper_tpu_torch.models import qwen2 as qwen2_mod  # noqa: E402
 from timeviper_tpu_torch.models import vit as vit_mod  # noqa: E402
 from timeviper_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from timeviper_tpu_torch.models.api import build_arch  # noqa: E402
-from timeviper_tpu_torch.models.generate import Generator, pick_bucket  # noqa: E402
+from timeviper_tpu_torch.models.generate import (  # noqa: E402
+    Generator,
+    pick_bucket,
+    split_prompt_at_last_image,
+)
 from timeviper_tpu_torch.models.longctx import nano_forward_longctx  # noqa: E402
 from timeviper_tpu_torch.models.nano import NanoModel, nano_forward  # noqa: E402
 from timeviper_tpu_torch.models.pdrop import (  # noqa: E402
@@ -424,6 +454,10 @@ from timeviper_tpu_torch.ops.vit_attention import (  # noqa: E402
     vit_attention_qkv_lse_plain,
     vit_attention_qkv_plain,
 )
+from timeviper_tpu_torch.parallel import seq_parallel as sp_mod  # noqa: E402
+from timeviper_tpu_torch.parallel import sharding as sharding_mod  # noqa: E402
+from timeviper_tpu_torch.parallel.seq_parallel import nano_prefill_seq_parallel  # noqa: E402
+from timeviper_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
 from timeviper_tpu_torch.serving import Request, ServingEngine  # noqa: E402
 from timeviper_tpu_torch.train.lora import add_lora  # noqa: E402
 from timeviper_tpu_torch.train.optim import OptimConfig  # noqa: E402
@@ -4988,6 +5022,469 @@ def phases_training_entry(model, arch, ckpt: Path, smi: str, kernel_results: dic
     lap("offload")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: sequence-parallel serving
+# ---------------------------------------------------------------------------
+
+# the kernels of the sequence-parallel path and where it calls them: K1 in
+# the sharded scan, K9 in the sharded attention, K3 in the frame-sharded
+# encode, K7 in the decode of the replicated cache
+SP_KERNELS = ("ssd_fwd", "block_attn", "vit_attn_qkv", "decode_fused")
+SP_RING_TOKENS = 16384
+SP_SLOTS_LEN = 8192 + 64  # the engine's capacity: the 256-frame bucket and its tokens
+# bf16 decode caches of one prefill composed two ways, each tensor against
+# its one-card value. Read on the H100 (PERF.md, PR 19 call 7): sound 0.99943
+# at seq 1 and 0.99953 at seq 2 at the lowest; planted faults, the composed
+# carry dropped from the final state 0.066, the conv halo zeroed 0.980 on
+# the 64 K/V rows after the seam. The cross-span correction of y is below
+# the bf16 noise of these caches (dropped: 0.99961), so sp_ssd_seam holds it
+# on inputs that carry a state across the seam.
+SP_CACHE_COS = 0.999
+SP_SEAM_ROWS = 64
+# the sharded scan's relative L2 gap to the one-card scan over the rows after
+# the seam (bf16 y); the correction dropped must miss it by far
+SP_SEAM_GAP = 0.02
+
+
+def sp_places() -> dict:
+    return {"ssd_fwd": (sp_mod, "ssd_scan"), "block_attn": (sp_mod, "block_attn_lse"),
+            "vit_attn_qkv": (vit_mod, "encoder_attention_qkv"),
+            "decode_fused": (nano_mod, "fused_mamba_decode")}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cache_agreement(got, want, rows: slice) -> dict:
+    """Per kind of decode-cache tensor (the Mamba states, the K/V `rows`):
+    the largest relative gap (max |a - b| / max |b|) and the lowest cosine
+    over the layers, each with its layer."""
+    out = {}
+
+    def add(kind, idx, a, b):
+        a, b = a.float(), b.float()
+        gap = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-6)
+        cos = cosine(a, b)
+        g, c = out.get(kind, ((0.0, -1), (2.0, -1)))
+        out[kind] = (max(g, (gap, idx)), min(c, (cos, idx)))
+
+    for idx, (g, w) in enumerate(zip(got["layers"], want["layers"])):
+        if "ssm_state" in g:
+            add("ssm", idx, g["ssm_state"], w["ssm_state"])
+            for r in "xBC":
+                add("conv " + r, idx, g["conv_state"][r], w["conv_state"][r])
+        if "k" in g:
+            add("k", idx, g["k"][:, rows], w["k"][:, rows])
+            add("v", idx, g["v"][:, rows], w["v"][:, rows])
+    return out
+
+
+@torch.inference_mode()
+def sp_one_rank_nccl(model, arch, kernel_results: dict) -> dict:
+    """(a) nano_prefill_seq_parallel(fill_cache=True) on one NCCL rank in
+    this process (the collectives called on a `seq` axis of one) on the
+    256-frame request's fused row, against the one-card prefill: with K1,
+    then with the fused conv (K5 on the span with its halo rows in front,
+    its first call held against its plain version). Returns the launches."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    total = {}
+    try:
+        mesh = make_mesh(seq=1)
+        log(f"[sp] (a) one NCCL rank: mesh {mesh}, seq group backend "
+            f"{dist.get_backend(mesh.get_group('seq'))}")
+        gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+        ids, px = make_requests(arch)[2][1]
+        visual = gen.encode_frames(px)
+        plan, bucket, pad, ids_arr, gidx, seq = gen._plan_prompt(ids, IMAGE_TOKEN)
+        cache_len = bucket + MAX_NEW
+        fused = vlm_mod.fuse_rows(model, torch.as_tensor(ids_arr, dtype=torch.long,
+                                                         device=DEV)[None],
+                                  visual[None], torch.as_tensor(gidx)[None])
+        for fused_conv, scan in ((False, "ssd_fwd"), (True, "ssd_conv_fwd")):
+            os.environ["TIMEVIPER_FUSED_CONV"] = "1" if fused_conv else "0"
+            one_logits, one_cache = gen.prefill(ids_arr, gidx, seq, visual, pad, cache_len)
+            reset_launches()
+            before = sharding_mod.sent_bytes
+            with logging_calls({"ssd_conv_fwd": (sp_mod, "ssd_conv_scan_fused")},
+                               key=first_call) as logs:
+                logits, cache = nano_prefill_seq_parallel(
+                    model.llm_backbone, arch.llm, fused, mesh, valid_from=pad,
+                    fill_cache=True, cache_max_len=cache_len, fused_conv=fused_conv)
+            torch.cuda.synchronize()
+            launches = {n: WRAPPERS[n].launches for n in (scan, "block_attn")}
+            moved = sharding_mod.sent_bytes - before
+            cos = cosine(logits[:, -1], one_logits)
+            agree = cache_agreement(cache, one_cache, slice(pad, bucket))
+            worst = min(c for _, (c, _) in agree.values())
+            tag = "the fused conv (K5)" if fused_conv else "K1"
+            log(f"[sp] (a) one NCCL rank, {tag}, the 256-frame row ({bucket} rows, pad {pad}): "
+                f"first-logit cosine {cos:.6f} against the one-card prefill; the caches (K/V "
+                f"rows {pad}-{bucket}), per kind the largest relative gap and the lowest "
+                "cosine, at their layers: " + "; ".join(
+                    f"{kind} {g:.3e} (layer {gi}), {c:.6f} (layer {ci})"
+                    for kind, ((g, gi), (c, ci)) in agree.items())
+                + f"; launches {launches}, {moved / 2**20:.1f} MiB handed to the NCCL "
+                "collectives")
+            if not cos > 0.99 or not worst > SP_CACHE_COS:
+                raise AssertionError(f"sp (a), {tag}: the one-rank sharded prefill disagrees "
+                                     "with the one-card prefill")
+            if min(launches.values()) == 0:
+                raise AssertionError(f"sp (a): a kernel was not launched: {launches}")
+            if fused_conv:
+                compare_logged("ssd_conv_fwd", logs["ssd_conv_fwd"].calls, "sp (a)",
+                               kernel_results)
+            for n, v in launches.items():
+                total[n] = total.get(n, 0) + v
+        return total
+    finally:
+        os.environ["TIMEVIPER_FUSED_CONV"] = "0"
+        dist.destroy_process_group()
+
+
+@torch.inference_mode()
+def sp_cache_reading(rank: int, gsp, gen1, ids, px, ring_emb):
+    """The decode caches that the sequence-sharded prefill fills on a `seq`
+    mesh (every rank calls this) against the one-card prefill's on the same
+    row, on rank 0: the Generator's on the 256-frame request (its left pad
+    fills all but the last 40 rows of the first span) and
+    nano_prefill_seq_parallel's on the ring's row (no pad: the seam in the
+    middle of real rows). Per row and kind of tensor (the Mamba states, the
+    conv windows, the K/V of the real rows) the lowest cosine over the
+    layers, with its layer; and the K/V of the ring's SP_SEAM_ROWS rows
+    after the seam alone, where a fault in the cross-span scan or conv
+    shows first. None on the other ranks."""
+    _, bucket, pad, ids_arr, gidx, seq = gen1._plan_prompt(ids, IMAGE_TOKEN)
+    visual = gsp.encode_frames(px)
+    cache_len = bucket + MAX_NEW
+    _, cache_sp = gsp.prefill(ids_arr, gidx, seq, visual, pad, cache_len)
+    llm, cfg = gsp.model.llm_backbone, gsp.arch.llm
+    L = ring_emb.shape[1]
+    _, ring_sp = nano_prefill_seq_parallel(llm, cfg, ring_emb, gsp.mesh, fill_cache=True,
+                                           cache_max_len=L + MAX_NEW, logits_to_keep=1)
+    if rank != 0:
+        return None
+    _, cache1 = gen1.prefill(ids_arr, gidx, seq, visual, pad, cache_len)
+    ring1 = nano_forward(llm, cfg, inputs_embeds=ring_emb, fill_cache=True,
+                         cache_max_len=L + MAX_NEW, logits_to_keep=1)["cache"]
+    out = {}
+    for row, got, want, rows in (("256 frames", cache_sp, cache1, slice(pad, bucket)),
+                                 ("ring", ring_sp, ring1, slice(0, L))):
+        agree = cache_agreement(got, want, rows)
+        out[row] = {kind: [c, ci] for kind, (_, (c, ci)) in agree.items()}
+    seam = cache_agreement(ring_sp, ring1, slice(L // 2, L // 2 + SP_SEAM_ROWS))
+    out["ring seam"] = {kind: [seam[kind][1][0], seam[kind][1][1]] for kind in "kv"}
+    return out
+
+
+@torch.inference_mode()
+def sp_ssd_seam(rank: int, mesh, cfg) -> list:
+    """ssd_seq_sharded (K1 on each span from a zero state, then the composed
+    correction) at the 9B's Mamba widths over 8,192 rows, against K1 on the
+    whole row on this card, on inputs whose state carries across the seam:
+    x, B, C and the raw dt drawn N(0, 1) in bf16, dt_bias -2, A from -0.01 to
+    -1 over the heads (the state lives 8-800 rows). Every rank calls it and
+    returns, over its span's first SP_SEAM_ROWS rows, the relative L2 gap
+    of its y and of its local scan alone (the correction dropped)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    H, P = cfg.mamba_num_heads, cfg.mamba_head_dim
+    G, N = cfg.mamba_n_groups, cfg.ssm_state_size
+    L, n, my = 8192, sharding_mod.axis_size(mesh, "seq"), sharding_mod.axis_index(mesh, "seq")
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=DEV).to(torch.bfloat16)
+
+    x, dt, B_, C = draw(1, L, H, P), draw(1, L, H), draw(1, L, G, N), draw(1, L, G, N)
+    A = -torch.linspace(0.01, 1.0, H, device=DEV)
+    D, dt_bias = torch.ones(H, device=DEV), torch.full((H,), -2.0, device=DEV)
+    kw = dict(chunk_size=cfg.chunk_size, D=D, dt_bias=dt_bias)
+    span = slice(my * L // n, (my + 1) * L // n)
+    want = ssd_scan(x, dt, A, B_, C, **kw)[0][:, span][:, :SP_SEAM_ROWS].float()
+    part = [t[:, span].contiguous() for t in (x, dt, B_, C)]
+    got = sp_mod.ssd_seq_sharded(*part[:2], A, *part[2:], mesh=mesh, **kw)
+    local = ssd_scan(*part[:2], A, *part[2:], **kw)[0]
+
+    def gap(y):
+        return ((y[:, :SP_SEAM_ROWS].float() - want).norm() / want.norm()).item()
+
+    return [gap(got), gap(local)]
+
+
+def sp_gate(tag: str, got, want, rows_fn) -> str:
+    """The tokens equal the one-card ones, or, from the first difference,
+    each lies within MISS_GAP_LIMIT of the argmax of the one-card
+    teacher-forcing rows over them (phase 5b's near-tie gate, the bf16 model
+    with its kernels as the reference)."""
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if first is None and len(got) == len(want):
+        return "equal"
+    rows = rows_fn(got)
+    gaps = [(rows[j].max() - rows[j, tok]).item() for j, tok in enumerate(got)]
+    worst = max(gaps[first or 0:])
+    if worst > MISS_GAP_LIMIT:
+        raise AssertionError(f"sp {tag}: a token {worst:.3e} below the one-card argmax")
+    return f"part at {first}, largest gap {worst:.3e} (limit {MISS_GAP_LIMIT})"
+
+
+def sp_replay_indices(mask_log) -> list:
+    """The attn stages' keep sets the sharded prefill chose, as the indices
+    into the current visual block that StageLog(replay=) takes."""
+    out = []
+    for compress, keep, current in mask_log:
+        if compress == "attn":
+            pos = torch.cumsum(current.long(), 0) - 1
+            out.append(pos[keep].cpu())
+    return out
+
+
+def sp_rank(rank: int, world: int, port: int, folder: str) -> None:
+    """(b) One rank of the 2-rank gloo run on cuda:0 (module doc, phase 11)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for var in FUSIONS:  # K7 in the decode; K1 (not K5) in the prefill
+        os.environ[var] = "1" if var == "TIMEVIPER_FUSED_DECODE" else "0"
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = sp_rank_work(rank, make_mesh(seq=world))
+        with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@torch.no_grad()
+def sp_rank_work(rank: int, mesh) -> dict:
+    t_rank = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = build_arch(VLMConfig())
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16, device=DEV)
+    arch_p = pdrop_arch(arch)
+    attach_merge_modules(model, arch_p)
+    llm, cfg = model.llm_backbone, arch.llm
+    requests = make_requests(arch)
+    ids, px = requests[2][1]
+    pre_ids, q_ids = split_prompt_at_last_image(ids, IMAGE_TOKEN)
+    kw = dict(terminator_ids=[], max_new_tokens=MAX_NEW)
+    gen1, gen1_p = Generator(model, arch, **kw), Generator(model, arch_p, **kw)
+    factors = [None]
+    if rank == 0:  # TransV's q_proj tempered as in phase 5c, then on both ranks
+        factors = [temper_transv(model, gen1_p, ids, px)]
+    dist.broadcast_object_list(factors, src=0)
+    if rank != 0:
+        for si, f in enumerate(factors[0]):
+            model.merge_modules.stage(si).cross_attn.q_proj.weight.mul_(f)
+    ring_ids = torch.randint(10, 130000, (SP_RING_TOKENS,), device=DEV,
+                             generator=torch.Generator(device=DEV).manual_seed(SEED + 11))
+    ring_emb = llm.embeddings(ring_ids)[None]
+    mix = [dict(input_ids=i, pixels=p, image_token_id=IMAGE_TOKEN, max_new_tokens=MAX_NEW)
+           for _, (i, p) in requests]
+    ref = {}
+    if rank == 0:  # the one-card references, the same model on the same card
+        out1 = gen1.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring_ref = nano_forward(llm, cfg, inputs_embeds=ring_emb, logits_to_keep=1)["logits"]
+        torch.cuda.synchronize()
+        eng1 = ServingEngine(model, arch, num_slots=3, max_len=SP_SLOTS_LEN, **kw)
+        ref = dict(out=out1, ring=ring_ref[:, -1], ring_s=time.perf_counter() - t0,
+                   engine=[r.output_ids for r in eng1.run(
+                       [Request(request_id=i, **r) for i, r in enumerate(mix)])])
+        del eng1
+        _, _, _, own = pdrop_prefill(gen1_p, ids, px)  # the one-card ranking's own keep set
+        ref["own_keep"] = own.keeps
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    # the sequence-sharded main path
+    gsp, gsp_p = Generator(model, arch, mesh=mesh, **kw), Generator(model, arch_p, mesh=mesh, **kw)
+    mask_log = []
+    stage_keep = sp_mod._stage_keep_mask
+
+    def record(stage, hidden, model_, cfg_, valid_g, vis_mask, *args):
+        keep = stage_keep(stage, hidden, model_, cfg_, valid_g, vis_mask, *args)
+        mask_log.append((stage.compress_type, keep, valid_g & vis_mask))
+        return keep
+
+    reset_launches()
+    sharding_mod.sent_bytes = 0
+    sp_mod._stage_keep_mask = record
+    try:
+        with logging_calls(sp_places(), key=first_call) as logs:
+            out_sp = gsp.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+            gen_bytes = sharding_mod.sent_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring = nano_prefill_seq_parallel(llm, cfg, ring_emb, mesh, logits_to_keep=1)[:, -1]
+            torch.cuda.synchronize()
+            ring_s, ring_bytes = time.perf_counter() - t0, sharding_mod.sent_bytes - gen_bytes
+            out_p = gsp_p.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN, use_pdrop=True)
+            n_gen_masks = len(mask_log)
+            st = gsp_p.prefill_prefix(pre_ids, pixels=px, image_token_id=IMAGE_TOKEN,
+                                      use_pdrop=True)
+            out_q = gsp_p.generate(q_ids, prefix=st)
+            kv_valid_layers = sum("kv_valid" in lc for lc in st.cache["layers"])
+            eng = ServingEngine(model, arch, mesh=mesh, num_slots=3, max_len=SP_SLOTS_LEN, **kw)
+            engine = [r.output_ids for r in eng.run(
+                [Request(request_id=i, **r) for i, r in enumerate(mix)])]
+            del eng
+            torch.cuda.synchronize()
+    finally:
+        sp_mod._stage_keep_mask = stage_keep
+    launches = {n: WRAPPERS[n].launches for n in SP_KERNELS}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"sp rank {rank}: a kernel of the path was not launched: "
+                             f"{launches}")
+    errs = {n: dict(max_abs_err=0.0) for n in SP_KERNELS}
+    for name in SP_KERNELS:
+        compare_logged(name, logs[name].calls, f"sp rank {rank}", errs)
+    cache_cos = sp_cache_reading(rank, gsp, gen1, ids, px, ring_emb)
+    seam_gap, seam_drop = sp_ssd_seam(rank, mesh, cfg)
+    if rank > 0 and not (seam_gap < SP_SEAM_GAP < seam_drop):
+        raise AssertionError(f"sp rank {rank}: the sharded scan after the seam is "
+                             f"{seam_gap:.3e} off the one-card scan (limit {SP_SEAM_GAP}), "
+                             f"its local scan alone {seam_drop:.3e}")
+    res = dict(rank=rank, launches=launches, errs={n: e["max_abs_err"] for n, e in errs.items()},
+               tokens=out_sp.token_ids.tolist(), pdrop=out_p.token_ids.tolist(),
+               question=out_q.token_ids.tolist(), engine=engine,
+               encode_s=out_sp.encode_s, prefill_s=out_sp.prefill_s, ring_s=ring_s,
+               gen_bytes=gen_bytes, ring_bytes=ring_bytes, kv_valid_layers=kv_valid_layers,
+               seam=[seam_gap, seam_drop])
+    if rank == 0:
+        res["cache_cos"] = cache_cos
+        worst = min(c for row in cache_cos.values() for c, _ in row.values())
+        if not worst > SP_CACHE_COS:
+            raise AssertionError(f"sp: the seq-2 cache disagrees with the one-card cache: "
+                                 f"lowest cosine {worst:.6f} ({cache_cos})")
+        res.update(sp_rank0_checks(model, arch, arch_p, gen1, gen1_p, ref, ids, px, pre_ids,
+                                   q_ids, mix, out_sp, ring, out_p, out_q, engine, mask_log,
+                                   n_gen_masks))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["rank_s"] = time.perf_counter() - t_rank
+    return res
+
+
+def sp_rank0_checks(model, arch, arch_p, gen1, gen1_p, ref, ids, px, pre_ids, q_ids, mix,
+                    out_sp, ring, out_p, out_q, engine, mask_log, n_gen_masks) -> dict:
+    """Rank 0 holds the sharded results against the one-card ones."""
+    llm, merge = model.llm_backbone, model.merge_modules
+    out1 = ref["out"]
+    res = dict(one_encode_s=out1.encode_s, one_prefill_s=out1.prefill_s,
+               one_ring_s=ref["ring_s"])
+    res["cos"] = cosine(out_sp.first_logits, out1.first_logits)
+    res["ring_cos"] = cosine(ring, ref["ring"])
+
+    def plain_rows(request_ids, pixels):
+        visual = gen1.encode_frames(pixels) if pixels is not None else None
+        return lambda toks: forced_logits(llm, arch, gen1, request_ids + toks[:-1], visual,
+                                          len(toks))
+
+    res["tokens_gate"] = sp_gate("generate", out_sp.token_ids.tolist(),
+                                 out1.token_ids.tolist(), plain_rows(ids, px))
+    res["engine_gate"] = [sp_gate(f"engine {i}", got, want,
+                                  plain_rows(r["input_ids"], r["pixels"]))
+                          for i, (got, want, r) in enumerate(zip(engine, ref["engine"], mix))]
+    # pdrop: the one-card pdrop Generator on the keep sets the sharded
+    # ranking chose (its softmax leaves out the left pad, the one-card one
+    # takes it in, both as in the JAX package)
+    gen_keep = sp_replay_indices(mask_log[:n_gen_masks])
+    pre_keep = sp_replay_indices(mask_log[n_gen_masks:])
+    own = ref["own_keep"][0]
+    res["keep_overlap"] = len(set(own.tolist()) & set(gen_keep[0].tolist())) / max(len(own), 1)
+    with StageLog(gen_keep):
+        ref_p = gen1_p.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN, use_pdrop=True)
+    visual = gen1_p.encode_frames(px)
+
+    def pdrop_rows(toks):
+        with StageLog(list(gen_keep)):
+            return forced_logits_pdrop(llm, merge, arch_p, gen1_p, ids, visual, toks)
+
+    res["pdrop_cos"] = cosine(out_p.first_logits, ref_p.first_logits)
+    res["pdrop_gate"] = sp_gate("pdrop", out_p.token_ids.tolist(), ref_p.token_ids.tolist(),
+                                pdrop_rows)
+    with StageLog(pre_keep):
+        st1 = gen1_p.prefill_prefix(pre_ids, pixels=px, image_token_id=IMAGE_TOKEN,
+                                    use_pdrop=True)
+    ref_q = gen1_p.generate(q_ids, prefix=st1)
+    res["question_cos"] = cosine(out_q.first_logits, ref_q.first_logits)
+    same = next((i for i, (a, b) in enumerate(zip(out_q.token_ids, ref_q.token_ids)) if a != b),
+                len(ref_q.token_ids))
+    res["question_same"] = same
+    for key in ("cos", "ring_cos", "pdrop_cos", "question_cos"):
+        if not res[key] > 0.99:
+            raise AssertionError(f"sp: {key} {res[key]:.6f} against the one-card run")
+    return res
+
+
+def phase_seq_parallel(smi: str, kernel_results: dict) -> None:
+    """Phase 11 (module doc): (a) one NCCL rank here, (b) two gloo ranks on
+    this card, spawned; each rank's K1, K9, K3 and K7 launches add to the
+    kernels line."""
+    t_phase = time.perf_counter()
+    arch = build_arch(VLMConfig())
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    for var in FUSIONS:
+        os.environ[var] = "0"
+    one = sp_one_rank_nccl(model, arch, kernel_results)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks hold the 9B twice on this card
+    folder = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        torch.multiprocessing.spawn(sp_rank, args=(2, free_port(), folder), nprocs=2)
+        ranks = [json.load(open(os.path.join(folder, f"rank{r}.json"))) for r in range(2)]
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("tokens", "pdrop", "question", "engine"):
+            if r[key] != r0[key]:
+                raise AssertionError(f"sp: rank {r['rank']}'s {key} tokens differ from rank 0's")
+    for name in SP_KERNELS:
+        kernel_results[name]["launches"] += sum(r["launches"][name] for r in ranks)
+        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"],
+                                                  *(r["errs"][name] for r in ranks))
+    for name, n in one.items():
+        kernel_results[name]["launches"] += n
+    log(f"[sp] (b) two gloo ranks on one {smi.strip()} card: the 256-frame request, the "
+        f"one-card Generator on rank 0 against Generator(mesh=make_mesh(seq=2)): first-logit "
+        f"cosine {r0['cos']:.6f}, tokens {r0['tokens_gate']}; the seq-2 decode caches against "
+        f"the one-card prefill's on the same row, per kind the lowest cosine (limit "
+        f"{SP_CACHE_COS}) at its layer: "
+        + "; ".join(f"{row}: " + ", ".join(f"{kind} {c:.6f} ({ci})"
+                                           for kind, (c, ci) in kinds.items())
+                    for row, kinds in r0["cache_cos"].items())
+        + f"; the sharded scan's first {SP_SEAM_ROWS} rows after the seam (inputs that carry "
+        f"a state across it) {ranks[1]['seam'][0]:.3e} off the one-card scan (relative L2, "
+        f"limit {SP_SEAM_GAP}), the span's scan alone {ranks[1]['seam'][1]:.3e}; ring prefill of "
+        f"{SP_RING_TOKENS} tokens, last-logit cosine {r0['ring_cos']:.6f}; pdrop "
+        f"uni_14_0.8-attn_18_0.6 + TransV (a kv_valid cache, {r0['kv_valid_layers']} "
+        f"attention layers with their own mask) on the sharded keep sets: cosine "
+        f"{r0['pdrop_cos']:.6f}, tokens {r0['pdrop_gate']}; the one-card ranking's own attn "
+        f"keep set shares {100 * r0['keep_overlap']:.1f}% with the sharded one (its softmax "
+        f"takes in the left pad, as in the JAX package); a question on the pdrop prefix: cosine "
+        f"{r0['question_cos']:.6f}, tokens equal for the first {r0['question_same']} of "
+        f"{len(r0['question'])}; ServingEngine(mesh=) on the 3 requests: {r0['engine_gate']}")
+    for r in ranks:
+        log(f"[sp] rank {r['rank']}: peak {r['peak_gib']:.1f} GiB, launches {r['launches']}, "
+            f"max abs err against the plain versions {r['errs']}, its run "
+            f"{r['rank_s']:.1f} s")
+    log(f"[sp] seconds (gloo ranks sharing one card, host-staged collectives: no multi-card "
+        f"speed): sharded encode {r0['encode_s']:.3f} s, prefill {r0['prefill_s']:.3f} s; "
+        f"one-card encode {r0['one_encode_s']:.3f} s, prefill {r0['one_prefill_s']:.3f} s; "
+        f"ring prefill of {SP_RING_TOKENS} tokens {r0['ring_s']:.3f} s, one-card "
+        f"{r0['one_ring_s']:.3f} s; bytes a rank handed to the collectives: "
+        f"{r0['gen_bytes'] / 2**20:.1f} MiB for the 256-frame request's encode and prefill, "
+        f"{r0['ring_bytes'] / 2**20:.1f} MiB for the ring prefill")
+    log(f"[sp] phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5052,6 +5549,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_qwen2(smi, results)
     lap("qwen2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seq_parallel(smi, results)
+    lap("sequence-parallel serving")
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

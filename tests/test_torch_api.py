@@ -223,11 +223,20 @@ def test_bf16_load_takes_the_jax_loaders_values(written):
     assert got["llm_backbone.embeddings.weight"].dtype == torch.bfloat16
 
 
+class ModelAxisMesh:
+    """A (data 1, seq 1, model 2) mesh's shape, as the entry points read it."""
+
+    mesh_dim_names = ("data", "seq", "model")
+
+    def size(self, dim: int) -> int:
+        return (1, 1, 2)[dim]
+
+
 def test_jax_only_formats_and_options_are_refused(ckpt, tmp_path):
     import timeviper_tpu_torch.eval.evaluate as ev
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        load_pretrained_vlm(str(ckpt), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):  # a model axis: the next slice
+        load_pretrained_vlm(str(ckpt), mesh=ModelAxisMesh(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ev.main(["--checkpoint", str(ckpt), "--dataset_name", "mvbench", "--output_dir",
                  str(tmp_path / "o"), "--mesh_model", "2", "--device", "cpu"])

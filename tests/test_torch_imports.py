@@ -48,7 +48,9 @@ MODULES = [
     "timeviper_tpu_torch.data.datasets", "timeviper_tpu_torch.models.remat",
     "timeviper_tpu_torch.train.offload", "timeviper_tpu_torch.train.cli",
     "timeviper_tpu_torch.utils", "timeviper_tpu_torch.utils.overwatch",
-    "timeviper_tpu_torch.utils.profiling", "chip_smoke",
+    "timeviper_tpu_torch.utils.profiling", "timeviper_tpu_torch.utils.dist",
+    "timeviper_tpu_torch.parallel", "timeviper_tpu_torch.parallel.sharding",
+    "timeviper_tpu_torch.parallel.seq_parallel", "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent
 

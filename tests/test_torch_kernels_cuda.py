@@ -419,6 +419,38 @@ def test_transv_cross_attention_runs_the_block_kernel(Lq, Lk, B):
     assert torch.equal(got, cross_attention(q, k, v))
 
 
+@pytest.mark.parametrize("Lq,Lk,B", [(40, 1024, 1), (33, 819, 2)])
+def test_transv_cross_attention_with_kv_valid_runs_the_block_kernel(Lq, Lk, B):
+    """cross_attention(kv_valid=) on the card (sequence-sharded TransV: the
+    local rows against every row's K/V, only the dropped tokens valid) is
+    K9's non-causal mode with the mask folded into its segment ids, one
+    launch: against the plain `attention` with the (B, 1, Lk) mask, to 1e-2
+    of its largest value (no floor). Under autograd (BlockAttnFn) the
+    gradients run K2-bwd's non-causal mode once a row on its kept keys:
+    against autograd through the plain `attention` to BWD_TOL; a masked
+    key's gradients are exactly 0."""
+    dev = require_cuda()
+    r = rng(18)
+    Hq, Hkv, D = 32, 8, 128
+    q, k, v = _bf16(r, dev, B, Lq, Hq, D), _bf16(r, dev, B, Lk, Hkv, D), \
+        _bf16(r, dev, B, Lk, Hkv, D)
+    valid = t(r.random((B, Lk)) < 0.3).to(dev)
+    before = block_attn_lse.launches
+    got = cross_attention(q, k, v, kv_valid=valid)
+    assert block_attn_lse.launches == before + 1
+    _close(got, attention(q, k, v, valid[:, None, :]), 1e-2, floor=0.0)
+    g = _bf16(r, dev, B, Lq, Hq, D)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    bwd = cross_attention_bwd.launches
+    grads = torch.autograd.grad(cross_attention(*leaves, kv_valid=valid), leaves, g)
+    assert cross_attention_bwd.launches == bwd + B
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(attention(*leaves, valid[:, None, :]), leaves, g)
+    for a, b in zip(grads, want):
+        _close(a, b, BWD_TOL, floor=0.0)
+    assert (grads[1][~valid] == 0).all() and (grads[2][~valid] == 0).all()
+
+
 @pytest.mark.parametrize("L,packed", [(1, None), (203, "rows"), (300, (13, 140))])
 def test_flash_kernel_lse_matches_plain(L, packed):
     """The row log-sum-exp that K2 writes for K2-bwd, m + log(l) of the

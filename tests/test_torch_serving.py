@@ -19,8 +19,9 @@ Port-only checks: every served token of the text-only requests is the
 argmax of one nano_forward over prompt + output (teacher forcing), to 1e-4
 (f32 decode steps against one forward), and the first-token logits of a
 batched row equal Generator.generate's on the same prompt, to 1e-4; the
-option the port does not serve yet (`mesh`) raises NotImplementedError, and
-`pdrop_frames` on a model without pdrop stages ValueError.
+option the port does not serve yet (a `mesh` with a model axis) raises
+NotImplementedError, and `pdrop_frames` on a model without pdrop stages
+ValueError.
 """
 
 import functools
@@ -171,10 +172,21 @@ def test_engine_teacher_forcing_and_first_logits():
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("option", [dict(pdrop_frames=4), dict(mesh=object())])
+class ModelAxisMesh:
+    """A (data 1, seq 1, model 2) mesh's shape, as the engine reads it."""
+
+    mesh_dim_names = ("data", "seq", "model")
+
+    def size(self, dim: int) -> int:
+        return (1, 1, 2)[dim]
+
+
+@pytest.mark.parametrize("option", [dict(pdrop_frames=4), dict(mesh=ModelAxisMesh())])
 def test_unported_options_raise(option):
-    """`mesh` is not ported; `pdrop_frames` is (tests/test_torch_pdrop_generate.py)
-    and refuses a model without pdrop stages, as the JAX engine does."""
+    """A mesh with a model axis is not ported (a `seq` one is:
+    tests/test_torch_seq_parallel_generate.py); `pdrop_frames` is
+    (tests/test_torch_pdrop_generate.py) and refuses a model without pdrop
+    stages, as the JAX engine does."""
     arch, model, *_ = _setup()
     error, match = ((ValueError, "pdrop-configured") if "pdrop_frames" in option
                     else (NotImplementedError, "ROADMAP Queue 1"))

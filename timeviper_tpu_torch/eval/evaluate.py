@@ -6,12 +6,16 @@ The reference evaluate.py:43-703's flags (--dataset_name, --curr_idx /
 generation runs on the card (or `--device`) through the port's
 bucketed-prefill Generator (models/generate.py), questions on a cached
 video prefix (`--prefix_cache`) or the slot-batched ServingEngine
-(`--use_serving_engine`). Multi-device inference (`--mesh_seq`,
-`--mesh_model` > 1) is not ported and raises.
+(`--use_serving_engine`). `--mesh_seq N` shards each prefill's sequence
+(and the encode's frames) over N ranks, launched by torchrun, each on its
+own card, NCCL between them (gloo for `--device cpu`);
+every rank runs the loop and rank 0 alone writes the answers.
+`--mesh_model` > 1 (tensor parallelism) is not ported and raises.
 
 Usage:
   python -m timeviper_tpu_torch.eval.evaluate --checkpoint CKPT --dataset_name \
       videomme --output_dir results/videomme [--curr_idx 0 --total_idx 1]
+  torchrun --nproc_per_node N -m timeviper_tpu_torch.eval.evaluate ... --mesh_seq N
 
 Then score:
   python -m timeviper_tpu_torch.eval.evaluate --score_only --dataset_name \
@@ -53,8 +57,8 @@ def get_args(argv=None):
     p.add_argument("--conv_template", type=str, default="nano_base")
     p.add_argument("--use_pdrop", action="store_true")
     p.add_argument("--mesh_seq", type=int, default=1,
-                   help="sequence-shard prefill over this many devices "
-                        "(not ported: > 1 raises)")
+                   help="sequence-shard prefill over this many ranks "
+                        "(torchrun --nproc_per_node N)")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel shards for params (not ported: > 1 "
                         "raises)")
@@ -124,20 +128,33 @@ def main(argv=None):
 
     from timeviper_tpu_torch.models.api import load_pretrained_vlm  # heavy imports lazy
 
+    mesh, writer = None, True
+    if args.mesh_seq > 1 or args.mesh_model > 1:
+        import torch.distributed as dist
+
+        from timeviper_tpu_torch.parallel.sharding import make_mesh
+        from timeviper_tpu_torch.utils.dist import initialize_distributed
+
+        if args.mesh_model > 1:
+            make_mesh(model=args.mesh_model)  # raises: not ported
+        initialize_distributed("gloo" if args.device == "cpu" else "nccl")
+        mesh = make_mesh(data=1, seq=args.mesh_seq)
+        writer = dist.get_rank() == 0  # rank 0 alone writes the answers
+
     os.makedirs(args.output_dir, exist_ok=True)
     out_path = os.path.join(
         args.output_dir, f"{args.curr_idx}_of_{args.total_idx}.jsonl"
     )
     finished = scan_finished(args.output_dir)
+    if mesh is not None:  # every rank resumes from the same answers
+        dist.barrier()
 
-    if args.mesh_seq > 1 or args.mesh_model > 1:
-        raise NotImplementedError("multi-device inference (--mesh_seq, --mesh_model) is "
-                                  "not ported (ROADMAP Queue 1 item 4)")
     model = load_pretrained_vlm(
         args.checkpoint,
         conv_template=args.conv_template,
         max_new_tokens=args.max_new_tokens,
         use_pdrop=args.use_pdrop,
+        mesh=mesh,
         speculative=args.speculative,
         n_draft=args.n_draft,
         device=args.device,
@@ -171,7 +188,7 @@ def main(argv=None):
         f.flush()
 
     t_start = time.perf_counter()
-    with open(out_path, "a") as f:
+    with open(out_path if writer else os.devnull, "a") as f:
         if args.use_serving_engine:
             from timeviper_tpu_torch.serving import Request, ServingEngine
 
@@ -185,6 +202,7 @@ def main(argv=None):
                 num_slots=args.serving_slots,
                 max_len=32768, max_new_tokens=args.max_new_tokens,
                 cache_dtype=model.model.llm_backbone.embeddings.weight.dtype,
+                mesh=mesh,
             )
             # batch in slot-count waves; vision encode happens in prefill
             wave = args.serving_slots * 2
@@ -254,6 +272,8 @@ def main(argv=None):
                 )
                 record(f, item, text)
     elapsed = time.perf_counter() - t_start
+    if not writer:
+        return
     with open(os.path.join(args.output_dir, "timing_summary.txt"), "a") as f:
         f.write(
             f"shard {args.curr_idx}/{args.total_idx}: {len(ds)} items in "

@@ -38,6 +38,7 @@ from timeviper_tpu_torch.config import (
 )
 from timeviper_tpu_torch.data.conversation import CONV_TEMPLATES, ChatTemplate
 from timeviper_tpu_torch.data.image_processing import transform_for_family
+from timeviper_tpu_torch.parallel.sharding import refuse_model_axis
 from timeviper_tpu_torch.data.processor import Processor
 from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.generate import Generator
@@ -200,7 +201,8 @@ def _has_attn_pool(model: TimeViperVLM) -> bool:
 def assemble_model(model: TimeViperVLM, arch: VLMArch, meta: Dict[str, Any], tokenizer,
                    conv_template: Optional[str] = None, max_new_tokens: int = 128,
                    use_pdrop: bool = False, sampling: SamplingParams = SamplingParams(),
-                   speculative: Optional[str] = None, n_draft: int = 7) -> TimeViperModel:
+                   speculative: Optional[str] = None, n_draft: int = 7,
+                   mesh=None) -> TimeViperModel:
     """The loaded model + a tokenizer (any HF-like tokenizer: encode, decode,
     add_special_tokens, convert_tokens_to_ids, eos_token_id, pad_token_id)
     -> the processor, the chat template and the Generator."""
@@ -213,7 +215,7 @@ def assemble_model(model: TimeViperVLM, arch: VLMArch, meta: Dict[str, Any], tok
     generator = Generator(
         model, arch, terminator_ids=processor.terminator_ids,
         pad_token_id=tokenizer.pad_token_id or 0, max_new_tokens=max_new_tokens,
-        sampling=sampling, speculative=speculative, n_draft=n_draft)
+        sampling=sampling, speculative=speculative, n_draft=n_draft, mesh=mesh)
     return TimeViperModel(arch=arch, model=model, processor=processor, template=template,
                           generator=generator,
                           default_use_pdrop=bool(use_pdrop or meta.get("use_pdrop")))
@@ -239,10 +241,11 @@ def load_pretrained_vlm(
     (train/quantize.py). `speculative="ngram"` turns on prompt-lookup
     speculative decoding for greedy generation (models/speculative.py):
     n_draft drafted tokens verified per forward, token-identical output.
-    `mesh` (multi-chip inference) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference (mesh=) is not ported "
-                                  "(ROADMAP Queue 1 item 4)")
+    `mesh` (a `seq` mesh of parallel/sharding.py:make_mesh) makes the
+    Generator sequence-parallel: each rank holds a whole copy of the weights
+    on its own card (cuda:{LOCAL_RANK} by default), as the JAX package
+    replicates them over `seq`. A mesh with a model axis above 1 raises."""
+    refuse_model_axis(mesh)
     model, arch, meta = load_vlm_weights(checkpoint, use_pdrop=use_pdrop, dtype=dtype,
                                          quantize_int8=quantize_int8, device=device)
     from transformers import AutoTokenizer
@@ -250,4 +253,5 @@ def load_pretrained_vlm(
     tokenizer = AutoTokenizer.from_pretrained(checkpoint, use_fast=True)
     return assemble_model(model, arch, meta, tokenizer, conv_template=conv_template,
                           max_new_tokens=max_new_tokens, use_pdrop=use_pdrop,
-                          sampling=sampling, speculative=speculative, n_draft=n_draft)
+                          sampling=sampling, speculative=speculative, n_draft=n_draft,
+                          mesh=mesh)

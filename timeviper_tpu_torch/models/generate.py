@@ -30,7 +30,16 @@ package); the cache then carries each layer's `kv_len` and the TransV
 `ca_kv`, which the continuation and every decode step merge again
 (timeviper_tpu/models/generate.py:259-297, :528-553, :651-668).
 
-Left out for now: sequence parallelism.
+Sequence parallelism: `Generator(mesh=make_mesh(seq=n))` runs the same
+calls on every rank of the mesh's `seq` axis (parallel/seq_parallel.py). A
+frame count that the axis divides is encoded frame-sharded (each rank its
+span of frames, then one all-gather of the visual tokens; not for two towers
+or InternVideo2), a nano bucket that it divides is prefilled
+sequence-sharded into a cache every rank holds whole, and each rank decodes
+that cache on its own card: every rank returns the same tokens. pdrop runs
+masked inside the sharded prefill (the cache then carries `kv_valid` masks,
+and speculation stays off on it). The same holds for `prefill_prefix`
+(timeviper_tpu/models/generate.py:179-200, :299-330, :525-545, :621-645).
 """
 
 from __future__ import annotations
@@ -46,15 +55,22 @@ import torch
 from timeviper_tpu_torch.config import suffix_chunk
 from timeviper_tpu_torch.data.fusion import FusionPlan, plan_fusion
 from timeviper_tpu_torch.models.vlm import (
+    VIT_FAMILIES,
     TimeViperVLM,
     VLMArch,
     decode_step,
     encode_visual,
+    fuse_rows,
     vlm_forward,
 )
 from timeviper_tpu_torch.models.prefix_cache import forward_continue
 from timeviper_tpu_torch.models.speculative import spec_decode, text_history
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
+from timeviper_tpu_torch.parallel.seq_parallel import (
+    encode_frames_seq_parallel,
+    nano_prefill_seq_parallel,
+)
+from timeviper_tpu_torch.parallel.sharding import all_gather, axis_size, refuse_model_axis
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
@@ -123,7 +139,8 @@ def _sync(device: torch.device) -> None:
 
 
 class Generator:
-    """Batch-1 generation over one model on one device."""
+    """Batch-1 generation over one model on one device, or on every rank of
+    a `seq` mesh (`mesh`, parallel/sharding.py:make_mesh; the module doc)."""
 
     def __init__(
         self,
@@ -137,9 +154,12 @@ class Generator:
         clip_size: int = 256,
         speculative: Optional[str] = None,
         n_draft: int = 7,
+        mesh=None,
     ) -> None:
         if speculative not in (None, "ngram"):
             raise ValueError(f"unknown speculative mode {speculative!r}")
+        refuse_model_axis(mesh)
+        self.mesh = mesh
         self.speculative = speculative
         self.n_draft = n_draft
         self.model = model
@@ -150,6 +170,15 @@ class Generator:
         self.sampling = sampling
         self.clip_size = clip_size
         self.device = model.llm_backbone.embeddings.weight.device
+
+    @property
+    def _seq_shards(self) -> int:
+        return 1 if self.mesh is None else axis_size(self.mesh, "seq")
+
+    def _shard_prefill(self, bucket: int) -> bool:
+        """Whether a bucket's prefill runs sequence-sharded."""
+        n = self._seq_shards
+        return n > 1 and self.arch.llm_family == "nano" and bucket % n == 0
 
     @property
     def _spec_on(self) -> bool:
@@ -166,7 +195,15 @@ class Generator:
         """(F, H, W, 3) -> (F * tokens_per_frame, D), `clip_size` frames at a
         time. An InternVideo2 tower takes chunks of whole clips (a multiple of
         its num_frames) and raises ValueError on any other
-        (models/internvideo2.py:encode_frames_iv2)."""
+        (models/internvideo2.py:encode_frames_iv2). With a `seq` mesh that
+        divides the frames, each rank encodes its span and the spans are
+        all-gathered (one ViT tower)."""
+        n = self._seq_shards
+        if (n > 1 and pixels.shape[0] % n == 0 and not self.arch.vision_backbones
+                and self.arch.vision_family in VIT_FAMILIES):
+            local = encode_frames_seq_parallel(self.model, self.arch, pixels, self.mesh,
+                                               clip_size=self.clip_size)
+            return all_gather(local[0], self.mesh, "seq", dim=0, tiled=True)
         pixels = torch.as_tensor(pixels, device=self.device)
         outs = [encode_visual(self.model, self.arch, pixels[s:s + self.clip_size])
                 for s in range(0, pixels.shape[0], self.clip_size)]
@@ -192,11 +229,26 @@ class Generator:
 
     @torch.inference_mode()
     def prefill(self, ids_arr, gather_idx, seq_idx, visual, pad, cache_len,
-                pdrop_vision_start: Optional[int] = None):
+                pdrop_vision_start: Optional[int] = None, shard: bool = True):
         """Bucketed prefill -> (last-row f32 logits (1, V), decode cache).
         `pdrop_vision_start` (the visual block's first row, the pad included)
-        runs the pdrop stages with the bucket's last row as the query."""
+        runs the pdrop stages with the bucket's last row as the query. With a
+        `seq` mesh that divides the bucket (and `shard`), the prefill runs
+        sequence-sharded (parallel/seq_parallel.py:nano_prefill_seq_parallel);
+        under pdrop its cache holds `kv_valid` masks."""
         bucket = len(seq_idx)
+        if shard and self._shard_prefill(bucket):
+            llm = self.model.llm_backbone
+            fused = fuse_rows(self.model, torch.as_tensor(ids_arr, dtype=torch.long,
+                                                          device=self.device)[None],
+                              visual[None], torch.as_tensor(np.asarray(gather_idx))[None])
+            logits, cache = nano_prefill_seq_parallel(
+                llm, self.arch.llm, fused, self.mesh, logits_to_keep=1, valid_from=pad,
+                fill_cache=True, cache_max_len=cache_len,
+                use_pdrop=pdrop_vision_start is not None, pdrop_vision_start=pdrop_vision_start,
+                pdrop_num_vision=visual.shape[0], pdrop_query_pos=bucket - 1,
+                merge_params=self.model.merge_modules, fused_conv=_fused_conv_default())
+            return logits[:, -1], cache
         plan = FusionPlan(fused_len=bucket, text_len=len(ids_arr), num_visual=visual.shape[0],
                           gather_idx=gather_idx, is_visual=None, seq_idx=seq_idx,
                           position_ids=None, sample_layouts=())
@@ -311,9 +363,10 @@ class Generator:
 
     def _run_decode(self, ids, first_logits, cache, rng_seed: int, image_token_id=None):
         """(tokens, the speculative counts or None): the speculative loop when
-        it is on, mining the prompt `ids` for drafts, else the plain one.
+        it is on (and the cache has no `kv_valid` masks), mining the prompt
+        `ids` for drafts, else the plain one.
         The cache must be the loop's own."""
-        if self._spec_on:
+        if self._spec_on and cache.get("kv_valid") is None:
             buf, buf_len = text_history(ids, image_token_id, self.pad_token_id,
                                         self.max_new_tokens, self.n_draft)
             return spec_decode(self.model, self.arch, first_logits, cache, buf, buf_len,

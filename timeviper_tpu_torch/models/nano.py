@@ -59,6 +59,7 @@ from timeviper_tpu_torch.models.pdrop import (
 )
 from timeviper_tpu_torch.models.remat import Parts, remat_policy, run_block, run_parts
 from timeviper_tpu_torch.ops.attention import attention
+from timeviper_tpu_torch.ops.block_attention import block_attn_lse
 from timeviper_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update, init_conv_state
 from timeviper_tpu_torch.ops.decode_fused import fused_mamba_decode, fused_mamba_decode_supported
 from timeviper_tpu_torch.ops.flash_attention import flash_attention
@@ -350,6 +351,7 @@ def attention_mixer_decode(
     cache_layer: Dict[str, Any],
     length,
     valid_from=0,
+    kv_valid_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token against the fixed-capacity KV buffer. The new K/V row is
     written IN PLACE at slot `length` (no copy of the buffer per token); the
@@ -364,7 +366,15 @@ def attention_mixer_decode(
 
     A layer whose cache entry holds `kv_len` (a pdrop prefill's, in either
     form) writes and masks at it instead of `length`, and returns it one
-    more (timeviper_tpu/models/nano.py:474-507)."""
+    more (timeviper_tpu/models/nano.py:474-507).
+
+    A cache from the sequence-sharded pdrop prefill keeps its dropped rows
+    in place and masks them: the layer's own `kv_valid` (max_len,) bool, or
+    else the cache-wide `kv_valid_mask`, limits the slots further, with the
+    slot written now set; the layer returns its mask so updated. Such a step
+    takes host lengths, and its attention is one K9 block on the card
+    (ops/block_attention.py:block_attn_lse, the mask folded into its segment
+    ids)."""
     B = x.shape[0]
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     k, v = cache_layer["k"], cache_layer["v"]
@@ -375,13 +385,24 @@ def attention_mixer_decode(
     if kv_len is not None:  # after a pdrop prefill: this layer's own row count
         length = kv_len
         cache_layer = {**cache_layer, "kv_len": kv_len + 1}
+    layer_valid = cache_layer.get("kv_valid", kv_valid_mask)
     if not isinstance(length, torch.Tensor):
         if length >= k.shape[1]:
             raise ValueError(f"KV cache of {k.shape[1]} slots is full")
         k[:, length] = k_new
         v[:, length] = v_new
-        out = attention(q, k[:, valid_from:length + 1], v[:, valid_from:length + 1])
+        ks, vs = k[:, valid_from:length + 1], v[:, valid_from:length + 1]
+        if layer_valid is None:
+            out = attention(q, ks, vs)
+        else:
+            layer_valid = layer_valid.clone()
+            layer_valid[length] = True
+            if "kv_valid" in cache_layer:
+                cache_layer = {**cache_layer, "kv_valid": layer_valid}
+            out = block_attn_lse(q, ks, vs, valid_kv=layer_valid[valid_from:length + 1])[0]
         return m.o_proj(out.reshape(B, 1, Hq * hd)), cache_layer
+    if layer_valid is not None:
+        raise ValueError("a cache with slot-validity masks decodes with host lengths")
     span = int(length.max()) + 1
     if span > k.shape[1]:
         raise ValueError(f"KV cache of {k.shape[1]} slots is full")
@@ -523,11 +544,17 @@ def nano_decode_step(
     (attention_mixer_decode); the returned length is one more. A cache from a
     pdrop prefill with TransV (`ca_kv`) and the merge modules `pdrop_params`
     merge the token again at each stage's layer
-    (timeviper_tpu/models/nano.py:721-737)."""
+    (timeviper_tpu/models/nano.py:721-737). A cache with slot-validity masks
+    (`kv_valid`, the sequence-sharded pdrop prefill's) sets the slot each
+    step writes (:718-766)."""
     hidden = model.embeddings(input_ids)
     length, valid_from = cache["length"], cache["valid_from"]
     eps = cfg.layer_norm_epsilon
     merges = cached_merges(cfg, cache, pdrop_params)
+    kv_valid = cache.get("kv_valid")
+    if kv_valid is not None:  # the slot this step writes becomes valid
+        kv_valid = kv_valid.clone()
+        kv_valid[length] = True
     new_layers = []
     for idx, (block, lc) in enumerate(zip(model.layers, cache["layers"])):
         if idx in merges:
@@ -536,7 +563,8 @@ def nano_decode_step(
         if block.block_type == "mamba":
             out, lc = mamba_mixer_decode(block.mixer, cfg, normed, lc)
         elif block.block_type == "attention":
-            out, lc = attention_mixer_decode(block.mixer, cfg, normed, lc, length, valid_from)
+            out, lc = attention_mixer_decode(block.mixer, cfg, normed, lc, length, valid_from,
+                                             kv_valid)
         else:
             out = mlp_mixer_forward(block.mixer, cfg, normed)
         hidden = hidden + out
@@ -544,6 +572,8 @@ def nano_decode_step(
     hidden = rms_norm(hidden, model.norm_f.weight, eps)
     logits = compute_logits(model, hidden[:, 0])
     new_cache = {"layers": new_layers, "length": length + 1, "valid_from": valid_from}
+    if kv_valid is not None:
+        new_cache["kv_valid"] = kv_valid
     if "ca_kv" in cache:
         new_cache["ca_kv"] = cache["ca_kv"]
     return logits, new_cache

@@ -58,8 +58,12 @@ is one chunk at either: it runs at the config's chunk, the one K1 takes (K1
 refuses a chunk that is not a multiple of 64 in 64-1,024). A longer suffix
 runs at the override.
 
-Not ported yet: a cache with slot-validity masks (`kv_valid`, made only by
-the sequence-parallel masked prefill), which raises NotImplementedError.
+A cache with slot-validity masks (`kv_valid`, made by the sequence-sharded
+pdrop prefill, parallel/seq_parallel.py) continues too: the prefix block
+attends only the valid prefix slots (the layer's own mask, and the
+cache-wide one), the suffix rows it writes become valid in both, and the
+suffix's own block is causal as before (timeviper_tpu/models/
+prefix_cache.py:146-189, :284-329, :450-506).
 """
 
 from __future__ import annotations
@@ -129,13 +133,17 @@ def _mamba_continue(m: MambaMixer, cfg: NanoConfig, x: torch.Tensor,
 
 
 def attention_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length: int,
-                     valid_from: int = 0) -> torch.Tensor:
+                     valid_from: int = 0, kv_valid_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Attention of S suffix queries q (B, S, Hq, hd) over a cache buffer k,
     v (B, M, Hkv, hd) whose rows [length, length + S) already hold the
-    suffix's own K/V: query i sees rows [valid_from, length + i]. Two K9
+    suffix's own K/V: query i sees rows [valid_from, length + i], and of the
+    prefix rows only those `kv_valid_mask` (M,) marks, where given. Two K9
     blocks, merged by (l, m) (ops/block_attention.py:merge_parts)."""
     S = q.shape[1]
-    prefix = block_attn_lse(q, k[:, valid_from:length], v[:, valid_from:length], causal=False)
+    extra = None if kv_valid_mask is None else kv_valid_mask[valid_from:length]
+    prefix = block_attn_lse(q, k[:, valid_from:length], v[:, valid_from:length], causal=False,
+                            valid_kv=extra)
     own = block_attn_lse(q, k[:, length:length + S], v[:, length:length + S], causal=True)
     return merge_parts([prefix, own])[0]
 
@@ -158,26 +166,36 @@ def _append_kv(cache_layer: Dict[str, Any], k_new: torch.Tensor, v_new: torch.Te
     return lc
 
 
+def _with_suffix(mask: Optional[torch.Tensor], length: int, S: int) -> Optional[torch.Tensor]:
+    """A slot-validity mask with the suffix rows [length, length + S) set, as
+    a new tensor (the input cache's stays as it is)."""
+    if mask is None:
+        return None
+    mask = mask.clone()
+    mask[length:length + S] = True
+    return mask
+
+
 def _attention_continue(m: AttentionMixer, cfg: NanoConfig, x: torch.Tensor,
-                        cache_layer: Dict[str, Any], length: int, valid_from: int
+                        cache_layer: Dict[str, Any], length: int, valid_from: int,
+                        kv_valid_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x (B, S, D) normed suffix -> (out (B, S, D), a new cache entry with the
     suffix rows written, `_append_kv`). A layer's own `kv_len` (after a pdrop
-    prefill) takes the place of `length`."""
+    prefill) takes the place of `length`; its own `kv_valid`, with the suffix
+    rows set, masks the prefix slots with the cache-wide `kv_valid_mask`."""
     B, S, _ = x.shape
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     length = cache_layer.get("kv_len", length)
     q = m.q_proj(x).reshape(B, S, Hq, hd)
     lc = _append_kv(cache_layer, m.k_proj(x).reshape(B, S, Hkv, hd),
                     m.v_proj(x).reshape(B, S, Hkv, hd), length)
-    out = attention_suffix(q, lc["k"], lc["v"], length, valid_from)
+    layer_valid = _with_suffix(cache_layer.get("kv_valid"), length, S)
+    if layer_valid is not None:
+        lc["kv_valid"] = layer_valid
+        kv_valid_mask = layer_valid if kv_valid_mask is None else kv_valid_mask & layer_valid
+    out = attention_suffix(q, lc["k"], lc["v"], length, valid_from, kv_valid_mask)
     return m.o_proj(out.reshape(B, S, Hq * hd)), lc
-
-
-def _refuse_unported(cache: Dict[str, Any]) -> None:
-    if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
-        raise NotImplementedError("a cache with slot-validity masks (kv_valid, the "
-                                  "sequence-parallel masked prefill's) is not ported")
 
 
 @torch.no_grad()
@@ -191,11 +209,11 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
     with length += S). The input cache is left untouched. `pdrop_params`
     (the merge modules) merge the suffix rows with a pdrop cache's `ca_kv`;
     `chunk_size` overrides the SSD chunk (`scan_chunk`)."""
-    _refuse_unported(cache)
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.layer_norm_epsilon
     hidden = inputs_embeds
+    kv_valid = cache.get("kv_valid")
     merges = cached_merges(cfg, cache, pdrop_params)
     new_layers = []
     for idx, (block, lc) in enumerate(zip(model.layers, cache["layers"])):
@@ -205,13 +223,16 @@ def nano_forward_continue(model, cfg: NanoConfig, inputs_embeds: torch.Tensor,
         if block.block_type == "mamba":
             out, lc = _mamba_continue(block.mixer, cfg, normed, lc, chunk_size)
         elif block.block_type == "attention":
-            out, lc = _attention_continue(block.mixer, cfg, normed, lc, length, valid_from)
+            out, lc = _attention_continue(block.mixer, cfg, normed, lc, length, valid_from,
+                                          kv_valid)
         else:
             out, lc = mlp_mixer_forward(block.mixer, cfg, normed), {}
         hidden = hidden + out
         new_layers.append(lc)
     hidden = rms_norm(hidden if logits_all else hidden[:, -1], model.norm_f.weight, eps)
     new_cache = {"layers": new_layers, "length": length + S, "valid_from": valid_from}
+    if kv_valid is not None:  # the suffix rows become valid prefix slots
+        new_cache["kv_valid"] = _with_suffix(kv_valid, length, S)
     if "ca_kv" in cache:
         new_cache["ca_kv"] = cache["ca_kv"]
     return compute_logits(model, hidden), new_cache
@@ -244,7 +265,8 @@ def qwen2_forward_continue(model, cfg, inputs_embeds: torch.Tensor, cache: Dict[
     input cache is left untouched. `pdrop_params` (the merge modules) merge
     the suffix rows with a pdrop cache's `ca_kv`. `chunk_size` is accepted for the speculative loop's one call and unused: the backbone
     has no SSD scan."""
-    _refuse_unported(cache)
+    if "kv_valid" in cache or any("kv_valid" in lc for lc in cache["layers"]):
+        raise ValueError("slot-validity masks come from the sequence-sharded nano prefill only")
     S = inputs_embeds.shape[1]
     length, valid_from = int(cache["length"]), int(cache["valid_from"])
     eps = cfg.rms_norm_eps

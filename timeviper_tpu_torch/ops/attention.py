@@ -68,16 +68,18 @@ def attention(
     return out.reshape(B, Lq, Hq, D).to(q.dtype)
 
 
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Non-causal GQA attention of q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D)
-    (timeviper_tpu/ops/attention.py:128, without its `kv_valid`, which no
-    caller passes). A CPU tensor takes `attention`; a CUDA tensor K9's
-    non-causal mode, its row statistics dropped, or raises; under autograd
-    (grad enabled and q, k or v requiring it) a CUDA tensor takes
+    (timeviper_tpu/ops/attention.py:128); `kv_valid` (B, Lk) bool masks keys
+    (True = attend). A CPU tensor takes `attention`; a CUDA tensor K9's
+    non-causal mode, its row statistics dropped and the mask folded into its
+    segment ids (ops/block_attention.py:fold_segments), or raises; under
+    autograd (grad enabled and q, k or v requiring it) a CUDA tensor takes
     BlockAttnFn, whose backward is K2-bwd's non-causal mode. All-zero keys
     and values give exactly 0 on both."""
     if q.device.type == "cpu":
-        return attention(q, k, v)
+        return attention(q, k, v, None if kv_valid is None else kv_valid[:, None, :])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return BlockAttnFn.apply(q, k, v)
-    return block_attn_lse(q, k, v, causal=False)[0]
+        return BlockAttnFn.apply(q, k, v, kv_valid)
+    return block_attn_lse(q, k, v, causal=False, valid_kv=kv_valid)[0]

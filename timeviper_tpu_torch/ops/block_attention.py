@@ -131,8 +131,8 @@ def fold_segments(B: int, Lq: int, Lk: int, valid_kv=None, valid_q=None, seg_q=N
     zeros = lambda n: torch.zeros(B, n, dtype=torch.int32, device=device)  # noqa: E731
     sq = zeros(Lq) if seg_q is None else seg_q.to(torch.int32).expand(B, Lq)
     sk = zeros(Lk) if seg_kv is None else seg_kv.to(torch.int32).expand(B, Lk)
-    if valid_kv is not None:
-        sk = torch.where(valid_kv[None], sk, -1)
+    if valid_kv is not None:  # (Lk,) shared by the rows, or (B, Lk)
+        sk = torch.where(valid_kv if valid_kv.dim() == 2 else valid_kv[None], sk, -1)
         if valid_q is not None:
             sq = torch.where(valid_q[None], sq, -1)
     return sq.contiguous(), sk.contiguous()
@@ -214,19 +214,32 @@ def row_lse(l: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 class BlockAttnFn(torch.autograd.Function):
     """Non-causal GQA attention of q (B, Lq, Hq, D) over k, v (B, Lk, Hkv, D)
-    on CUDA tensors: K9 forward, K2-bwd's non-causal mode backward."""
+    on CUDA tensors: K9 forward, K2-bwd's non-causal mode backward. With a
+    key mask `kv_valid` (B, Lk) the backward runs each row on its kept keys
+    (K2-bwd's non-causal mode takes no mask; a masked key's probability is 0,
+    so its gradients are 0 and the kept keys' are those of the compacted
+    row)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, l, m = block_attn_lse(q, k, v, causal=False)
-        ctx.save_for_backward(q, k, v, o, row_lse(l, m))
+    def forward(ctx, q, k, v, kv_valid=None):
+        o, l, m = block_attn_lse(q, k, v, causal=False, valid_kv=kv_valid)
+        ctx.save_for_backward(q, k, v, o, row_lse(l, m), kv_valid)
         return o
 
     @staticmethod
     def backward(ctx, dout):
         from timeviper_tpu_torch.ops.flash_attention import cross_attention_bwd
 
-        return cross_attention_bwd(*ctx.saved_tensors[:4], dout, ctx.saved_tensors[4])
+        q, k, v, o, lse, kv_valid = ctx.saved_tensors
+        if kv_valid is None:
+            return (*cross_attention_bwd(q, k, v, o, dout, lse), None)
+        dq, dk, dv = torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+        for b in range(q.shape[0]):
+            keep = kv_valid[b].nonzero()[:, 0]
+            r = slice(b, b + 1)
+            dq[r], dk[r, keep], dv[r, keep] = cross_attention_bwd(
+                q[r], k[r, keep], v[r, keep], o[r], dout[r], lse[r])
+        return dq, dk, dv, None
 
 
 def _check(q, k, v, causal):

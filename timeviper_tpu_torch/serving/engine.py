@@ -67,10 +67,17 @@ suffix bucket is a multiple of 16 rows (config.py:suffix_chunk), and the
 decode rotates each row at its own logical position. pdrop serving takes the
 nano family only, as the JAX engine asserts (engine.py:144-145).
 
-Not ported yet: sequence-parallel serving (`mesh`, ROADMAP Queue 1 item 8),
-which raises NotImplementedError; without a mesh the JAX engine's
-`batch_prefill` switch has no use, and text prompts always prefill in
-batches.
+Sequence-parallel serving (`mesh`, a `seq` mesh of parallel/sharding.py,
+timeviper_tpu/serving/engine.py:94-128, :300-318): every rank of the axis
+runs the engine on the same requests. Batch prefill is off (the JAX
+engine's `batch_prefill` switch, which no caller sets otherwise), and each
+request's prefill whose bucket the axis
+divides runs sequence-sharded through the Generator
+(parallel/seq_parallel.py), its frames encoded frame-sharded; the cache it
+gives is whole on every rank, which inserts it into its own slots and
+decodes them on its own card. A pdrop request keeps the one-card pdrop
+prefill, as in the JAX engine, and a prefix state with slot-validity masks
+(`kv_valid`) is refused in a slot, as a pdrop one is.
 """
 
 from __future__ import annotations
@@ -94,6 +101,7 @@ from timeviper_tpu_torch.models.vlm import (
     llm_forward,
 )
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
+from timeviper_tpu_torch.parallel.sharding import refuse_model_axis
 
 
 @dataclasses.dataclass
@@ -146,9 +154,10 @@ class ServingEngine:
         prefill_chunk_tokens: Optional[int] = None,
         pdrop_frames: Optional[int] = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("sequence-parallel serving (mesh=) is not ported "
-                                      "(ROADMAP Queue 1 item 8)")
+        refuse_model_axis(mesh)
+        # batching bypasses the sequence-sharded prefill: with a mesh every
+        # request takes the per-request one
+        self.batch_prefill = mesh is None
         self.model = model
         self.arch = arch
         self.num_slots = num_slots
@@ -163,7 +172,7 @@ class ServingEngine:
         self._chunked: Optional[Dict[str, Any]] = None
         self._gen = Generator(model, arch, terminator_ids=terminator_ids,
                               pad_token_id=pad_token_id, max_new_tokens=max_new_tokens,
-                              sampling=sampling)
+                              sampling=sampling, mesh=mesh)
         self.device = self._gen.device
         self.cache_layers = init_cache(arch, num_slots, max_len, cache_dtype,
                                        device=self.device)["layers"]
@@ -238,6 +247,11 @@ class ServingEngine:
         (models/prefix_cache.py) for insertion into a slot. The JAX engine's
         ValueErrors."""
         st = req.prefix
+        if st.cache.get("kv_valid") is not None:
+            raise ValueError(
+                f"request {req.request_id}: a prefix state with slot-validity"
+                " masks (kv_valid, a sequence-sharded pdrop prefill's) is not"
+                " servable in a slot (use the offline Generator)")
         if st.cache.get("ca_kv") is not None:
             raise ValueError(
                 f"request {req.request_id}: pdrop prefix states are not"
@@ -326,7 +340,7 @@ class ServingEngine:
         visual = self._gen.encode_frames(req.pixels) if req.pixels is not None else None
         visual = self._gen._check_visual(plan, visual)
         logits, cache1 = self._gen.prefill(ids_arr, gather_idx, seq_idx, visual, pad, bucket,
-                                           pdrop_start)
+                                           pdrop_start, shard=pdrop_start is None)
         return self._pending(req, slot, logits, cache1, cache1["length"], pad)
 
     def _prefill_plan(self, req: Request):
@@ -513,7 +527,7 @@ class ServingEngine:
                     else:  # one long prompt in flight at a time
                         requeue.append(req)
                     continue
-                if req.prefix is None and req.pixels is None:
+                if req.prefix is None and req.pixels is None and self.batch_prefill:
                     try:
                         plan = self._prefill_plan(req)
                     except ValueError as e:
