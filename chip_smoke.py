@@ -9,7 +9,9 @@ training (with the vision tower trained too), int8 serving with the fused
 kernels, then serving with the InternVideo2 tower (bf16, then int8) and
 with the two-tower DINOv2 + SigLIP encoder, the Qwen2.5-7B backbone
 (serving, speculative decoding, LoRA training, W8A8), and last
-sequence-parallel serving on one NCCL rank and two gloo ranks.
+sequence-parallel serving on one NCCL rank and two gloo ranks, and the
+training half of parallelism (tensor, data and FSDP, and the gradient
+through the sequence-parallel prefill) on the same.
 
     python3 chip_smoke.py
 
@@ -309,6 +311,33 @@ Phases, each of which raises on failure (there is no fallback anywhere):
    against their plain versions; every rank's tokens equal. Seconds, peak
    GiB and the bytes handed to the collectives are printed, none of them a
    multi-card speed.
+12. the training half of parallelism (parallel/tensor_parallel.py), the 9B
+   made again from the seed with LoRA rank 8 (lora_b drawn off zero) and the
+   projector trainable: one-card references first (the first step's loss
+   and gradients on one 1,064-token row and on two, the 256-frame request's
+   first logits, tokens and greedy margins with the fusions on, the
+   gradient of the mean square of the last 8 logits of a 4,096-token packed
+   row), then (a) one NCCL rank, a (1, 1, 1) mesh: the Trainer's first step
+   through the mesh code (loss, gradient cosines by group MESH_ONE_COS and
+   norm ratios MESH_ONE_NORM);
+   then the model freed and two gloo ranks spawned on cuda:0, each building
+   its whole model in turn and keeping its shard: (d) seq 2, that gradient
+   through nano_prefill_seq_parallel (each block checkpointed; K1 / K4 on
+   the spans; the span's queries against the gathered K/V through
+   SpanAttnFn, K9 forward and K2-bwd's two modes backward, each on its
+   first call against its plain version), (b) model 2, the same model
+   sharded (H 64, G 4, Hq / Hkv 16 / 4 a rank): one LoRA step's gradients
+   (by group cosine MESH_GRAD_COS and norm ratio MESH_GRAD_NORM, which
+   must refuse the gradients x2 and x1/2; loss MESH_LOSS_RTOL; K1 / K4 and
+   K2 / K2-bwd on their first
+   calls against their plain versions) and the 256-frame request through
+   Generator(mesh=) with the fusions on (first-logit cosine MESH_ONE_COS;
+   tokens equal or parting where the one-card margin is below
+   MISS_GAP_LIMIT; K5, K7, K8 and K3 on their first calls against their
+   plain versions), (c) data 2 with the frozen base FSDP-split: one step on
+   the two rows, a row a rank (as (b)). Each rank's step seconds, peak GiB,
+   bytes handed to the collectives and launches are printed beside the card;
+   none of them is a multi-card speed.
 
 The line before the last is one JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs the CUDA toolkit (nvcc) and no network.
@@ -466,7 +495,7 @@ from timeviper_tpu_torch.train.quantize import (  # noqa: E402
     fuse_decode_in_proj,
     quantize_params_int8,
 )
-from timeviper_tpu_torch.train.step import grad_step  # noqa: E402
+from timeviper_tpu_torch.train.step import grad_step, trainable_params  # noqa: E402
 from timeviper_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -5485,6 +5514,371 @@ def phase_seq_parallel(smi: str, kernel_results: dict) -> None:
     log(f"[sp] phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the training half of parallelism
+# ---------------------------------------------------------------------------
+
+MESH_ONE_COS = 0.999  # (a): one rank through the mesh code; (b)'s first logits
+MESH_GRAD_COS = 0.99  # (b)-(d): gradient cosine by group against one card
+# |g| / |g_ref| by group, within 1 +/- these: a cosine does not see a gradient
+# scaled x2 or x1/2 (a missing / nd, a leaf summed twice over an axis)
+MESH_ONE_NORM = 0.01  # (a)
+MESH_GRAD_NORM = 0.02  # (b)-(d)
+MESH_LOSS_RTOL = 1e-2
+MESH_SEQ_TOKENS = 4096  # (d): one packed row of two segments
+MESH_SEQ_CUT = 1500
+MESH_TRAIN_KERNELS = ("ssd_fwd", "ssd_bwd", "flash_fwd", "flash_bwd")
+MESH_SERVE_PLACES = {"ssd_conv_fwd": (nano_mod, "ssd_conv_scan_fused"),
+                     "decode_fused": (nano_mod, "fused_mamba_decode"),
+                     "layernorm": (vit_mod, "fused_ln"),
+                     "vit_attn_qkv": (vit_mod, "encoder_attention_qkv")}
+# (d): SpanAttnFn's K9 forward and its backward's two K2-bwd modes
+MESH_SEQ_PLACES = {"block_attn": (sp_mod, "block_attn_lse"),
+                   "flash_bwd": (sp_mod, "flash_attention_bwd"),
+                   "flash_bwd_noncausal": (sp_mod, "cross_attention_bwd")}
+MESH_KERNELS = MESH_TRAIN_KERNELS + tuple(MESH_SERVE_PLACES) + ("block_attn",
+                                                                "flash_bwd_noncausal")
+MESH_GROUPS = {
+    "LoRA, Mamba in_proj": lambda n: ".lora_" in n and ".in_proj." in n,
+    "LoRA, Mamba out_proj": lambda n: ".lora_" in n and ".out_proj." in n,
+    "LoRA, attention": lambda n: ".lora_" in n and any(
+        f".{p}." in n for p in ("q_proj", "k_proj", "v_proj", "o_proj")),
+    "LoRA, MLP": lambda n: ".lora_" in n and (".up_proj." in n or ".down_proj." in n),
+    "projector": lambda n: n.startswith("projector."),
+}
+
+
+def mesh_model(arch):
+    """The 9B from the seed with LoRA rank 8 on the backbone, its lora_b drawn
+    off zero (so that lora_a has a gradient); the projector trains too."""
+    model = init_vlm_params(arch, torch.Generator(device=DEV).manual_seed(SEED),
+                            dtype=torch.bfloat16, device=DEV)
+    add_lora(model, rank=8, alpha=16.0,
+             generator=torch.Generator(device=DEV).manual_seed(SEED + 2))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".lora_b"):
+                p.normal_(0.0, 1e-3, generator=g)
+    trainable_params(model, True, "projector")  # the rest frozen, as the Trainer sets it
+    return model
+
+
+def mesh_inputs(arch) -> dict:
+    """Two 1,064-token rows of one plan, the 256-frame request and the
+    4,096-token packed row of (d), all from the seed."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    rows = [training_row(arch, 64, g), training_row(arch, 64, g)]
+    two = dataclasses.replace(rows[0], batch={k: np.concatenate([r.batch[k] for r in rows])
+                                              for k in rows[0].batch})
+    gs = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    emb = (torch.randn(1, MESH_SEQ_TOKENS, arch.llm.hidden_size, generator=gs, device=DEV)
+           * 0.02).to(torch.bfloat16)
+    seq_idx = (torch.arange(MESH_SEQ_TOKENS, device=DEV) >= MESH_SEQ_CUT).to(torch.int32)[None]
+    return {"one": rows[0], "two": two, "request": make_requests(arch)[2][1],
+            "emb": emb, "seq_idx": seq_idx}
+
+
+def mesh_trainer(arch, model, mesh=None, data: int = 1, tp: int = 1):
+    cfg = TrainerConfig(run_dir=tempfile.mkdtemp(prefix="chip_smoke_mesh_"), max_steps=1,
+                        save_every=10**9, lora=True, trainable_modules="projector",
+                        remat="full", resume=False, data_parallel=data, model_parallel=tp)
+    return Trainer(arch, model, OptimConfig(learning_rate=1e-3, schedule="constant"), cfg,
+                   device=DEV, mesh=mesh)
+
+
+def mesh_step(trainer, cb):
+    """The first step's (loss, f32 gradients) of a batch through the
+    Trainer's step (this rank's rows on a data axis)."""
+    batch = trainer._rows({k: torch.from_numpy(v).to(DEV) for k, v in cb.batch.items()})
+    metrics, grads = grad_step(trainer.model, trainer.step_arch, trainer.opt.params, batch,
+                               cb.plan, remat=trainer.remat, layout=trainer.layout)
+    return float(metrics["loss"]), grads
+
+
+def seq_loss_grads(llm, cfg, emb, seq_idx, mesh=None) -> tuple:
+    """The JAX seq-parallel test's loss (the mean square of the last 8
+    logits) and its gradient with respect to the LoRA factors: through
+    nano_forward, or through nano_prefill_seq_parallel on a mesh (each
+    rank's part psummed over `seq`)."""
+    params = {n: p for n, p in llm.named_parameters() if ".lora_" in n}
+    if mesh is None:
+        logits = nano_forward(llm, cfg, inputs_embeds=emb, seq_idx=seq_idx,
+                              logits_to_keep=8)["logits"]
+    else:
+        logits = nano_prefill_seq_parallel(llm, cfg, emb, mesh, logits_to_keep=8,
+                                           seq_idx=seq_idx)
+    loss = logits.float().square().mean()
+    got = torch.autograd.grad(loss, list(params.values()))
+    grads = {f"llm_backbone.{n}": g.float() for n, g in zip(params, got)}
+    if mesh is not None:
+        grads = {n: sharding_mod.psum(g, mesh, "seq") for n, g in grads.items()}
+    return float(loss.detach()), grads
+
+
+def mesh_agreement(got: dict, want: dict) -> dict:
+    """Per MESH_GROUPS group, [the cosine of the gradients, |got| / |want|],
+    summed in float64 (a float32 sum over tens of millions of elements reads
+    a cosine above 1)."""
+    out = {}
+    for group, pick in MESH_GROUPS.items():
+        names = [n for n in want if pick(n)]
+        if names:
+            a, b = (torch.cat([g[n].double().flatten().cpu() for n in names]) for g in (got, want))
+            out[group] = [float(a @ b / (a.norm() * b.norm())), float(a.norm() / b.norm())]
+    return out
+
+
+def mesh_passes(loss: float, want_loss: float, agree: dict, min_cos: float,
+                norm_tol: float) -> bool:
+    return (abs(loss - want_loss) <= MESH_LOSS_RTOL * abs(want_loss)
+            and all(c >= min_cos and abs(r - 1.0) <= norm_tol for c, r in agree.values()))
+
+
+def mesh_gate(tag: str, loss: float, want_loss: float, agree: dict, min_cos: float,
+              norm_tol: float) -> None:
+    """The loss, each group's cosine and norm ratio against one card; the
+    same gate must refuse the gradients doubled and halved (a planted x2 and
+    x1/2, which leave every cosine as it is)."""
+    log(f"[mesh] {tag}: loss {loss:.6f} against one card's {want_loss:.6f}; by group, "
+        f"gradient cosine and norm ratio " + ", ".join(f"{g} {c:.6f} {r:.6f}"
+                                                       for g, (c, r) in agree.items()))
+    for scale in (2.0, 0.5):
+        planted = {g: [c, r * scale] for g, (c, r) in agree.items()}
+        if mesh_passes(loss, want_loss, planted, min_cos, norm_tol):
+            raise AssertionError(f"mesh {tag}: the gate passes the gradients x{scale}")
+    log(f"[mesh] {tag}: planted x2 reads norm ratios "
+        + ", ".join(f"{2 * r:.6f}" for _, r in agree.values())
+        + f" and x1/2 " + ", ".join(f"{r / 2:.6f}" for _, r in agree.values())
+        + f": the gate (cosine {min_cos}, norm ratio 1 +/- {norm_tol}) refuses both")
+    if not mesh_passes(loss, want_loss, agree, min_cos, norm_tol):
+        raise AssertionError(f"mesh {tag}: against one card (cosine limit {min_cos}, norm "
+                             f"ratio 1 +/- {norm_tol})")
+
+
+@torch.no_grad()
+def check_span_calls(tag: str, logs: dict, kernel_results: dict) -> None:
+    """(d)'s first K9 call against its plain version, and the first call of
+    each K2-bwd mode in SpanAttnFn's backward against the same formulas in
+    f32 given the same merged output and row log-sum-exp
+    (cross_attention_bwd_plain with that part's mask)."""
+    for name, lg in logs.items():
+        for key, (args, kw) in lg.calls.items():
+            if name == "block_attn":
+                got, want = block_attn_lse(*args, **kw), block_attn_lse_plain(*args, **kw)
+            else:
+                q, k, v, o, dout, lse = args[:6]
+                seg = args[6] if len(args) > 6 else None
+                mask = attn_mod.make_attention_mask(
+                    q.shape[1], k.shape[1], causal=name == "flash_bwd", q_segment_ids=seg,
+                    kv_segment_ids=seg, device=q.device)
+                got = WRAPPERS[name](*args)
+                want = cross_attention_bwd_plain(q, k, v, o, dout, lse=lse, mask=mask)
+            err = compare(name, tuple(got), tuple(want))
+            log(f"[{tag}] {name} on the path's own inputs "
+                f"{[tuple(a.shape) for a in args[:3]]}: max abs err {err:.3e}")
+            kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"], err)
+
+
+@torch.inference_mode()
+def decode_margins(gen, ids, px, tokens) -> list:
+    """The one-card greedy decode's top-2 logit margin at each of `tokens`,
+    teacher-forced."""
+    visual = gen.encode_frames(px)
+    plan, bucket, pad, ids_arr, gidx, seq = gen._plan_prompt(ids, IMAGE_TOKEN)
+    logits, cache = gen.prefill(ids_arr, gidx, seq, visual, pad, bucket + len(tokens) + 1)
+    out = []
+    for t in tokens:
+        top = logits.float().topk(2, dim=-1).values[0]
+        out.append(float(top[0] - top[1]))
+        logits, cache = decode_step(gen.model, gen.arch, torch.tensor([[t]], device=DEV), cache)
+    return out
+
+
+def mesh_references(model, arch, inp) -> dict:
+    """The one-card references, on the host."""
+    set_fusions(False)
+    trainer = mesh_trainer(arch, model)
+    ref = {}
+    for key in ("one", "two"):
+        loss, grads = mesh_step(trainer, inp[key])
+        ref[key] = (loss, {n: g.cpu() for n, g in grads.items()})
+    loss, grads = seq_loss_grads(model.llm_backbone, arch.llm, inp["emb"], inp["seq_idx"])
+    ref["seq"] = (loss, {n: g.cpu() for n, g in grads.items()})
+    set_fusions(True)
+    gen = Generator(model, arch, terminator_ids=[], max_new_tokens=MAX_NEW)
+    ids, px = inp["request"]
+    out = gen.generate(ids, pixels=px, image_token_id=IMAGE_TOKEN)
+    ref["gen"] = (out.first_logits.float().cpu(), out.token_ids.tolist(),
+                  decode_margins(gen, ids, px, out.token_ids.tolist()))
+    set_fusions(False)
+    return ref
+
+
+def mesh_one_rank_nccl(model, arch, inp, ref) -> None:
+    """(a) The Trainer's first step on a (1, 1, 1) mesh of one NCCL rank."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        trainer = mesh_trainer(arch, model, mesh)
+        loss, grads = mesh_step(trainer, inp["one"])
+        mesh_gate(f"(a) one NCCL rank, mesh {tuple(mesh.shape)}, one row of "
+                  f"{inp['one'].plan.fused_len} tokens", loss, ref["one"][0],
+                  mesh_agreement(grads, ref["one"][1]), MESH_ONE_COS, MESH_ONE_NORM)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank: int, world: int, port: int, folder: str) -> None:
+    """One rank of phase 12's gloo run on cuda:0."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = mesh_rank_work(rank, world, folder)
+        with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_work(rank: int, world: int, folder: str) -> dict:
+    arch = build_arch(VLMConfig())
+    inp = mesh_inputs(arch)
+    ref = torch.load(os.path.join(folder, "refs.pt"), weights_only=False)
+    out = {"rank": rank, "steps": {}, "launches": {n: 0 for n in MESH_KERNELS},
+           "errs": {n: 0.0 for n in MESH_KERNELS}, "gates": {}}
+    errs = {n: dict(max_abs_err=0.0) for n in MESH_KERNELS}
+
+    def in_turn(fn):  # one rank at a time holds a whole model on the card
+        res = None
+        for r in range(world):
+            if r == rank:
+                res = fn()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return res
+
+    def measured(tag: str, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sent, t0 = sharding_mod.sent_bytes, time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["steps"][tag] = dict(s=time.perf_counter() - t0,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 sent_mib=(sharding_mod.sent_bytes - sent) / 2**20,
+                                 launches={n: WRAPPERS[n].launches for n in MESH_KERNELS
+                                           if WRAPPERS[n].launches})
+        for n, v in out["steps"][tag]["launches"].items():
+            out["launches"][n] += v
+        return res
+
+    set_fusions(False)
+    # (d) seq 2: the whole model on each rank
+    model = in_turn(lambda: mesh_model(arch))
+    mesh = make_mesh(seq=world)
+    with logging_calls(MESH_SEQ_PLACES, key=first_call) as logs:
+        loss, grads = measured("(d) seq 2", lambda: seq_loss_grads(
+            model.llm_backbone, arch.llm, inp["emb"], inp["seq_idx"], mesh))
+    out["gates"]["d"] = (loss, mesh_agreement(grads, ref["seq"][1]))
+    check_span_calls(f"mesh (d) rank {rank}", logs, errs)
+    del grads, logs
+    # (b) model 2: the same model, sharded
+    trainer = mesh_trainer(arch, model, make_mesh(model=world), tp=world)
+    torch.cuda.empty_cache()
+    with logging_calls(TRAINING_PLACES["nano"]) as logs:
+        loss, grads = measured("(b) model 2, step", lambda: mesh_step(trainer, inp["one"]))
+    full = trainer.layout.full_state(grads)
+    out["gates"]["b"] = (loss, mesh_agreement(full, ref["one"][1]))
+    check_training_calls(f"mesh (b) rank {rank}", logs, errs)
+    del logs, grads, full
+    set_fusions(True)
+    gen = Generator(trainer.model, arch, mesh=trainer.mesh, terminator_ids=[],
+                    max_new_tokens=MAX_NEW)
+    ids, px = inp["request"]
+    with logging_calls(MESH_SERVE_PLACES, key=first_call) as logs:
+        res = measured("(b) model 2, 256-frame request", lambda: gen.generate(
+            ids, pixels=px, image_token_id=IMAGE_TOKEN))
+    for name, lg in logs.items():
+        compare_logged(name, lg.calls, f"mesh (b) rank {rank}", errs)
+    first, tokens, margins = ref["gen"]
+    got = res.token_ids.tolist()
+    part = next((i for i, (a, b) in enumerate(zip(got, tokens)) if a != b), None)
+    out["gates"]["serve"] = dict(cos=cosine(res.first_logits.cpu(), first), tokens=got,
+                                 part=part, margin=None if part is None else margins[part])
+    set_fusions(False)
+    del gen, trainer, model, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) data 2, the frozen base FSDP-split
+    mesh_d = make_mesh(data=world)
+    trainer = in_turn(lambda: mesh_trainer(arch, mesh_model(arch), mesh_d, data=world))
+    loss, grads = measured("(c) data 2 FSDP, step", lambda: mesh_step(trainer, inp["two"]))
+    out["gates"]["c"] = (loss, mesh_agreement(grads, ref["two"][1]))
+    out["fsdp_leaves"] = len(trainer.layout.fsdp_leaves)
+    out["errs"] = {n: e["max_abs_err"] for n, e in errs.items()}
+    return out
+
+
+def phase_mesh(smi: str, kernel_results: dict) -> None:
+    """Phase 12 (module doc)."""
+    t_phase = time.perf_counter()
+    arch = build_arch(VLMConfig())
+    inp = mesh_inputs(arch)
+    model = mesh_model(arch)
+    ref = mesh_references(model, arch, inp)
+    mesh_one_rank_nccl(model, arch, inp, ref)
+    del model, inp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh] this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved) as the ranks start")
+    folder = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        torch.save(ref, os.path.join(folder, "refs.pt"))
+        torch.multiprocessing.spawn(mesh_rank, args=(2, free_port(), folder), nprocs=2)
+        ranks = [json.load(open(os.path.join(folder, f"rank{r}.json"))) for r in range(2)]
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    for r in ranks:
+        g = r["gates"]
+        mesh_gate(f"(d) rank {r['rank']}, seq 2, the {MESH_SEQ_TOKENS}-token packed row's "
+                  "last-8-logit loss", g["d"][0], ref["seq"][0], g["d"][1], MESH_GRAD_COS,
+                  MESH_GRAD_NORM)
+        mesh_gate(f"(b) rank {r['rank']}, model 2, one row", g["b"][0], ref["one"][0],
+                  g["b"][1], MESH_GRAD_COS, MESH_GRAD_NORM)
+        mesh_gate(f"(c) rank {r['rank']}, data 2 with FSDP ({r['fsdp_leaves']} leaves "
+                  "data-sharded), two rows", g["c"][0], ref["two"][0], g["c"][1], MESH_GRAD_COS,
+                  MESH_GRAD_NORM)
+        sv = g["serve"]
+        log(f"[mesh] (b) rank {r['rank']}, Generator(mesh=make_mesh(model=2)) on the 256-frame "
+            f"request: first-logit cosine {sv['cos']:.6f} against one card; tokens "
+            + ("equal" if sv["part"] is None else
+               f"part at {sv['part']}, where the one-card top-2 margin is {sv['margin']:.3e} "
+               f"(limit {MISS_GAP_LIMIT})") + f" {sv['tokens']}")
+        if sv["cos"] < MESH_ONE_COS or (sv["part"] is not None
+                                        and sv["margin"] > MISS_GAP_LIMIT):
+            raise AssertionError("mesh (b): the model-2 Generator disagrees with one card")
+        for tag, st in r["steps"].items():
+            log(f"[mesh] rank {r['rank']} {tag} on {smi.strip()}: {st['s']:.3f} s, peak "
+                f"{st['peak_gib']:.1f} GiB, {st['sent_mib']:.1f} MiB handed to the collectives, "
+                f"launches {st['launches']}")
+    for name in MESH_KERNELS:
+        total = sum(r["launches"][name] for r in ranks)
+        if total == 0:
+            raise AssertionError(f"mesh: {name} was never launched on the mesh path")
+        kernel_results[name]["launches"] += total
+        kernel_results[name]["max_abs_err"] = max(kernel_results[name]["max_abs_err"],
+                                                  *(r["errs"][name] for r in ranks))
+    log(f"[mesh] phase 12 (gloo ranks sharing one card, host-staged collectives: no "
+        f"multi-card speed): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5553,6 +5947,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_seq_parallel(smi, results)
     lap("sequence-parallel serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh(smi, results)
+    lap("tensor, data and FSDP parallelism")
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=r["launches"],

@@ -224,22 +224,37 @@ def test_bf16_load_takes_the_jax_loaders_values(written):
 
 
 class ModelAxisMesh:
-    """A (data 1, seq 1, model 2) mesh's shape, as the entry points read it."""
+    """Rank 0 of a (data 1, seq 1, model 2) mesh, as sharding the weights
+    reads it (the collectives run in tests/test_torch_mesh_serve.py)."""
 
     mesh_dim_names = ("data", "seq", "model")
 
-    def size(self, dim: int) -> int:
-        return (1, 1, 2)[dim]
+    def size(self, dim: int = None) -> int:
+        return 2 if dim is None else (1, 1, 2)[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
 
 
 def test_jax_only_formats_and_options_are_refused(ckpt, tmp_path):
     import timeviper_tpu_torch.eval.evaluate as ev
 
-    with pytest.raises(NotImplementedError, match="mesh"):  # a model axis: the next slice
-        load_pretrained_vlm(str(ckpt), mesh=ModelAxisMesh(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a model axis shards the loaded weights: this rank holds its half of
+    # each split leaf, and the Generator runs at the local head counts
+    whole = load_pretrained_vlm(str(ckpt), device="cpu").model
+    tm = load_pretrained_vlm(str(ckpt), mesh=ModelAxisMesh(), device="cpu")
+    llm, cfg = tm.model.llm_backbone, tm.arch.llm
+    assert tm.generator.arch.llm.num_attention_heads == cfg.num_attention_heads // 2
+    assert llm.embeddings.weight.shape[0] == cfg.vocab_size // 2
+    a = llm.layers[cfg.attention_layer_indices[0]].mixer
+    w = whole.llm_backbone.layers[cfg.attention_layer_indices[0]].mixer
+    assert torch.equal(a.q_proj.weight, w.q_proj.weight[:a.q_proj.weight.shape[0]])
+    assert torch.equal(a.o_proj.weight, w.o_proj.weight[:, :a.o_proj.weight.shape[1]])
+    # a seq and a model axis together: the next parallelism slice
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         ev.main(["--checkpoint", str(ckpt), "--dataset_name", "mvbench", "--output_dir",
-                 str(tmp_path / "o"), "--mesh_model", "2", "--device", "cpu"])
+                 str(tmp_path / "o"), "--mesh_model", "2", "--mesh_seq", "2",
+                 "--device", "cpu"])
     (tmp_path / "orbax").mkdir()
     with open(tmp_path / "config.json", "w") as f:
         json.dump(CONFIG, f)

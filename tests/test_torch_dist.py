@@ -5,7 +5,8 @@ timeviper_tpu_torch/parallel/sharding.py).
   and coordinator on the same SLURM, OMPI and single-process environments,
   and reads torchrun's variables where JAX sees a single process.
 * `initialize_distributed` is a no-op on one process; `make_mesh` refuses a
-  model axis (the next parallelism slice) and a missing process group; a
+  missing process group (a model axis too) and a seq and a model axis
+  together (the next parallelism slice); a
   rank's default device is cuda:{local rank} as `detect_process_env` reads
   it from SLURM, OMPI or torchrun (a card count stubbed), it raises when
   that card is missing, and without a card at all.
@@ -68,10 +69,12 @@ def test_single_process_start_up_and_mesh_refusals(monkeypatch):
     _env(monkeypatch, {})
     assert dist.initialize_distributed("gloo") is False
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="process group"):  # a model axis takes ranks
         make_mesh(model=2)
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(seq=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        make_mesh(seq=2, model=2)
     if not torch.cuda.is_available():
         monkeypatch.setenv("LOCAL_RANK", "1")
         with pytest.raises(RuntimeError, match="device='cpu'"):

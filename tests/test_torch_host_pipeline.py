@@ -444,6 +444,25 @@ def test_data_loader_raises_a_workers_error_and_stops_early():
     it.close()  # the workers stop; nothing hangs
 
 
+def test_data_loader_yields_in_index_order_whatever_the_workers_speeds():
+    """Every rank of a mesh reads the same data and takes its rows, so the
+    batches must come out in index order: here the first worker's batches
+    (0 and 3 of 6) are the slow ones."""
+    import time
+
+    class Slow:
+        def __len__(self):
+            return 12
+
+        def __getitem__(self, i):
+            time.sleep(0.05 if (i // 2) % 3 == 0 else 0.0)
+            return {"input_ids": np.asarray([5, 6 + i]), "labels": np.asarray([5, 6 + i])}
+
+    loader = t_loader.DataLoader(Slow(), 2, 500, 2, shuffle=False, num_workers=3)
+    got = [cb.batch["input_ids"][:, 1].tolist() for cb in loader.epoch(0)]
+    assert got == [[6 + 2 * b, 7 + 2 * b] for b in range(6)]
+
+
 def test_overwatch_and_tee(tmp_path, capsys):
     assert t_overwatch.Overwatch("t").rank == 0
     for mod in (t_overwatch, j_overwatch):

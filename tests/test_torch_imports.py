@@ -50,7 +50,8 @@ MODULES = [
     "timeviper_tpu_torch.utils", "timeviper_tpu_torch.utils.overwatch",
     "timeviper_tpu_torch.utils.profiling", "timeviper_tpu_torch.utils.dist",
     "timeviper_tpu_torch.parallel", "timeviper_tpu_torch.parallel.sharding",
-    "timeviper_tpu_torch.parallel.seq_parallel", "chip_smoke",
+    "timeviper_tpu_torch.parallel.seq_parallel", "timeviper_tpu_torch.parallel.tensor_parallel",
+    "chip_smoke",
 ]
 REPO = Path(__file__).resolve().parent.parent
 

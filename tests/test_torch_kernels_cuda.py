@@ -1284,3 +1284,49 @@ def test_pinned_offload_steps_match_the_blocking_copies():
     for k in hp:
         np.testing.assert_allclose(hp[k], hb[k], rtol=0, atol=1e-6, err_msg=k)
         assert not np.array_equal(hp[k], moved[k]), k
+
+
+@pytest.mark.parametrize("lo,segs,valid", [(256, True, True), (256, False, False),
+                                            (0, True, False), (512, False, True)])
+def test_span_attention_runs_k9_forward_and_k2_bwd_backward(lo, segs, valid):
+    """parallel/seq_parallel.py:SpanAttnFn, the sequence-parallel training
+    path's attention: a span's queries (rows lo on) against the gathered
+    keys, K9 forward, K2-bwd's causal mode over the span's own block and its
+    non-causal mode over the keys left of it (a launch for each segment the
+    span shares with them); its output and gradients against f32 autograd
+    through dense attention."""
+    from timeviper_tpu_torch.ops.block_attention import fold_segments
+    from timeviper_tpu_torch.parallel.seq_parallel import SpanAttnFn
+
+    dev = require_cuda()
+    B, L, Lloc, Hq, Hkv, D = 2, 768, 256, 8, 2, 128
+    r = rng(31)
+    q, kg, vg = (t(r.standard_normal((B, n, h, D))).to(dev, torch.bfloat16)
+                 for n, h in ((Lloc, Hq), (L, Hkv), (L, Hkv)))
+    seq = (torch.tensor([[0] * 100 + [1] * 300 + [2] * 368, [0] * 300 + [1] * 468],
+                        dtype=torch.int32, device=dev) if segs else None)
+    kv_valid = None
+    if valid:
+        kv_valid = torch.arange(L, device=dev) >= 37
+        kv_valid[lo + 5] = False
+    seg = fold_segments(B, L, L, valid_kv=kv_valid, valid_q=kv_valid, seg_q=seq, seg_kv=seq,
+                        device=dev)[0]
+    dout = t(r.standard_normal((B, Lloc, Hq, D))).to(dev, torch.bfloat16)
+    counts = (block_attn_lse, flash_attention_bwd, cross_attention_bwd)
+    before = [f.launches for f in counts]
+    leaves = [x.clone().requires_grad_() for x in (q, kg, vg)]
+    out = SpanAttnFn.apply(*leaves, lo, seg)
+    got = torch.autograd.grad(out, leaves, dout)
+    launched = [f.launches - b for f, b in zip(counts, before)]
+    assert launched[0] == (2 if lo else 1) and launched[1] == 1
+    assert (launched[2] > 0) == bool(lo)
+    ref_leaves = [x.float().clone().requires_grad_() for x in (q, kg, vg)]
+    mask = (torch.arange(lo, lo + Lloc, device=dev)[:, None]
+            >= torch.arange(L, device=dev)[None])[None]
+    if seg is not None:
+        mask = mask & (seg[:, lo:lo + Lloc, None] == seg[:, None, :])
+    ref = attention(*ref_leaves, mask)
+    want = torch.autograd.grad(ref, ref_leaves, dout.float())
+    _close(out, ref, 2e-2)
+    for g, w in zip(got, want):
+        _close(g, w, BWD_TOL, floor=0.0)

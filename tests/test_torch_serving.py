@@ -19,9 +19,8 @@ Port-only checks: every served token of the text-only requests is the
 argmax of one nano_forward over prompt + output (teacher forcing), to 1e-4
 (f32 decode steps against one forward), and the first-token logits of a
 batched row equal Generator.generate's on the same prompt, to 1e-4; the
-option the port does not serve yet (a `mesh` with a model axis) raises
-NotImplementedError, and `pdrop_frames` on a model without pdrop stages
-ValueError.
+`mesh` with a model axis shards the model and its caches, and
+`pdrop_frames` on a model without pdrop stages raises ValueError.
 """
 
 import functools
@@ -177,22 +176,36 @@ class ModelAxisMesh:
 
     mesh_dim_names = ("data", "seq", "model")
 
-    def size(self, dim: int) -> int:
-        return (1, 1, 2)[dim]
+    def size(self, dim: int = None) -> int:
+        return 2 if dim is None else (1, 1, 2)[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
 
 
 @pytest.mark.parametrize("option", [dict(pdrop_frames=4), dict(mesh=ModelAxisMesh())])
 def test_unported_options_raise(option):
-    """A mesh with a model axis is not ported (a `seq` one is:
-    tests/test_torch_seq_parallel_generate.py); `pdrop_frames` is
-    (tests/test_torch_pdrop_generate.py) and refuses a model without pdrop
-    stages, as the JAX engine does."""
+    """`pdrop_frames` (tests/test_torch_pdrop_generate.py) refuses a model
+    without pdrop stages, as the JAX engine does. A mesh with a model axis is
+    served (its runs: tests/test_torch_mesh_serve.py): the engine shards a
+    copy of the model and its slot caches hold this rank's heads and
+    channels."""
     arch, model, *_ = _setup()
-    error, match = ((ValueError, "pdrop-configured") if "pdrop_frames" in option
-                    else (NotImplementedError, "ROADMAP Queue 1"))
-    with pytest.raises(error, match=match):
-        ServingEngine(model, arch, terminator_ids=[2], cache_dtype=torch.float32,
-                      num_slots=1, max_len=64, **option)
+    if "pdrop_frames" in option:
+        with pytest.raises(ValueError, match="pdrop-configured"):
+            ServingEngine(model, arch, terminator_ids=[2], cache_dtype=torch.float32,
+                          num_slots=1, max_len=64, **option)
+        return
+    shard = TimeViperVLM(arch, torch.float32, device="cpu")
+    shard.load_state_dict(model.state_dict())
+    eng = ServingEngine(shard, arch, terminator_ids=[2], cache_dtype=torch.float32,
+                        num_slots=1, max_len=64, **option)
+    # one KV head does not split in two: attention runs whole on each rank
+    attn = eng.cache_layers[LLM.attention_layer_indices[0]]
+    assert attn["k"].shape[2] == LLM.num_key_value_heads == 1
+    mamba = eng.cache_layers[LLM.mamba_layer_indices[0]]
+    assert mamba["ssm_state"].shape[1] == LLM.mamba_num_heads // 2
+    assert eng.batch_prefill
 
 
 def test_a_completed_chunked_prompt_keeps_its_slot():

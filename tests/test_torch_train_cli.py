@@ -86,8 +86,10 @@ def test_help_lists_every_jax_flag_and_device(capsys):
 def test_it_raises_without_a_card_or_a_device(setup):
     tmp, argv = setup
     no_device = [a for a in argv if a not in ("--device", "cpu")]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main(argv + ["--data_parallel", "2"])
+    # a data axis takes ranks: one process has no group to build the mesh
+    # from (the 2-rank run: tests/test_torch_mesh_serve.py)
+    with pytest.raises(RuntimeError, match="process group"):
+        cli.main(argv + ["--data_parallel", "2", "--run_dir", str(tmp / "mesh")])
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):

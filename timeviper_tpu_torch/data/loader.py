@@ -152,8 +152,9 @@ class DataLoader:
     the items with numpy's generator seeded `seed + epoch` (no shuffle: in
     order), truncates (drop_last) or wraps the permutation to a multiple of
     `process_count * batch_size`, and process `process_index` takes every
-    `process_count`-th item of it. Batches come out in the order they are
-    ready."""
+    `process_count`-th item of it. Batches come out in index order, whatever
+    the workers' speeds: every rank of a mesh, which reads the same data and
+    takes its rows, sees the same batch at the same step."""
 
     def __init__(self, dataset, batch_size: int, image_token_id: int, tokens_per_frame: int,
                  pad_token_id: int = 0, shuffle: bool = True, seed: int = 0,
@@ -205,13 +206,17 @@ class DataLoader:
         return batches
 
     def epoch(self, epoch: int = 0) -> Iterator[CollatedBatch]:
-        """The epoch's batches. A worker's exception is raised here, in the
-        consumer; closing the iterator early stops the workers."""
+        """The epoch's batches, in index order: worker w collates batches w,
+        w + num_workers, ... into its own queue, and the queues are read in
+        turn. A worker's exception is raised here, in the consumer, at its
+        batch; closing the iterator early stops the workers."""
         batches = self._index_batches(epoch)
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        nw = max(min(self.num_workers, len(batches)), 1)
+        per = max(-(-self.prefetch // nw), 1)
+        queues = [queue.Queue(maxsize=per) for _ in range(nw)]
         stop = threading.Event()
 
-        def put(entry) -> bool:
+        def put(q, entry) -> bool:
             while not stop.is_set():
                 try:
                     q.put(entry, timeout=0.1)
@@ -221,32 +226,26 @@ class DataLoader:
             return False
 
         def worker(worker_id: int) -> None:
+            q = queues[worker_id]
             try:
-                for bi in range(worker_id, len(batches), self.num_workers):
+                for bi in range(worker_id, len(batches), nw):
                     if stop.is_set():
                         return
                     items = [self.dataset[i] for i in batches[bi]]
-                    if not put((collate(items, self.image_token_id, self.tokens_per_frame,
-                                        self.pad_token_id), None)):
+                    if not put(q, (collate(items, self.image_token_id, self.tokens_per_frame,
+                                           self.pad_token_id), None)):
                         return
             except Exception as e:  # noqa: BLE001 - handed to the consumer, raised there
-                put((None, e))
-                return
-            put((None, None))
+                put(q, (None, e))
 
-        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
-                   for w in range(self.num_workers)]
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True) for w in range(nw)]
         for th in threads:
             th.start()
-        done = 0
         try:
-            while done < self.num_workers:
-                cb, err = q.get()
+            for bi in range(len(batches)):
+                cb, err = queues[bi % nw].get()
                 if err is not None:
                     raise err
-                if cb is None:
-                    done += 1
-                    continue
                 yield cb
         finally:
             stop.set()

@@ -10,12 +10,14 @@ video prefix (`--prefix_cache`) or the slot-batched ServingEngine
 (and the encode's frames) over N ranks, launched by torchrun, each on its
 own card, NCCL between them (gloo for `--device cpu`);
 every rank runs the loop and rank 0 alone writes the answers.
-`--mesh_model` > 1 (tensor parallelism) is not ported and raises.
+`--mesh_model N` shards the weights over N ranks instead (tensor
+parallelism, parallel/tensor_parallel.py); the two together raise.
 
 Usage:
   python -m timeviper_tpu_torch.eval.evaluate --checkpoint CKPT --dataset_name \
       videomme --output_dir results/videomme [--curr_idx 0 --total_idx 1]
   torchrun --nproc_per_node N -m timeviper_tpu_torch.eval.evaluate ... --mesh_seq N
+  torchrun --nproc_per_node N -m timeviper_tpu_torch.eval.evaluate ... --mesh_model N
 
 Then score:
   python -m timeviper_tpu_torch.eval.evaluate --score_only --dataset_name \
@@ -60,8 +62,8 @@ def get_args(argv=None):
                    help="sequence-shard prefill over this many ranks "
                         "(torchrun --nproc_per_node N)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel shards for params (not ported: > 1 "
-                        "raises)")
+                   help="tensor-parallel shards of the weights over this many "
+                        "ranks (torchrun --nproc_per_node N)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device of the model (default: the CUDA card)")
     p.add_argument("--use_serving_engine", "--use_vllm_inference",
@@ -135,10 +137,8 @@ def main(argv=None):
         from timeviper_tpu_torch.parallel.sharding import make_mesh
         from timeviper_tpu_torch.utils.dist import initialize_distributed
 
-        if args.mesh_model > 1:
-            make_mesh(model=args.mesh_model)  # raises: not ported
         initialize_distributed("gloo" if args.device == "cpu" else "nccl")
-        mesh = make_mesh(data=1, seq=args.mesh_seq)
+        mesh = make_mesh(data=1, seq=args.mesh_seq, model=args.mesh_model)
         writer = dist.get_rank() == 0  # rank 0 alone writes the answers
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -38,7 +38,6 @@ from timeviper_tpu_torch.config import (
 )
 from timeviper_tpu_torch.data.conversation import CONV_TEMPLATES, ChatTemplate
 from timeviper_tpu_torch.data.image_processing import transform_for_family
-from timeviper_tpu_torch.parallel.sharding import refuse_model_axis
 from timeviper_tpu_torch.data.processor import Processor
 from timeviper_tpu_torch.device import resolve_device
 from timeviper_tpu_torch.models.generate import Generator
@@ -241,11 +240,13 @@ def load_pretrained_vlm(
     (train/quantize.py). `speculative="ngram"` turns on prompt-lookup
     speculative decoding for greedy generation (models/speculative.py):
     n_draft drafted tokens verified per forward, token-identical output.
-    `mesh` (a `seq` mesh of parallel/sharding.py:make_mesh) makes the
-    Generator sequence-parallel: each rank holds a whole copy of the weights
-    on its own card (cuda:{LOCAL_RANK} by default), as the JAX package
-    replicates them over `seq`. A mesh with a model axis above 1 raises."""
-    refuse_model_axis(mesh)
+    `mesh` (parallel/sharding.py:make_mesh) makes the Generator parallel:
+    a `seq` axis shards each prefill's row, each rank holding a whole copy
+    of the weights on its own card (cuda:{LOCAL_RANK} by default), as the
+    JAX package replicates them over `seq`; a `model` axis shards the
+    weights by heads, hidden units and vocabulary (JAX models/api.py:233-236,
+    no FSDP: parallel/tensor_parallel.py:shard_model). An int8 base on a
+    model axis raises."""
     model, arch, meta = load_vlm_weights(checkpoint, use_pdrop=use_pdrop, dtype=dtype,
                                          quantize_int8=quantize_int8, device=device)
     from transformers import AutoTokenizer

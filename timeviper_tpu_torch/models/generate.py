@@ -40,6 +40,13 @@ that cache on its own card: every rank returns the same tokens. pdrop runs
 masked inside the sharded prefill (the cache then carries `kv_valid` masks,
 and speculation stays off on it). The same holds for `prefill_prefix`
 (timeviper_tpu/models/generate.py:179-200, :299-330, :525-545, :621-645).
+
+Tensor parallelism: `Generator(mesh=make_mesh(model=n))` shards the model in
+place (parallel/tensor_parallel.py:shard_model, without FSDP, as the JAX
+package's models/api.py:233-236 shards it) and runs at the local head
+counts (`self.arch`); every rank takes the same calls and returns the same
+tokens, the logits gathered whole. A mesh with both axes raises
+(parallel/sharding.py:make_mesh).
 """
 
 from __future__ import annotations
@@ -70,7 +77,8 @@ from timeviper_tpu_torch.parallel.seq_parallel import (
     encode_frames_seq_parallel,
     nano_prefill_seq_parallel,
 )
-from timeviper_tpu_torch.parallel.sharding import all_gather, axis_size, refuse_model_axis
+from timeviper_tpu_torch.parallel.sharding import all_gather, axis_size
+from timeviper_tpu_torch.parallel.tensor_parallel import serving_arch
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
@@ -158,8 +166,9 @@ class Generator:
     ) -> None:
         if speculative not in (None, "ngram"):
             raise ValueError(f"unknown speculative mode {speculative!r}")
-        refuse_model_axis(mesh)
         self.mesh = mesh
+        # a model axis shards the model in place; the arch is then the local one
+        arch = serving_arch(model, arch, mesh)
         self.speculative = speculative
         self.n_draft = n_draft
         self.model = model

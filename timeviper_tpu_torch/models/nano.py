@@ -67,6 +67,7 @@ from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, Int8Linear
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
 from timeviper_tpu_torch.ops.ssd import _process_dt, ssd_update_step
 from timeviper_tpu_torch.ops.ssd_kernel import ssd_conv_scan_fused, ssd_scan
+from timeviper_tpu_torch.parallel.tensor_parallel import vocab_logits
 
 # ---------------------------------------------------------------------------
 # Modules
@@ -526,13 +527,16 @@ def compute_logits(model: NanoModel, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits (..., V) of hidden rows (B, D) or (B, S, D) (the verify
     pass's); lm_head in float32, an int8 lm_head by its f32 dequant, formed
     once, or the embedding table when the embeddings are tied
-    (timeviper_tpu/models/nano.py:684)."""
+    (timeviper_tpu/models/nano.py:684). A vocabulary split over a model axis
+    gives this rank's columns, gathered whole
+    (parallel/tensor_parallel.py:vocab_logits)."""
     lm = model.lm_head
     if lm is None:
-        w = model.embeddings.weight.float()
+        w, owner = model.embeddings.weight.float(), model.embeddings
     else:
         w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
-    return F.linear(hidden.float(), w)
+        owner = lm
+    return vocab_logits(hidden, w, owner)
 
 
 def nano_decode_step(

@@ -32,6 +32,9 @@ Where the port leaves the JAX code behind, and why:
 * Copied as they are: the ranking projects the hidden state without its
   RMSNorm, its softmax runs over every row up to the query (left pads
   included), and alpha is cast to the hidden dtype before tanh.
+* On a model axis (parallel/tensor_parallel.py) each rank holds some of the
+  heads: the "attn" scores are summed over them and psummed, so that every
+  rank keeps the same tokens.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from torch import nn
 
 from timeviper_tpu_torch.config import LLMConfig, PdropStage
 from timeviper_tpu_torch.ops.attention import cross_attention
+from timeviper_tpu_torch.parallel.sharding import axis_size, reduce_from_model
 
 
 @dataclass(frozen=True)
@@ -234,7 +238,12 @@ def _rank_scores_attn(h: torch.Tensor, attn_mixer, cfg: LLMConfig, query_pos: in
     q = attn_mixer.q_proj(h[query_pos:rows]).reshape(Hkv, Hq // Hkv, hd).float()
     k = attn_mixer.k_proj(h[:rows]).reshape(rows, Hkv, hd).float()
     logits = torch.einsum("grd,lgd->grl", q, k).reshape(Hq, rows) / math.sqrt(hd)
-    scores = torch.softmax(logits, dim=-1).mean(dim=0)
+    tp = getattr(attn_mixer.q_proj, "tp", None)  # parallel/tensor_parallel.py
+    if tp is None:
+        scores = torch.softmax(logits, dim=-1).mean(dim=0)
+    else:  # this rank's heads: the mean over all of them is a psum over `model`
+        scores = (reduce_from_model(torch.softmax(logits, dim=-1).sum(dim=0), tp.mesh)
+                  / (Hq * axis_size(tp.mesh, "model")))
     return scores[vision_start:vision_start + num_vision]
 
 

@@ -80,6 +80,7 @@ from timeviper_tpu_torch.ops.flash_attention import flash_attention
 from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, Int8Linear
 from timeviper_tpu_torch.ops.norms import rms_norm
 from timeviper_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from timeviper_tpu_torch.parallel.tensor_parallel import vocab_logits
 
 # ---------------------------------------------------------------------------
 # Modules
@@ -329,13 +330,15 @@ def qwen2_forward(
 def compute_logits(model: Qwen2Model, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits (..., V) of hidden rows (B, D) or (B, S, D) (the verify
     pass's): from lm_head, an int8 lm_head by its f32 dequant, or the
-    embedding table when the embeddings are tied (qwen2.py:241-251)."""
+    embedding table when the embeddings are tied (qwen2.py:241-251); a
+    vocabulary split over a model axis is gathered whole."""
     lm = model.lm_head
     if lm is None:
-        w = model.embeddings.weight.float()
+        w, owner = model.embeddings.weight.float(), model.embeddings
     else:
         w = lm.f32_weight() if isinstance(lm, Int8Linear) else lm.weight.float()
-    return F.linear(hidden.float(), w)
+        owner = lm
+    return vocab_logits(hidden, w, owner)
 
 
 def qwen2_decode_step(

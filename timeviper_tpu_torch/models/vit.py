@@ -173,13 +173,15 @@ def vit_forward(model: ViT, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tenso
         x = torch.cat(prefix + [x], dim=1)
 
     act = _act(cfg.hidden_act)
-    nh = cfg.num_attention_heads
-    hd = cfg.hidden_size // nh
+    # the heads a layer holds come from its qkv width: a model axis leaves
+    # each rank H / tp of them (parallel/tensor_parallel.py)
+    hd = cfg.hidden_size // cfg.num_attention_heads
     if _use_fused_ln(cfg):
-        return _vit_blocks_fused_ln(model, cfg, x, act, nh, hd)
+        return _vit_blocks_fused_ln(model, cfg, x, act, hd)
     for layer in model.layers:
         qkv = layer.attn["qkv"](layer.norm1(x))
-        x = x + layer_scale(layer.ls1, layer.attn["proj"](encoder_attention_qkv(qkv, nh, hd)))
+        x = x + layer_scale(layer.ls1, layer.attn["proj"](
+            encoder_attention_qkv(qkv, qkv.shape[-1] // (3 * hd), hd)))
         x = x + layer_scale(layer.ls2, layer.mlp["fc2"](act(layer.mlp["fc1"](layer.norm2(x)))))
     return x[:, cfg.num_prefix_tokens:]
 
@@ -231,7 +233,7 @@ def _use_fused_ln(cfg: ViTConfig) -> bool:
     return fused_ln_supported(cfg.hidden_size)
 
 
-def _vit_blocks_fused_ln(model: ViT, cfg: ViTConfig, x, act, nh: int, hd: int):
+def _vit_blocks_fused_ln(model: ViT, cfg: ViTConfig, x, act, hd: int):
     """The encoder blocks with each residual add moved into the next
     LayerNorm, one fused_ln call per norm; a calibrated W8A8 projection after
     a norm takes the int8 rows fused_ln emits (timeviper_tpu/models/vit.py:216)."""
@@ -252,7 +254,8 @@ def _vit_blocks_fused_ln(model: ViT, cfg: ViTConfig, x, act, nh: int, hd: int):
         else:
             x, n = fused_ln(pending[1], layer.norm1.weight, layer.norm1.bias, eps=eps,
                             residual=pending[0], act_inv=inv1)
-        out = layer.attn["proj"](encoder_attention_qkv(matmul(qkv_p, n, inv1), nh, hd))
+        qkv = matmul(qkv_p, n, inv1)
+        out = layer.attn["proj"](encoder_attention_qkv(qkv, qkv.shape[-1] // (3 * hd), hd))
         inv2 = inv_of(fc1_p)
         x, n = fused_ln(layer_scale(layer.ls1, out), layer.norm2.weight, layer.norm2.bias,
                         eps=eps, residual=x, act_inv=inv2)

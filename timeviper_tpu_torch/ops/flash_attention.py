@@ -141,18 +141,24 @@ def cross_attention_bwd(q, k, v, out, dout, lse):
 cross_attention_bwd.launches = 0
 
 
-def cross_attention_bwd_plain(q, k, v, out, dout):
+def cross_attention_bwd_plain(q, k, v, out, dout, lse=None, mask=None):
     """The non-causal mode's plain version, in f32, from the forward's output
     as the bundled TPU kernels take it: P = softmax(Q K^T / sqrt(D)), delta
     = rowsum(dO * out), dS = P (dO V^T - delta); dq = dS K / sqrt(D), dk =
     dS^T Q / sqrt(D) and dv = P^T dO, each summed over its GQA group. Returns
-    them in the inputs' dtypes."""
+    them in the inputs' dtypes. Given the row log-sum-exp `lse` (B, Hq, Lq),
+    P = exp(Q K^T / sqrt(D) - lse), as the kernel forms it: then these keys
+    may be a part of the keys that `out` and `lse` were taken over. `mask`
+    (B or 1, Lq, Lk) bool, True = attend."""
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     rep, scale = Hq // Hkv, 1.0 / math.sqrt(D)
     qf, dof = q.float(), dout.float()
     kr, vr = (t.float().repeat_interleave(rep, 2) for t in (k, v))
-    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale, dim=-1)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None], -math.inf)
+    p = torch.softmax(logits, dim=-1) if lse is None else torch.exp(logits - lse[..., None])
     delta = (dof * out.float()).sum(-1).transpose(1, 2)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vr) - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale

@@ -21,6 +21,21 @@ the collectives of parallel/sharding.py join the spans:
   matrix is built.
 * Everything else is per token.
 
+Under autograd (training through the sharded prefill, the logits path or
+`return_hidden`) the collectives carry their SPMD transposes
+(parallel/sharding.py): the gradient of a gathered state or K/V is the psum
+of its cotangent sliced to this rank, of a halo the reverse shift. The
+Mamba layers keep their path (K1 forward, K4 backward); an attention layer
+runs `attention_seq_sharded` under `SpanAttnFn`: K9's parts forward,
+K2-bwd's causal mode over my block and its non-causal mode over the keys
+left of it backward, so each rank does its span's share of the attention
+work. The logits come from the rank that holds the last rows and are
+gathered as a value every rank holds whole, so that each rank's parameter
+gradient is its span's part: their psum over `seq` is the gradient of the
+one-device prefill. Each block is checkpointed (its input
+kept, its forward and its collectives run again in the backward, the same
+on every rank), as the Trainer's "full" remat keeps a block.
+
 Left pads (global rows before `valid_from`) and pdrop's dropped tokens are
 masked, not removed: shapes never change. A masked row's embeddings and
 Mamba in-projections are zeroed, its dt is made -inf before the scan so that
@@ -61,6 +76,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.models.nano import (
@@ -71,17 +87,28 @@ from timeviper_tpu_torch.models.nano import (
     mlp_mixer_forward,
 )
 from timeviper_tpu_torch.models.pdrop import uni_keep_indices
-from timeviper_tpu_torch.ops.attention import cross_attention
-from timeviper_tpu_torch.ops.block_attention import block_attn_lse, merge_parts
+from timeviper_tpu_torch.ops.attention import cross_attention, make_attention_mask
+from timeviper_tpu_torch.ops.block_attention import (
+    block_attn_lse,
+    fold_segments,
+    merge_parts,
+    row_lse,
+)
 from timeviper_tpu_torch.ops.conv import causal_conv1d, init_conv_state
 from timeviper_tpu_torch.ops.norms import gated_rms_norm, rms_norm
 from timeviper_tpu_torch.ops.ssd import _process_dt
 from timeviper_tpu_torch.ops.ssd_kernel import NO_LIMIT, ssd_conv_scan_fused, ssd_scan
+from timeviper_tpu_torch.ops.flash_attention import (
+    cross_attention_bwd,
+    cross_attention_bwd_plain,
+    flash_attention_bwd,
+)
 from timeviper_tpu_torch.parallel.sharding import (
-    NOT_YET,
+    SEQ_X_MODEL,
     all_gather,
     axis_index,
     axis_size,
+    gather_replicated,
     ppermute,
     psum,
 )
@@ -147,11 +174,14 @@ def compose_spans(y_local, state_local, dA, C, *, mesh, seq_idx=None):
     else:
         cont_in = through = torch.ones(decays.shape[:2], device=dA.device)
     carry = torch.zeros_like(state_local)
+    inbounds = []
     for k in range(n):  # the prefix compose over the spans, in order
         inbound = carry * cont_in[k][:, None, None, None]
-        if k == my:
-            h_in = inbound
+        inbounds.append(inbound)
         carry = inbound * (decays[k] * through[k][:, None])[..., None, None] + states[k]
+    # every rank's graph reads the gathered states the same way: under
+    # autograd each gather's backward (a collective) then runs on every rank
+    h_in = torch.stack(inbounds)[my]
     Bsz, L, _, P = y_local.shape
     G, N = C.shape[-2:]
     y_corr = torch.einsum("blgn,bgrpn->blgrp", C.float(),
@@ -254,26 +284,103 @@ def attention_seq_ring(q, k, v, *, mesh, valid_g=None, seq_g=None):
     return merge_parts(parts)[0] if len(parts) > 1 else parts[0][0]
 
 
+def _span_attn(q, kg, vg, lo: int, seg):
+    """K9 over my block of the row (causal) and over the keys left of it
+    (non-causal), merged: (o, l, m). `seg` (B, L) int32 folded segment ids,
+    or None."""
+    hi = lo + q.shape[1]
+    sq = None if seg is None else seg[:, lo:hi]
+    parts = [block_attn_lse(q, kg[:, lo:hi], vg[:, lo:hi], causal=True, seg_q=sq, seg_kv=sq)]
+    if lo:
+        parts.append(block_attn_lse(q, kg[:, :lo], vg[:, :lo], causal=False, seg_q=sq,
+                                    seg_kv=None if seg is None else seg[:, :lo]))
+    return merge_parts(parts) if len(parts) > 1 else parts[0]
+
+
+def _part_bwd(q, k, v, o, dout, lse, causal: bool, seg=None):
+    """(dq, dk, dv) of one key part given the merged output and row
+    log-sum-exp: K2-bwd's causal mode (Lq == Lk, segment ids) or its
+    non-causal mode on the card, their formulas in f32 on the CPU."""
+    if q.device.type == "cpu":
+        mask = make_attention_mask(q.shape[1], k.shape[1], causal=causal, q_segment_ids=seg,
+                                   kv_segment_ids=seg, device=q.device)
+        return cross_attention_bwd_plain(q, k, v, o, dout, lse=lse, mask=mask)
+    k, v = k.contiguous(), v.contiguous()
+    if causal:
+        return flash_attention_bwd(q, k, v, o, dout, lse, seg)
+    return cross_attention_bwd(q, k, v, o, dout, lse)
+
+
+class SpanAttnFn(torch.autograd.Function):
+    """Causal attention of my span's queries q (B, Lloc, Hq, hd), rows lo on
+    of the row, over the gathered keys kg, vg (B, L, Hkv, hd). Forward: K9's
+    two parts merged (`_span_attn`), keeping o and the row log-sum-exp.
+    Backward: K2-bwd's causal mode over my block and its non-causal mode over
+    the keys left of it, each given the merged o and log-sum-exp, so that
+    each part's probabilities are the merged ones and the parts' gradients
+    add up. The non-causal mode takes no segment ids: with `seg`, it runs
+    once for each segment that my block shares with the keys left of it,
+    that segment's queries against its keys (a packed row's segments are
+    runs, so usually once)."""
+
+    @staticmethod
+    def forward(ctx, q, kg, vg, lo, seg):
+        o, l, m = _span_attn(q, kg, vg, lo, seg)
+        o = o.contiguous()  # merge_parts' weights are transposed views; K2-bwd reads rows
+        ctx.lo = lo
+        ctx.save_for_backward(q, kg, vg, o, row_lse(l, m), seg)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kg, vg, o, lse, seg = ctx.saved_tensors
+        lo = ctx.lo
+        hi = lo + q.shape[1]
+        dout = dout.contiguous()
+        sq = None if seg is None else seg[:, lo:hi].contiguous()
+        dq, dk_mine, dv_mine = _part_bwd(q, kg[:, lo:hi], vg[:, lo:hi], o, dout, lse, True, sq)
+        dq = dq.float()
+        dk, dv = torch.zeros_like(kg), torch.zeros_like(vg)
+        dk[:, lo:hi], dv[:, lo:hi] = dk_mine, dv_mine
+        if lo and seg is None:
+            a, b, c = _part_bwd(q, kg[:, :lo], vg[:, :lo], o, dout, lse, False)
+            dq += a.float()
+            dk[:, :lo], dv[:, :lo] = b, c
+        elif lo:
+            for bi in range(q.shape[0]):
+                r, left = slice(bi, bi + 1), seg[bi, :lo]
+                for s in torch.unique(sq[bi]).tolist():
+                    ki = (left == s).nonzero()[:, 0]
+                    if not len(ki):
+                        continue
+                    qi = (sq[bi] == s).nonzero()[:, 0]
+                    a, b, c = _part_bwd(q[r, qi], kg[r, ki], vg[r, ki], o[r, qi], dout[r, qi],
+                                        lse[r][:, :, qi].contiguous(), False)
+                    dq[r, qi] += a.float()
+                    dk[r, ki], dv[r, ki] = b, c
+        return dq.to(q.dtype), dk, dv, None, None
+
+
 def attention_seq_sharded(q, k, v, *, mesh, kv_valid=None, seq_g=None,
                           return_kv: bool = False):
     """Causal attention of the local queries against the all-gathered K/V
     (seq_parallel.py:375): K9 non-causal over the keys left of my span and
-    K9 causal over my own block, merged. `kv_valid` (L,) masks global key
-    slots (left pads, dropped tokens); `seq_g` (B, L) packed segment ids.
-    With `return_kv`, also the gathered (kg, vg) (B, L, Hkv, hd), the decode
-    cache's K/V for the layer."""
+    K9 causal over my own block, merged; under autograd `SpanAttnFn`, whose
+    backward is K2-bwd's, and the gather's transpose hands each rank its
+    keys' gradient. `kv_valid` (L,) masks global key slots (left pads,
+    dropped tokens; a masked query row attends the masked keys, as K9 folds
+    them); `seq_g` (B, L) packed segment ids. With `return_kv`, also the
+    gathered (kg, vg) (B, L, Hkv, hd), the decode cache's K/V for the layer."""
     my, Lloc = axis_index(mesh, SEQ), q.shape[1]
     kg = all_gather(k, mesh, SEQ, dim=1, tiled=True)
     vg = all_gather(v, mesh, SEQ, dim=1, tiled=True)
-    lo = my * Lloc
-    vm, sm = _span(kv_valid, my, Lloc, 0), _span(seq_g, my, Lloc, 1)
-    parts = [block_attn_lse(q, k, v, causal=True, valid_kv=vm, valid_q=vm, seg_q=sm, seg_kv=sm)]
-    if lo:
-        parts.append(block_attn_lse(
-            q, kg[:, :lo], vg[:, :lo], causal=False,
-            valid_kv=None if kv_valid is None else kv_valid[:lo], valid_q=vm, seg_q=sm,
-            seg_kv=None if seq_g is None else seq_g[:, :lo]))
-    out = merge_parts(parts)[0] if len(parts) > 1 else parts[0][0]
+    L = kg.shape[1]
+    seg = fold_segments(q.shape[0], L, L, valid_kv=kv_valid, valid_q=kv_valid, seg_q=seq_g,
+                        seg_kv=seq_g, device=q.device)[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, kg, vg)):
+        out = SpanAttnFn.apply(q, kg, vg, my * Lloc, seg)
+    else:
+        out = _span_attn(q, kg, vg, my * Lloc, seg)[0]
     return (out, (kg, vg)) if return_kv else out
 
 
@@ -362,7 +469,6 @@ def _zero_invalid(x, lv):
     return torch.where(lv[None, :, None], x, x.new_zeros(()))
 
 
-@torch.no_grad()
 def nano_prefill_seq_parallel(
     model: NanoModel,
     cfg: NanoConfig,
@@ -393,15 +499,15 @@ def nano_prefill_seq_parallel(
       dtype as nano_forward's; refused on a `data` axis above 1, as in the
       JAX package (a cache is one request's);
     * with `return_hidden`, this rank's (B / data, L / seq, D) post-norm
-      hidden rows (the forward of the packed-training hook; no gradient
-      flows through the collectives yet).
+      hidden rows (the forward of the packed-training hook).
+    Under autograd the logits and the hidden rows carry gradients (module
+    doc); a cache is filled without one.
     `seq_idx` (B, L) packs segments (nondecreasing ids). `use_pdrop` runs
     the config's stages on a batch-1 generation layout: the visual block of
     `pdrop_num_vision` rows at global row `pdrop_vision_start`, ranked by
     `pdrop_query_pos`, with the TransV modules `merge_params` (a
     MergeModules or None). `fused_conv` runs K5 on the layers before any
     drop (module doc)."""
-    Bg, L, _ = inputs_embeds.shape
     if use_pdrop and seq_idx is not None:
         raise ValueError("pdrop and packed seq_idx are exclusive")
     if fill_cache and return_hidden:
@@ -409,7 +515,18 @@ def nano_prefill_seq_parallel(
     if use_pdrop and return_hidden:
         raise ValueError("pdrop and return_hidden are exclusive")
     if axis_size(mesh, "model") > 1:
-        raise NotImplementedError(NOT_YET)
+        raise NotImplementedError(SEQ_X_MODEL)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not fill_cache):
+        return _prefill(model, cfg, inputs_embeds, mesh, logits_to_keep, valid_from, fill_cache,
+                        cache_max_len, seq_idx, return_hidden, use_pdrop, pdrop_vision_start,
+                        pdrop_num_vision, pdrop_query_pos, merge_params, fused_conv)
+
+
+def _prefill(model, cfg, inputs_embeds, mesh, logits_to_keep, valid_from, fill_cache,
+             cache_max_len, seq_idx, return_hidden, use_pdrop, pdrop_vision_start,
+             pdrop_num_vision, pdrop_query_pos, merge_params, fused_conv):
+    Bg, L, _ = inputs_embeds.shape
+    grad = torch.is_grad_enabled()
     n, my = axis_size(mesh, SEQ), axis_index(mesh, SEQ)
     nd, di = axis_size(mesh, "data"), axis_index(mesh, "data")
     if L % n or Bg % nd:
@@ -496,6 +613,8 @@ def nano_prefill_seq_parallel(
             cache.update(kv_cache_buffers(kg, vg_, cache_max_len))
             if use_pdrop:  # this layer's validity: a pre-stage layer keeps later drops
                 cache["kv_valid"] = F.pad(vg, (0, cache_max_len - L))
+        elif grad:
+            o = attention_seq_sharded(q, k, v, mesh=mesh, kv_valid=vg, seq_g=seq_glob)
         else:
             o = attention_seq_ring(q, k, v, mesh=mesh, valid_g=vg, seq_g=seq_glob)
         return m.o_proj(o.reshape(Bl, Lloc, Hq * hd))
@@ -543,13 +662,19 @@ def nano_prefill_seq_parallel(
             ca_kvs.append(ca_kv or {})
             dropped = dropped or cur_nv > keep
             valid_g, cur_nv = new_valid, keep
-        hidden, cache = apply_layer(block, hidden, valid_g, dropped)
+        if grad:  # each block checkpointed, as the Trainer's "full" remat
+            hidden, cache = checkpoint(
+                lambda h, b=block, v=valid_g, d=dropped: apply_layer(b, h, v, d)[0], hidden,
+                use_reentrant=False), {}
+        else:
+            hidden, cache = apply_layer(block, hidden, valid_g, dropped)
         cache_layers.append(cache)
     hidden = rms_norm(hidden, model.norm_f.weight, eps)
-    tails = all_gather(hidden[:, -logits_to_keep:], mesh, SEQ)  # the last rank's rows
-    logits = compute_logits(model, tails[-1])
+    # the last rank's rows' logits, a value every rank holds whole
+    logits = gather_replicated(compute_logits(model, hidden[:, -logits_to_keep:]), mesh,
+                               SEQ)[-1]
     if nd > 1:
-        logits = all_gather(logits, mesh, "data", dim=0, tiled=True)
+        logits = gather_replicated(logits, mesh, "data", dim=0, tiled=True)
     if return_hidden:
         return logits, hidden
     if not fill_cache:

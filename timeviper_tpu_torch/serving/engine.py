@@ -78,6 +78,11 @@ gives is whole on every rank, which inserts it into its own slots and
 decodes them on its own card. A pdrop request keeps the one-card pdrop
 prefill, as in the JAX engine, and a prefix state with slot-validity masks
 (`kv_valid`) is refused in a slot, as a pdrop one is.
+
+Tensor-parallel serving (`mesh` with a `model` axis above 1): the engine
+shards the model in place (parallel/tensor_parallel.py:shard_model, no
+FSDP), every rank runs it on the same requests with batch prefill on, and
+each rank's slot caches hold its own heads and channels.
 """
 
 from __future__ import annotations
@@ -101,7 +106,8 @@ from timeviper_tpu_torch.models.vlm import (
     llm_forward,
 )
 from timeviper_tpu_torch.ops.sampling import SamplingParams, sample_token
-from timeviper_tpu_torch.parallel.sharding import refuse_model_axis
+from timeviper_tpu_torch.parallel.sharding import axis_size
+from timeviper_tpu_torch.parallel.tensor_parallel import serving_arch
 
 
 @dataclasses.dataclass
@@ -154,10 +160,11 @@ class ServingEngine:
         prefill_chunk_tokens: Optional[int] = None,
         pdrop_frames: Optional[int] = None,
     ) -> None:
-        refuse_model_axis(mesh)
-        # batching bypasses the sequence-sharded prefill: with a mesh every
-        # request takes the per-request one
-        self.batch_prefill = mesh is None
+        # a model axis shards the model in place (the caches hold the local
+        # heads); batching bypasses the sequence-sharded prefill: with a seq
+        # axis every request takes the per-request one
+        arch = serving_arch(model, arch, mesh)
+        self.batch_prefill = axis_size(mesh, "seq") == 1
         self.model = model
         self.arch = arch
         self.num_slots = num_slots

@@ -14,9 +14,17 @@ mode). A checkpoint is the reference's torch weights directory that
 models/api.py:load_pretrained_vlm reads; `--projector_checkpoint` takes a
 reference `.bin` or a directory this CLI wrote with
 train/checkpoint.py:save_params. The JAX package's orbax directories are not
-read. The port trains on one device: `--data_parallel` and
-`--model_parallel` above 1 raise (ROADMAP Queue 1 item 4), and `--no_fsdp`
-means nothing here.
+read.
+
+`--data_parallel` and `--model_parallel` above 1 train on a mesh of that
+many ranks, launched by torchrun, one card a rank with NCCL between them
+(gloo with `--device cpu`); `--no_fsdp` keeps every leaf whole over the
+data axis (train/trainer.py). Every rank reads the same data in the same
+order (the loader yields its batches in index order, whatever
+`--num_workers`) and takes its rows; rank 0 alone writes the log file and
+the artifacts, whole tensors gathered from the shards:
+
+  torchrun --nproc_per_node 2 -m timeviper_tpu_torch.train.cli ... --data_parallel 2
 
 The final artifacts (reference save_training_artifacts, train.py:240-273)
 go to <run_dir>/final: the model's state dict (`params/params.pt`),
@@ -84,9 +92,9 @@ def get_args(argv=None):
     p.add_argument("--no_resume", action="store_true")
     # parallelism
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="one device only: above 1 raises (ROADMAP Queue 1 item 4)")
+                   help="data-parallel ranks, one process each (torchrun)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="one device only: above 1 raises (ROADMAP Queue 1 item 4)")
+                   help="tensor-parallel ranks, one process each (torchrun)")
     p.add_argument("--no_fsdp", action="store_true")
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--remat_policy", type=str, default="full",
@@ -131,7 +139,7 @@ def _run(args, device, overwatch):
     from timeviper_tpu_torch.models.api import build_arch
     from timeviper_tpu_torch.models.vlm import init_vlm_params
     from timeviper_tpu_torch.train.checkpoint import save_params
-    from timeviper_tpu_torch.train.lora import add_lora, split_lora_state
+    from timeviper_tpu_torch.train.lora import add_lora
     from timeviper_tpu_torch.train.optim import OptimConfig
     from timeviper_tpu_torch.train.trainer import Trainer, TrainerConfig
     from timeviper_tpu_torch.utils.profiling import nan_debug
@@ -200,8 +208,9 @@ def _run(args, device, overwatch):
         save_every=args.save_every, data_parallel=args.data_parallel,
         model_parallel=args.model_parallel, remat=not args.no_remat, remat_policy=args.remat_policy, use_pdrop=args.use_pdrop,
         trainable_modules=args.trainable_modules, lora=args.lora_enable,
-        resume=not args.no_resume)
+        resume=not args.no_resume, fsdp_params=not args.no_fsdp)
     trainer = Trainer(arch, model, optim_cfg, trainer_cfg, device=device)
+    writer = trainer.writer
 
     with nan_debug(args.debug_nans):
         epoch = 0
@@ -225,11 +234,14 @@ def _run(args, device, overwatch):
     if args.lora_enable:
         final_meta["lora"] = {"r": args.lora_r, "alpha": args.lora_alpha,
                               "quantized_base": args.lora_quantize_base}
-    save_params(os.path.join(final, "params"), model.state_dict(), meta=final_meta)
+    state = trainer.full_state_dict()  # whole tensors (a collective on a mesh)
+    if not writer:
+        return trainer
+    save_params(os.path.join(final, "params"), state, meta=final_meta)
     if args.lora_enable:
         # the reference's lora vs non_lora_trainables.bin split (train.py:244-250);
         # npz has no bfloat16: bf16 factors as exact f32, their dtypes beside
-        lora_sd, _ = split_lora_state(model)
+        lora_sd = {k: v for k, v in state.items() if k.rpartition(".")[2].startswith("lora_")}
         np.savez(os.path.join(final, "lora_state.npz"),
                  **{k: v.detach().float().cpu().numpy() if v.dtype == torch.bfloat16
                     else v.detach().cpu().numpy() for k, v in lora_sd.items()})
@@ -246,17 +258,24 @@ def main(argv=None):
     """Parse `argv`, train, write the final artifacts; returns the Trainer
     (its `history` holds each logged step's metrics)."""
     args = get_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError("the port trains on one device: --data_parallel and "
-                                  "--model_parallel above 1 wait for ROADMAP Queue 1 item 4")
     from timeviper_tpu_torch.device import resolve_device
     from timeviper_tpu_torch.utils.overwatch import Tee, initialize_overwatch, tee_output
 
+    rank = 0
+    if args.data_parallel > 1 or args.model_parallel > 1:
+        import torch.distributed as dist
+
+        from timeviper_tpu_torch.utils.dist import initialize_distributed
+
+        # NCCL between cards; gloo when the ranks run on the CPU
+        initialize_distributed("gloo" if args.device == "cpu" else "nccl")
+        rank = dist.get_rank() if dist.is_initialized() else 0
     device = resolve_device(args.device)  # the card, unless --device names another
     overwatch = initialize_overwatch("train")
     os.makedirs(args.run_dir, exist_ok=True)
     streams = sys.stdout, sys.stderr
-    tee_output(os.path.join(args.run_dir, "train.log"))
+    if rank == 0:
+        tee_output(os.path.join(args.run_dir, "train.log"))
     # the trainer's step lines go to the tee as well, for this run
     pkg = logging.getLogger("timeviper_tpu_torch")
     handler, level = logging.StreamHandler(sys.stdout), pkg.level

@@ -7,7 +7,9 @@ same weight and bias and adds factors in the JAX package's layout: `lora_a`
 zero, so the model starts equal to the base, and `lora_scale` = alpha / r.
 Targets are the JAX package's regexes, matched against the port's parameter
 paths written the JAX way (`llm_backbone/layers/0/mixer/in_proj/x/kernel`).
-The forward is y = x W^T + b + (x a b) * scale.
+The forward is y = x W^T + b + (x a b) * scale. Plant the factors before
+parallel/tensor_parallel.py:shard_model cuts the model: on a sharded base
+the factors stay whole and the forward takes its shard of them.
 
 QLoRA: a targeted int8 linear (ops/int8_linear.py:Int8Linear, from
 train/quantize.py) becomes a `LoRAInt8Linear`, whose base is the weight-only
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from timeviper_tpu_torch.ops.int8_linear import Int8Linear, quantize_weight
+from timeviper_tpu_torch.parallel.tensor_parallel import tp_linear
 
 DEFAULT_TARGETS = (
     r".*(q_proj|k_proj|v_proj|o_proj|up_proj|down_proj|gate_proj)/kernel",
@@ -58,6 +61,8 @@ class LoRALinear(nn.Module):
                              torch.tensor(alpha / rank, dtype=torch.float32, device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if getattr(self, "tp", None) is not None:  # a shard (parallel/tensor_parallel.py)
+            return tp_linear(self, x)
         y = F.linear(x, self.weight, self.bias)
         delta = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
         return y + delta * self.lora_scale.to(y.dtype)

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from timeviper_tpu_torch.parallel.sharding import LATER
 from timeviper_tpu_torch.config import NanoConfig
 from timeviper_tpu_torch.data.fusion import IGNORE_INDEX
 from timeviper_tpu_torch.device import resolve_device
@@ -116,7 +117,8 @@ class StreamedTrainer:
     """Layer-streamed full-parameter LM fine-tuning of the nano backbone.
 
     host_params: the master copy (`host_params(model)`: the port's state_dict
-    names, f32 numpy), updated in place by `train_step`. The card (or
+    names, f32 numpy), updated in place by `train_step`. It runs on one
+    device: a `mesh` of more than one rank raises. The card (or
     `device`) holds one block per block type, the embedding table and the
     step's hidden states. `pinned` (default: on a CUDA device) stages the
     transfers through the pinned, double-buffered host buffers; without it
@@ -124,7 +126,10 @@ class StreamedTrainer:
 
     def __init__(self, cfg: NanoConfig, host: HostParams, *, lr=1e-5, weight_decay=0.0,
                  compute_dtype=torch.bfloat16, logits_chunk: int = 2048, device=None,
-                 pinned: Optional[bool] = None):
+                 pinned: Optional[bool] = None, mesh=None):
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(f"the layer-streamed trainer on a mesh comes with the "
+                                      f"next parallelism slice ({LATER})")
         self.cfg = cfg
         self.host = host
         self.dtype = compute_dtype

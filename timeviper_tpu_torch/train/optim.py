@@ -96,6 +96,9 @@ class AdamW:
     def __init__(self, params: Dict[str, nn.Parameter], cfg: OptimConfig):
         self.params = dict(params)
         self.cfg = cfg
+        # the clip's norm of the gradients by name; a mesh sets the one that
+        # sums over the shards (parallel/tensor_parallel.py:global_norm)
+        self.norm_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None
         self.frozen = set()  # names whose gradients are zeroed (apply_freeze)
         lrs = {"vision": cfg.vision_lr, "projector": cfg.projector_lr, "llm": cfg.llm_lr,
                "merge": cfg.merge_lr}
@@ -112,7 +115,7 @@ class AdamW:
         g = {n: (torch.zeros_like(self.mu[n]) if n in self.frozen else grads[n].float())
              for n in self.params}
         if cfg.max_grad_norm and cfg.max_grad_norm > 0:
-            norm = global_norm(g.values())
+            norm = self.norm_fn(g) if self.norm_fn is not None else global_norm(g.values())
             if not bool(norm < cfg.max_grad_norm):
                 g = {n: t / norm * cfg.max_grad_norm for n, t in g.items()}
         self.count += 1

@@ -35,6 +35,7 @@ from torch import nn
 
 from timeviper_tpu_torch.ops import int8_linear
 from timeviper_tpu_torch.ops.int8_linear import LLM_SWITCH, Int8Linear
+from timeviper_tpu_torch.parallel.tensor_parallel import TPLinear
 from timeviper_tpu_torch.train.lora import LORA_MODULES, LoRAInt8Linear, LoRALinear
 
 IN_PROJ_ORDER = ("gate", "x", "B", "C", "dt")
@@ -124,13 +125,17 @@ def _fuse(ip: nn.ModuleDict):
         return Int8Linear(torch.cat([lf.kernel_q for lf in leaves]),
                           torch.cat([lf.kernel_scale for lf in leaves]),
                           biases, act_inv, leaves[0].switch)
-    if all(type(lf) is nn.Linear for lf in leaves):
+    if all(type(lf) is type(leaves[0]) for lf in leaves) \
+            and type(leaves[0]) in (nn.Linear, TPLinear):
+        # a model axis's shard fuses its own parts (the same column role)
         w = torch.cat([lf.weight for lf in leaves])
         fused = nn.Linear(w.shape[1], w.shape[0], bias=biases is not None,
                           dtype=w.dtype, device=w.device)
         fused.weight.copy_(w)
         if biases is not None:
             fused.bias.copy_(biases)
+        if isinstance(leaves[0], TPLinear):
+            fused.__class__, fused.tp = TPLinear, leaves[0].tp
         return fused
     return None  # mixed layouts stay split
 

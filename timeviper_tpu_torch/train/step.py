@@ -11,6 +11,15 @@ the step into `grad_step`, `accumulate_grads` and `apply_step`, so each
 microbatch may have its own fusion plan. `use_pdrop` runs the config's pdrop
 stages in the loss (models/vlm.py:vlm_loss), as the JAX step builders take
 it (step.py:42-49).
+
+On a mesh (`layout`, parallel/tensor_parallel.py:MeshLayout) each rank
+takes its rows of the global batch; its objective is the mean of its rows'
+losses over the data axis's size, so that the data ranks' objectives sum to
+the JAX package's mean over the global batch. The FSDP leaves read whole
+where the forward uses them and their gradients come back reduce-scattered
+(parallel/tensor_parallel.py:FSDPGather); the other gradients are psummed
+over `data` (`sync_grads`), the metrics' loss and token count are psummed,
+and the norms sum the shards.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from torch import nn
 
 from timeviper_tpu_torch.data.fusion import FusionPlan
 from timeviper_tpu_torch.models.vlm import TimeViperVLM, VLMArch, vlm_loss
+from timeviper_tpu_torch.parallel.sharding import psum
+from timeviper_tpu_torch.parallel.tensor_parallel import MeshLayout, sync_grads
+from timeviper_tpu_torch.parallel.tensor_parallel import global_norm as mesh_norm
 from timeviper_tpu_torch.train.lora import trainable_lora_state
 from timeviper_tpu_torch.train.optim import AdamW, freeze_mask, global_norm
 
@@ -51,30 +63,39 @@ def trainable_params(model: nn.Module, lora: bool,
 
 
 def grad_metrics(loss: torch.Tensor, aux: Dict[str, torch.Tensor],
-                 grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads.values()),
+                 grads: Dict[str, torch.Tensor], layout: Optional[MeshLayout] = None
+                 ) -> Dict[str, torch.Tensor]:
+    metrics = {"loss": loss.detach(), "grad_norm": mesh_norm(layout, grads),
                "n_tokens": aux["n_tokens"]}
     for mod in MODULES:
-        sub = [g for n, g in grads.items() if n.split(".")[0] == mod]
+        sub = {n: g for n, g in grads.items() if n.split(".")[0] == mod}
         if sub:
-            metrics[f"grad_norm/{mod}"] = global_norm(sub)
+            metrics[f"grad_norm/{mod}"] = mesh_norm(layout, sub)
     return metrics
 
 
 def grad_step(model: TimeViperVLM, arch: VLMArch, params: Dict[str, nn.Parameter],
               batch: Dict[str, torch.Tensor], plan: FusionPlan, remat=True,
-              use_pdrop: bool = False
+              use_pdrop: bool = False, layout: Optional[MeshLayout] = None
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(metrics, f32 gradients of the mean row loss) for `params`; a
-    parameter that takes no gradient gets zeros."""
-    loss, aux = vlm_loss(model, arch, batch, plan, remat=remat, use_pdrop=use_pdrop)
+    parameter that takes no gradient gets zeros. With a `layout` the batch
+    is this rank's rows and `arch` the local one (module doc)."""
+    nd = layout.nd if layout is not None else 1
     live = [n for n, p in params.items() if p.requires_grad]
+    loss, aux = vlm_loss(model, arch, batch, plan, remat=remat, use_pdrop=use_pdrop)
+    if nd > 1:
+        loss = loss / nd
     got = torch.autograd.grad(loss, [params[n] for n in live], allow_unused=True)
     grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
     for n, g in zip(live, got):
         if g is not None:
             grads[n] = g.float()
-    return grad_metrics(loss, aux, grads), grads
+    if nd > 1:
+        grads = sync_grads(layout, grads)
+        loss = psum(loss.detach(), layout.mesh, "data")
+        aux = {**aux, "n_tokens": psum(aux["n_tokens"], layout.mesh, "data")}
+    return grad_metrics(loss, aux, grads, layout), grads
 
 
 def accumulate_grads(acc: Optional[Dict[str, torch.Tensor]],
@@ -93,13 +114,14 @@ def apply_step(opt: AdamW, grads: Dict[str, torch.Tensor], denom: float
     microbatches)."""
     grads = {n: g / denom for n, g in grads.items()}
     opt.update(grads)
-    return {"grad_norm": global_norm(grads.values())}
+    norm = opt.norm_fn(grads) if opt.norm_fn is not None else global_norm(grads.values())
+    return {"grad_norm": norm}
 
 
 def train_step(model: TimeViperVLM, arch: VLMArch, opt: AdamW,
-               batch: Dict[str, Any], plan: FusionPlan, remat=True, use_pdrop: bool = False
-               ) -> Dict[str, torch.Tensor]:
+               batch: Dict[str, Any], plan: FusionPlan, remat=True, use_pdrop: bool = False,
+               layout: Optional[MeshLayout] = None) -> Dict[str, torch.Tensor]:
     """Forward, backward and one update of `opt`'s parameters."""
-    metrics, grads = grad_step(model, arch, opt.params, batch, plan, remat, use_pdrop)
+    metrics, grads = grad_step(model, arch, opt.params, batch, plan, remat, use_pdrop, layout)
     opt.update(grads)
     return metrics
